@@ -64,3 +64,18 @@ def init_i3d_state(seed: int = 0, num_classes: int = 400) -> Dict[str, torch.Ten
             a = np.zeros(shape, np.float32)
         sd[key] = torch.from_numpy(a)
     return sd
+
+
+def attack_state_from_jax(delta, mu, nu, count):
+    """The JAX engine's attack state as the port's: delta and the Adam
+    moments (``state.opt_state.inner_state[0].mu`` / ``.nu``) as numpy arrays
+    [T,1,1,C], and the step count, -> :class:`AttackState` on the CPU."""
+    from ..engine.attack_step import AttackState
+
+    return AttackState(_t(delta), _t(mu), _t(nu), int(count))
+
+
+def attack_state_to_jax(state):
+    """The inverse: (delta, mu, nu, count) as numpy arrays and an int."""
+    sd = state.state_dict()
+    return sd["delta"].numpy(), sd["mu"].numpy(), sd["nu"].numpy(), sd["step"]

@@ -53,6 +53,34 @@ __device__ __forceinline__ int64_t grid_stride() {
   return int64_t(gridDim.x) * blockDim.x;
 }
 
+// Position of a flat index in a tensor of rows [.., T, row_len] whose
+// innermost axis has C channels (row_len % C == 0): the frame t of the row
+// and the channel c, advanced one element at a time without divisions.
+struct RowCursor {
+  int64_t row_len;
+  int64_t r;  // offset within the row
+  int T, C, t, c;
+
+  __device__ __forceinline__ RowCursor(int64_t i, int64_t row_len_, int T_, int C_)
+      : row_len(row_len_), T(T_), C(C_) {
+    const int64_t row = i / row_len;
+    r = i - row * row_len;
+    t = int(row % T);
+    c = int(r % C);
+  }
+
+  __device__ __forceinline__ void next() {
+    if (++c == C) c = 0;
+    if (++r == row_len) {
+      r = 0;
+      c = 0;
+      if (++t == T) t = 0;
+    }
+  }
+};
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 }  // namespace fav
 
 FAV_API const char* fav_error_string(int code);

@@ -1,0 +1,207 @@
+// B8: fused uint8 decode + normalize + flicker apply + clip, and its backward.
+//
+// Replaces the Pallas kernels of ops/fused_apply.py of the JAX package:
+// forward `_fwd_kernel` :68 (fused_normalize_perturb :132, pallas_call :144),
+// backward `_bwd_kernel` :86 (`_bwd` :172, pallas_call :184).
+//
+//   forward:  out[b,t,h,w,c] = clip(u8/128 - 1 + flag*delta[t,c], -1, 1)   f32
+//   backward: dd[t,c] = flag * sum_{b,h,w} g[b,t,h,w,c] * [-1 < pre < 1]   f32
+//
+// The bounds are the literals -1 and 1, and the backward's mask is STRICT, as
+// the TPU kernel's is: the gradient at an exact bound is 0 (jnp.clip, and the
+// emitter B7, give 0.5 there).  u8 value 0 under delta 0 sits exactly on -1.
+//
+// Both are bound by bytes on the H100 (forward: 1 read + 4 written per
+// element; backward: 5 read).  The TPU kernel's geometry limits (H*W*C % 128,
+// B*T % 8) were Mosaic block constraints and do not exist here.
+//
+// Forward design: as B7 -- 16 consecutive elements per thread (one 16-byte
+// load, four 16-byte stores), the channel and frame from a cursor over the
+// element index, flag*delta [T,C] in shared memory (the product is rounded on
+// its own, then added: the arithmetic of `x + flag*delta`, with no fused
+// multiply-add).  The last n % 16 elements go one a thread after the vectors.
+// The tensors' bases must be 16-byte aligned, as every torch allocation is;
+// otherwise the launch is refused (cudaErrorMisalignedAddress).
+//
+// Backward design: deterministic, no float atomics.  A row (b,t) of H*W*C
+// elements is contiguous, so a block takes a slice of ONE row: t is a block
+// constant, c is the element index mod C, and every thread keeps kMaxC f32
+// accumulators.  The block reduces them in a fixed order (warp shuffles, then
+// the warps in order) and writes C partials; a second small kernel sums the
+// partials of each (t,c) over (b, slice) in a fixed order and applies the
+// flag.  The same input therefore gives the same bits on every run.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kMaxC = 4;            // accumulators per thread in the backward
+constexpr int kSlice = 16 * fav::kThreads * 4;  // elements of a row per block
+
+__device__ __forceinline__ float fwd_one(uint8_t u, float fd) {
+  const float pre = __fadd_rn(float(u) * (1.0f / 128.0f) - 1.0f, fd);
+  return fminf(fmaxf(pre, -1.0f), 1.0f);
+}
+
+__global__ void __launch_bounds__(fav::kThreads)
+fused_apply_fwd_kernel(const uint8_t* __restrict__ u8, const float* __restrict__ delta,
+                       const float* __restrict__ flag, float* __restrict__ out, int64_t n,
+                       int64_t row_len, int Tn, int C) {
+  extern __shared__ float sfd[];
+  const float f = *flag;
+  for (int k = threadIdx.x; k < Tn * C; k += blockDim.x) sfd[k] = __fmul_rn(f, delta[k]);
+  __syncthreads();
+  const int64_t n_vec = n / 16;
+  for (int64_t v = fav::global_tid(); v < n_vec; v += fav::grid_stride()) {
+    const int64_t i0 = v * 16;
+    const uint4 raw = *reinterpret_cast<const uint4*>(u8 + i0);
+    const uint8_t* ub = reinterpret_cast<const uint8_t*>(&raw);
+    fav::RowCursor cur(i0, row_len, Tn, C);
+    alignas(16) float a[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      a[j] = fwd_one(ub[j], sfd[cur.t * C + cur.c]);
+      cur.next();
+    }
+    float4* dst = reinterpret_cast<float4*>(out + i0);
+    const float4* src = reinterpret_cast<const float4*>(a);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[q] = src[q];
+  }
+  // the last n % 16 elements, one a thread
+  for (int64_t i = n_vec * 16 + fav::global_tid(); i < n; i += fav::grid_stride()) {
+    const fav::RowCursor cur(i, row_len, Tn, C);
+    out[i] = fwd_one(u8[i], sfd[cur.t * C + cur.c]);
+  }
+}
+
+__device__ __forceinline__ void bwd_accumulate(float (&acc)[kMaxC], uint8_t u, float g, int c,
+                                               const float (&fd)[kMaxC]) {
+  float d = fd[0];
+#pragma unroll
+  for (int k = 1; k < kMaxC; ++k) d = c == k ? fd[k] : d;
+  const float pre = __fadd_rn(float(u) * (1.0f / 128.0f) - 1.0f, d);
+  const float v = (pre < 1.0f && pre > -1.0f) ? g : 0.0f;  // strict: 0 at a bound
+#pragma unroll
+  for (int k = 0; k < kMaxC; ++k) acc[k] += c == k ? v : 0.0f;
+}
+
+// grid: rows * slices blocks; block (row, s) reduces elements
+// [s*kSlice, min((s+1)*kSlice, row_len)) of its row into partial[row, s, 0..C).
+__global__ void __launch_bounds__(fav::kThreads)
+fused_apply_bwd_partial_kernel(const uint8_t* __restrict__ u8, const float* __restrict__ delta,
+                               const float* __restrict__ flag, const float* __restrict__ g,
+                               float* __restrict__ partial, int64_t row_len, int slices, int Tn,
+                               int C) {
+  const int64_t row = blockIdx.x / slices;
+  const int s = int(blockIdx.x % slices);
+  const int t = int(row % Tn);
+  const float f = *flag;
+  float fd[kMaxC], acc[kMaxC];
+#pragma unroll
+  for (int k = 0; k < kMaxC; ++k) {
+    fd[k] = k < C ? __fmul_rn(f, delta[t * C + k]) : 0.0f;
+    acc[k] = 0.0f;
+  }
+  const int64_t lo = int64_t(s) * kSlice;
+  const int64_t hi = (lo + kSlice < row_len) ? lo + kSlice : row_len;
+  const uint8_t* urow = u8 + row * row_len;
+  const float* grow = g + row * row_len;
+  // rows of whole 16-element vectors start 16-byte aligned and are read as
+  // such; any other row length is read element by element
+  const int64_t vec_hi = row_len % 16 == 0 ? hi : lo;
+  for (int64_t i0 = lo + int64_t(threadIdx.x) * 16; i0 < vec_hi; i0 += int64_t(blockDim.x) * 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(urow + i0);
+    const uint8_t* ub = reinterpret_cast<const uint8_t*>(&raw);
+    alignas(16) float gv[16];
+    const float4* gsrc = reinterpret_cast<const float4*>(grow + i0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) reinterpret_cast<float4*>(gv)[q] = gsrc[q];
+    int c = int(i0 % C);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      bwd_accumulate(acc, ub[j], gv[j], c, fd);
+      if (++c == C) c = 0;
+    }
+  }
+  for (int64_t i = vec_hi + threadIdx.x; i < hi; i += blockDim.x)
+    bwd_accumulate(acc, urow[i], grow[i], int(i % C), fd);
+  // fixed-order block reduction: shuffle tree within a warp, then warp 0..7
+  __shared__ float warp_sum[fav::kThreads / 32][kMaxC];
+#pragma unroll
+  for (int k = 0; k < kMaxC; ++k) {
+    float v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < C) {
+    float v = 0.0f;
+    for (int w = 0; w < fav::kThreads / 32; ++w) v += warp_sum[w][threadIdx.x];
+    partial[(row * slices + s) * C + threadIdx.x] = v;
+  }
+}
+
+// One thread per (t,c): dd[t,c] = flag * sum over b, then slices, in order.
+__global__ void __launch_bounds__(fav::kThreads)
+fused_apply_bwd_final_kernel(const float* __restrict__ partial, const float* __restrict__ flag,
+                             float* __restrict__ dd, int64_t B, int slices, int Tn, int C) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Tn * C) return;
+  const int t = i / C, c = i % C;
+  float v = 0.0f;
+  for (int64_t b = 0; b < B; ++b) {
+    const float* p = partial + ((b * Tn + t) * slices) * C + c;
+    for (int s = 0; s < slices; ++s) v += p[int64_t(s) * C];
+  }
+  dd[i] = __fmul_rn(*flag, v);
+}
+
+}  // namespace
+
+// u8 [B,T,row_len] (row_len = H*W*C), delta [T,C] f32, flag [1] f32 on the
+// device, out f32 like u8.
+FAV_API int fav_fused_apply_fwd(const void* u8, const void* delta, const void* flag, void* out,
+                                int64_t B, int64_t T, int64_t row_len, int64_t C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t n = B * T * row_len;
+  if (n == 0) return 0;
+  const size_t smem = size_t(T) * C * sizeof(float);
+  if (C <= 0 || row_len % C || smem > 48 * 1024) return int(cudaErrorInvalidValue);
+  const uint8_t* u = static_cast<const uint8_t*>(u8);
+  const float* d = static_cast<const float*>(delta);
+  const float* f = static_cast<const float*>(flag);
+  float* o = static_cast<float*>(out);
+  if (!fav::aligned16(u8) || !fav::aligned16(out)) return int(cudaErrorMisalignedAddress);
+  fused_apply_fwd_kernel<<<fav::grid_for(n / 16 + 1), fav::kThreads, smem, s>>>(
+      u, d, f, o, n, row_len, int(T), int(C));
+  return int(cudaGetLastError());
+}
+
+// g f32 like u8; partial [B*T, slices, C] f32 scratch, slices =
+// ceil(row_len / kSlice) (the wrapper's SLICE must equal kSlice); dd [T,C] f32.
+FAV_API int fav_fused_apply_bwd(const void* u8, const void* delta, const void* flag, const void* g,
+                                void* partial, void* dd, int64_t B, int64_t T, int64_t row_len,
+                                int64_t C, int64_t slices, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C <= 0 || C > kMaxC || row_len % C || T <= 0 || B <= 0 || row_len <= 0)
+    return int(cudaErrorInvalidValue);
+  if (slices != (row_len + kSlice - 1) / kSlice) return int(cudaErrorInvalidValue);
+  const int64_t blocks = B * T * slices;
+  if (blocks > (int64_t(1) << 31) - 1) return int(cudaErrorInvalidValue);
+  const uint8_t* u = static_cast<const uint8_t*>(u8);
+  const float* d = static_cast<const float*>(delta);
+  const float* f = static_cast<const float*>(flag);
+  const float* gp = static_cast<const float*>(g);
+  float* p = static_cast<float*>(partial);
+  if (!fav::aligned16(u8) || !fav::aligned16(g)) return int(cudaErrorMisalignedAddress);
+  fused_apply_bwd_partial_kernel<<<unsigned(blocks), fav::kThreads, 0, s>>>(
+      u, d, f, gp, p, row_len, int(slices), int(T), int(C));
+  int code = int(cudaGetLastError());
+  if (code) return code;
+  const int n_out = int(T * C);
+  fused_apply_bwd_final_kernel<<<(n_out + fav::kThreads - 1) / fav::kThreads, fav::kThreads, 0, s>>>(
+      p, f, static_cast<float*>(dd), B, int(slices), int(T), int(C));
+  return int(cudaGetLastError());
+}

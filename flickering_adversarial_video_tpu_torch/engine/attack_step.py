@@ -7,7 +7,14 @@ for the tanh world and the flickering delta.  One ``train_step``:
 * the uint8 batch (``"video"`` [B,T,H,W,3], packed on the device, or the
   host-packed ``"video_packed"`` [B,T/2,H/2,W/2,24]) enters the input head
   (``ops/packed_apply.flicker_stem``): x/128-1 + flag*clip(delta), clipped to
-  [-1, 1], and the stem conv (kernel B1);
+  [-1, 1] (kernel B7), and the stem conv (kernel B1);
+* with ``AttackConfig.use_pallas_fused`` the unpacked uint8 ``"video"`` goes
+  through ``ops/fused_apply.fused_normalize_perturb`` (kernel B8) to an f32
+  clip and the victim's own forward, and B8's backward reduces d(adv) to
+  d(delta); eval and ``forward`` then take the generic path (normalize,
+  ``apply_perturbation``, the victim's forward), as the JAX engine's do.  A
+  victim without a packed stem (no ``stem_params``) runs the generic path
+  throughout;
 * the frozen I3D trunk gives logits; the adversarial loss, the four
   regularizers and their weighted sum give the total;
 * the backward runs over delta only; Adam with the step's learning rate
@@ -30,7 +37,7 @@ from ..attack import losses as losses_lib
 from ..attack import metrics as metrics_lib
 from ..attack import perturbation as pert_lib
 from ..attack import regularizers as reg_lib
-from ..models.i3d import InceptionI3D
+from ..ops.fused_apply import fused_normalize_perturb
 from ..ops.packed_apply import flicker_stem
 from ..ops.space_to_depth import pack_input
 
@@ -48,6 +55,10 @@ class AttackConfig:
     reg_weighting: str = "tf"          # 'tf' (b1,b2,b3) | 'torch' (b1,1-b1)
     exclude_misclassify: bool = True
     target_class: Optional[int] = None
+    # route preprocess + apply through the fused kernel B8
+    # (ops/fused_apply.py; the YAML key USE_PALLAS_FUSED): unpacked uint8
+    # input, input bounds exactly [-1, 1]
+    use_pallas_fused: bool = False
     # attacked frame window [start, end], inclusive; None = every frame
     frame_window: Optional[Tuple[int, int]] = None
 
@@ -71,26 +82,51 @@ class AttackState:
     nu: torch.Tensor       # Adam second moment
     step: int = 0
 
+    def state_dict(self) -> Dict:
+        """Plain dict of CPU tensors and the step (what a checkpoint holds)."""
+        return {"delta": self.delta.detach().cpu(), "mu": self.mu.detach().cpu(),
+                "nu": self.nu.detach().cpu(), "step": int(self.step)}
+
+    def load_state_dict(self, sd: Dict) -> "AttackState":
+        """A new state with `sd`'s values on this state's device."""
+        for k in ("delta", "mu", "nu"):
+            if tuple(sd[k].shape) != tuple(self.delta.shape):
+                raise ValueError(f"checkpoint {k} {tuple(sd[k].shape)} does not match "
+                                 f"the attack's delta {tuple(self.delta.shape)}")
+        dev, dt = self.delta.device, self.delta.dtype
+        return AttackState(*(torch.as_tensor(sd[k]).to(dev, dt) for k in ("delta", "mu", "nu")),
+                           int(sd["step"]))
+
 
 class AttackEngine:
     """Attack/eval steps for one (victim, spec, config) triple on the
-    model's device.  ``model`` is the frozen :class:`InceptionI3D`."""
+    model's device.  ``model`` is the frozen victim: an :class:`InceptionI3D`
+    (whose ``stem_params``/``trunk`` open the packed input head), or any
+    module mapping a clip [B,T,H,W,C] in [-1, 1] to logits (generic path)."""
 
     def __init__(
-        self, model: InceptionI3D, spec: pert_lib.FlickerSpec,
+        self, model: torch.nn.Module, spec: pert_lib.FlickerSpec,
         config: AttackConfig = AttackConfig(), track_probs: bool = True,
     ):
         if config.reg_weighting not in ("tf", "torch"):
             raise ValueError(f"reg_weighting {config.reg_weighting!r}")
+        if config.use_pallas_fused and (spec.input_min, spec.input_max) != (-1.0, 1.0):
+            raise ValueError(
+                "use_pallas_fused clips to the fixed bounds [-1, 1]; the spec's are "
+                f"[{spec.input_min}, {spec.input_max}]"
+            )
         self.model = model
         self.spec = spec
         self.config = config
         self.track_probs = track_probs
-        self.device = model.device
+        self.device = next(iter(model.state_dict().values())).device
         self._mask = None
         if config.frame_window is not None:
             start, end = config.frame_window
             self._mask = pert_lib.frame_mask(spec.frames, start, end, device=self.device)
+        # made once: the clean forward's zero delta, and flag tensors by value
+        self._zero_delta = torch.zeros(spec.shape, device=self.device)
+        self._flags: Dict[float, torch.Tensor] = {}
 
     # ---------- state and batches ----------
 
@@ -98,42 +134,84 @@ class AttackEngine:
         delta = pert_lib.init_delta(self.spec, device=self.device)
         return AttackState(delta, torch.zeros_like(delta), torch.zeros_like(delta), 0)
 
-    def prepare_batch(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(packed uint8 clip [B,T/2,H/2,W/2,24] on the device, labels int64)."""
-        if "video_packed" in batch:
-            packed = torch.as_tensor(batch["video_packed"], device=self.device)
-        else:
-            video = torch.as_tensor(batch["video"], device=self.device)
-            if video.dtype != torch.uint8:
-                raise TypeError("the attack step takes uint8 clips")
-            packed = pack_input(video).contiguous()
+    def _packed_supported(self) -> bool:
+        """Can batches take the packed input head?  (The JAX engine's
+        ``_packed_supported``: a packed forward exists and the fused-kernel
+        mode is off.)"""
+        return hasattr(self.model, "stem_params") and not self.config.use_pallas_fused
+
+    def prepare_batch(self, batch: Dict) -> Tuple[torch.Tensor, bool, torch.Tensor]:
+        """(clip on the device, packed?, labels int64).  packed: the uint8
+        space-to-depth clip [B,T/2,H/2,W/2,24] of the input head, host-packed
+        (``"video_packed"``) or packed here from a uint8 ``"video"``; else the
+        ``"video"`` as it came, for the fused-kernel and generic paths."""
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
-        return packed, labels
+        if "video_packed" in batch:
+            if not self._packed_supported():
+                raise ValueError(
+                    "batch carries 'video_packed' but the engine cannot take the packed "
+                    "path (needs a victim with a packed stem and use_pallas_fused off)"
+                )
+            return torch.as_tensor(batch["video_packed"], device=self.device), True, labels
+        video = torch.as_tensor(batch["video"], device=self.device)
+        even = all(s % 2 == 0 for s in video.shape[1:4])
+        if self._packed_supported() and video.dtype == torch.uint8 and even:
+            return pack_input(video).contiguous(), True, labels
+        return video, False, labels
 
     # ---------- forward pieces ----------
 
-    def _logits(self, delta: Optional[torch.Tensor], packed, flags: RuntimeFlags):
-        """clip/mask delta -> input head -> trunk.  delta=None is the clean
-        forward through the same head (flag 0, delta 0)."""
-        if delta is None:
-            clipped = torch.zeros(self.spec.shape, device=self.device)
-            flag = 0.0
-        else:
-            clipped = pert_lib.clip_delta(self.spec, delta)
-            if self._mask is not None:
-                clipped = clipped * self._mask
-            flag = flags.adv_flag
-        pk, mean, var, bias = self.model.stem_params()
-        y = flicker_stem(
-            packed, clipped, torch.full((), flag, device=self.device),
-            pk, mean, var, bias, self.spec.input_min, self.spec.input_max,
-            self.model.compute_dtype,
-        )
-        return self.model.trunk(y)
+    def _flag(self, value: float) -> torch.Tensor:
+        flag = self._flags.get(value)
+        if flag is None:
+            flag = self._flags[value] = torch.full((), value, device=self.device)
+        return flag
 
-    def _loss_terms(self, delta, packed, labels, flags: RuntimeFlags):
+    def _applied_delta(self, delta: torch.Tensor) -> torch.Tensor:
+        clipped = pert_lib.clip_delta(self.spec, delta)
+        return clipped if self._mask is None else clipped * self._mask
+
+    def _apply_model(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.model(x)
+        return out[0] if isinstance(out, tuple) else out  # I3D: (logits, endpoints)
+
+    def _normalize(self, video: torch.Tensor) -> torch.Tensor:
+        if video.dtype == torch.uint8:
+            return video.float() / 128.0 - 1.0
+        return video.float()
+
+    def _logits(self, delta: Optional[torch.Tensor], video, packed: bool, flags: RuntimeFlags,
+                train: bool = False):
+        """Logits of the (adversarial) clip.  delta=None is the clean forward.
+        packed: clip/mask delta -> input head -> trunk (the clean forward
+        goes through the same head with flag 0, delta 0).  Else the generic
+        path; `train` with use_pallas_fused takes kernel B8 on uint8."""
+        if packed:
+            if delta is None:
+                clipped, flag = self._zero_delta, self._flag(0.0)
+            else:
+                clipped, flag = self._applied_delta(delta), self._flag(flags.adv_flag)
+            pk, mean, var, bias = self.model.stem_params()
+            y = flicker_stem(
+                video, clipped, flag, pk, mean, var, bias,
+                self.spec.input_min, self.spec.input_max, self.model.compute_dtype,
+            )
+            return self.model.trunk(y)
+        if train and self.config.use_pallas_fused and video.dtype == torch.uint8:
+            adv = fused_normalize_perturb(
+                video, self._applied_delta(delta), self._flag(flags.adv_flag)
+            )
+            return self._apply_model(adv)
+        x = self._normalize(video)
+        if delta is not None:
+            x = pert_lib.apply_perturbation(
+                x, delta, self.spec, adv_flag=self._flag(flags.adv_flag), mask=self._mask
+            )
+        return self._apply_model(x)
+
+    def _loss_terms(self, delta, video, packed, labels, flags: RuntimeFlags):
         cfg = self.config
-        logits = self._logits(delta, packed, flags)
+        logits = self._logits(delta, video, packed, flags, train=True)
         adv_total, aux = losses_lib.adversarial_loss(
             logits, labels, improve_loss=cfg.improve_loss, margin=cfg.margin,
             targeted=cfg.targeted, use_logits=cfg.use_logits,
@@ -172,9 +250,9 @@ class AttackEngine:
         update = -lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
         return AttackState(state.delta + update, mu, nu, step)
 
-    def _train_step(self, state: AttackState, packed, labels, flags: RuntimeFlags):
+    def _train_step(self, state: AttackState, video, packed, labels, flags: RuntimeFlags):
         delta = state.delta.detach().requires_grad_(True)
-        total, terms = self._loss_terms(delta, packed, labels, flags)
+        total, terms = self._loss_terms(delta, video, packed, labels, flags)
         (grad,) = torch.autograd.grad(total, delta)
         with torch.no_grad():
             new_state = self._adam(state, grad, flags.learning_rate)
@@ -200,26 +278,26 @@ class AttackEngine:
     def train_step(
         self, state: AttackState, batch: Dict, flags: RuntimeFlags = RuntimeFlags()
     ) -> Tuple[AttackState, Dict[str, torch.Tensor]]:
-        packed, labels = self.prepare_batch(batch)
-        return self._train_step(state, packed, labels, flags)
+        video, packed, labels = self.prepare_batch(batch)
+        return self._train_step(state, video, packed, labels, flags)
 
     def train_steps(
         self, state: AttackState, batch: Dict, flags: RuntimeFlags = RuntimeFlags(), n: int = 1
     ) -> AttackState:
         """n optimizer steps on one batch (the batch is moved once)."""
-        packed, labels = self.prepare_batch(batch)
+        video, packed, labels = self.prepare_batch(batch)
         for _ in range(n):
-            state, _ = self._train_step(state, packed, labels, flags)
+            state, _ = self._train_step(state, video, packed, labels, flags)
         return state
 
     @torch.no_grad()
     def eval_step(
         self, delta: torch.Tensor, batch: Dict, flags: RuntimeFlags = RuntimeFlags()
     ) -> Dict[str, torch.Tensor]:
-        packed, labels = self.prepare_batch(batch)
+        video, packed, labels = self.prepare_batch(batch)
         delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
-        adv_probs = torch.softmax(self._logits(delta, packed, flags), dim=-1)
-        clean_probs = torch.softmax(self._logits(None, packed, flags), dim=-1)
+        adv_probs = torch.softmax(self._logits(delta, video, packed, flags), dim=-1)
+        clean_probs = torch.softmax(self._logits(None, video, packed, flags), dim=-1)
         miss, valid = metrics_lib.fooling_counts(
             adv_probs, clean_probs, labels, targeted=self.config.targeted,
             target_class=self.config.target_class,
@@ -232,8 +310,8 @@ class AttackEngine:
         self, delta: torch.Tensor, batch: Dict, flags: RuntimeFlags = RuntimeFlags(),
         adversarial: bool = True,
     ) -> torch.Tensor:
-        packed, _ = self.prepare_batch(batch)
+        video, packed, _ = self.prepare_batch(batch)
         if adversarial:
             delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
-        logits = self._logits(delta if adversarial else None, packed, flags)
+        logits = self._logits(delta if adversarial else None, video, packed, flags)
         return torch.softmax(logits, dim=-1)

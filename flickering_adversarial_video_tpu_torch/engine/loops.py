@@ -1,0 +1,215 @@
+"""Attack loops: the step-driven (universal) and epoch (class-gen) loop.
+
+Port of the JAX package's ``engine/loops.py`` without ``single_video_attack``
+(which comes with the single-video runner).  Host-side orchestration around
+the attack step: the clip stays on the device through a step, and metrics
+stay tensors; the loop reads them to Python floats only on a `log_every`
+step, so the host does not wait for the device on the steps between.
+
+Loop semantics: the universal attack is step-driven with periodic eval and
+checkpoints (the tf.estimator cadence of the reference); class-gen takes an
+epoch as one pass over the train shards and evaluates and checkpoints at
+epoch ends.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..data.video_dataset import PrefetchIterator
+from .attack_step import AttackEngine, AttackState, RuntimeFlags
+
+LOGGED = ("total_loss", "adv_loss", "reg_loss", "norm_reg", "diff_norm_reg",
+          "laplacian_norm_reg", "thickness", "roughness")
+WRITTEN = LOGGED + ("prob_to_min", "prob_to_max")  # what the scalar writer gets
+# spans a torch.profiler trace of a loop shows: one per optimizer step (the
+# host's side of it) and one per pass over the validation stream
+STEP_SPAN, EVAL_SPAN = "attack_loop/train_step", "attack_loop/eval"
+
+
+def flags_from_config(attack_cfg, learning_rate: Optional[float] = None) -> RuntimeFlags:
+    """RuntimeFlags from a run_config.yml attack section.
+
+    beta3 := BETA_2, matching the reference scripts' wiring."""
+    return RuntimeFlags(
+        adv_flag=1.0,
+        beta0=float(attack_cfg.get("LAMBDA", 1.0)),
+        beta1=float(attack_cfg.get("BETA_1", 0.5)),
+        beta2=float(attack_cfg.get("BETA_2", 0.5)),
+        beta3=float(attack_cfg.get("BETA_2", 0.5)),
+        learning_rate=float(
+            learning_rate
+            if learning_rate is not None
+            else attack_cfg.get("LEARNING_RATE", 1e-3)
+        ),
+    )
+
+
+def evaluate_fooling(
+    engine: AttackEngine,
+    delta: torch.Tensor,
+    batches: Iterable[Dict[str, np.ndarray]],
+    flags: RuntimeFlags,
+) -> Dict[str, float]:
+    """Fooling rate over a validation stream with exclude-misclassified
+    accounting: miss_rate = sum(miss)/sum(valid)."""
+    miss = torch.zeros((), dtype=torch.int64, device=engine.device)
+    valid = torch.zeros_like(miss)
+    n_batches = 0
+    for batch in batches:
+        out = engine.eval_step(delta, batch, flags)
+        miss += out["miss"]
+        valid += out["valid"]
+        n_batches += 1
+    miss, valid = int(miss), int(valid)
+    return {
+        "miss_rate": miss / max(valid, 1),
+        "total_valid_videos": valid,
+        "batches": n_batches,
+    }
+
+
+class StepTimer:
+    """steps/sec tracker over the intervals between ticks."""
+
+    def __init__(self):
+        self.count = 0
+        self.total = 0.0
+        self._last = None
+
+    def tick(self):
+        now = time.perf_counter()
+        if self._last is not None:
+            self.total += now - self._last
+            self.count += 1
+        self._last = now
+
+    @property
+    def steps_per_sec(self) -> float:
+        return self.count / self.total if self.total else 0.0
+
+
+def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """Move a host batch: through pinned memory and a non-blocking copy on
+    CUDA, so that the copy overlaps the step that is running."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def batched_attack_loop(
+    engine: AttackEngine,
+    train_batches_fn: Callable[[], Iterable[Dict[str, np.ndarray]]],
+    val_batches_fn: Callable[[], Iterable[Dict[str, np.ndarray]]],
+    flags: RuntimeFlags,
+    *,
+    max_steps: int,
+    state: Optional[AttackState] = None,
+    eval_every_epochs: int = 1,
+    eval_every_steps: Optional[int] = None,
+    checkpointer=None,
+    checkpoint_every: Optional[int] = None,
+    writer=None,
+    log_every: int = 50,
+    targeted_label: Optional[int] = None,
+    start_step: int = 0,
+) -> Dict[str, Any]:
+    """Shared engine for class-gen (epoch cadence) and universal (step cadence).
+
+    - checkpoint_every=None -> checkpoint at epoch ends (class-gen mode);
+      an int -> every N steps (estimator mode).
+    - eval_every_steps: an int evaluates every N optimizer steps and
+      SUPERSEDES the epoch-boundary cadence (epoch-end evals are skipped so
+      eval cost stays bounded).  None -> epoch-boundary eval only
+      (eval_every_epochs).
+    - writer: viz.tensorboard.ScalarWriter or None.
+    """
+    if state is None:
+        state = engine.init_state()
+    timer = StepTimer()
+    step = start_step
+    history: Dict[str, List] = {k: [] for k in LOGGED}
+    history.update(fool_rate=[], fool_rate_steps=[], perturbation=[])
+
+    def run_eval():
+        with record_function(EVAL_SPAN):
+            ev = evaluate_fooling(engine, state.delta, val_batches_fn(), flags)
+        history["fool_rate"].append(ev["miss_rate"])
+        history["fool_rate_steps"].append(step)
+        if writer is not None:
+            writer.scalar("Eval/fooling_ratio", ev["miss_rate"], step)
+        return ev
+
+    def produce():
+        """Parse + pack + move to the device on the producer thread, so the
+        host pipeline overlaps the device's steps."""
+        for batch in train_batches_fn():
+            if targeted_label is not None:
+                batch = {**batch, "labels": np.full_like(batch["labels"], targeted_label)}
+            yield _to_device(batch, engine.device)
+
+    run_eval()
+    epoch = 0
+    while step < max_steps:
+        epoch += 1
+        batches_this_epoch = 0
+        batches = PrefetchIterator(produce(), depth=2)
+        try:
+            for batch_on_device in batches:
+                batches_this_epoch += 1
+                if step >= max_steps:
+                    break
+                timer.tick()
+                with record_function(STEP_SPAN):
+                    state, metrics = engine.train_step(state, batch_on_device, flags)
+                step += 1
+                if step % log_every == 0 or step == 1:
+                    # the step's one read of the device
+                    values = torch.stack([metrics[k].float() for k in WRITTEN]).tolist()
+                    m = dict(zip(WRITTEN, values))
+                    for k in LOGGED:
+                        history[k].append(m[k])
+                    if writer is not None:
+                        writer.attack_step_scalars(m, step)
+                if checkpointer is not None and checkpoint_every and step % checkpoint_every == 0:
+                    checkpointer.save(state)
+                if eval_every_steps and step % eval_every_steps == 0:
+                    run_eval()
+                    history["perturbation"].append(state.delta.cpu().numpy())
+        finally:
+            batches.close()
+        if batches_this_epoch == 0:
+            # an empty pipeline would otherwise spin this while-loop forever
+            raise RuntimeError(
+                "train pipeline yielded no batches (no shards found / all "
+                "records filtered) — check TF_RECORDS_*_PATH (*.tfrecords)"
+            )
+        if eval_every_steps is None and epoch % eval_every_epochs == 0:
+            run_eval()
+            history["perturbation"].append(state.delta.cpu().numpy())
+        if (
+            epoch % eval_every_epochs == 0
+            and checkpointer is not None
+            and not checkpoint_every
+        ):
+            checkpointer.save(state)
+
+    final_eval = run_eval()
+    if checkpointer is not None:
+        checkpointer.save(state)
+    return {
+        "state": state,
+        "history": history,
+        "final_eval": final_eval,
+        "steps": step,
+        "steps_per_sec": timer.steps_per_sec,
+    }

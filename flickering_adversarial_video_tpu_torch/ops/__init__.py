@@ -2,8 +2,10 @@
 
 
 def kernel_wrappers():
-    """(name, wrapper) of every CUDA kernel on the attack step, in order
-    B1..B6; each wrapper carries a `launches` count."""
+    """(name, wrapper) of every CUDA kernel of the attack's paths, in order
+    B1..B8; each wrapper carries a `launches` count."""
+    from .fused_apply import fused_apply_bwd, fused_apply_fwd
+    from .packed_apply import emit_adv_mask
     from .pool_s1 import pool333_bwd, pool333_fwd
     from .pool_strided import pool133_s2_bwd, pool133_s2_fwd
     from .stem_combine import temporal_combine
@@ -16,6 +18,9 @@ def kernel_wrappers():
         ("B4 pool333_bwd", pool333_bwd),
         ("B5 pool133_s2_fwd", pool133_s2_fwd),
         ("B6 pool133_s2_bwd", pool133_s2_bwd),
+        ("B7 emit_adv_mask", emit_adv_mask),
+        ("B8f fused_apply_fwd", fused_apply_fwd),
+        ("B8b fused_apply_bwd", fused_apply_bwd),
     )
 
 

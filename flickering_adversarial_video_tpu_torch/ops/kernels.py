@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 LIB_NAME = "libfav_kernels.so"
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_P, _I, _D, _F = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, k, mean, mul, bias, y, B, T, H, W, dtype, stream
     "fav_stem_conv_bn_relu": (_P,) * 6 + (_I,) * 4 + (_D, _P),
@@ -50,6 +50,12 @@ SIGNATURES = {
     "fav_pool_s2_fwd": (_P,) * 2 + (_I,) * 4 + (_D, _P),
     # x, dy, dx, N, H, W, C, dtype, stream
     "fav_pool_s2_bwd": (_P,) * 3 + (_I,) * 4 + (_D, _P),
+    # u8, dl, adv, mask2 (or null), n, row_len, T, CH, lo, hi, dtype, stream
+    "fav_emit_adv_mask": (_P,) * 4 + (_I,) * 4 + (_F, _F, _D, _P),
+    # u8, delta, flag, out, B, T, row_len, C, stream
+    "fav_fused_apply_fwd": (_P,) * 4 + (_I,) * 4 + (_P,),
+    # u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, stream
+    "fav_fused_apply_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
 }
 # the __global__ functions of csrc/ that each launcher starts, as a profiler
 # names them; tests/test_torch_port_kernels.py holds this against csrc/
@@ -60,6 +66,9 @@ KERNEL_SYMBOLS = {
     "fav_pool_s1_bwd": ("pool_s1_bwd_kernel",),
     "fav_pool_s2_fwd": ("pool_s2_fwd_kernel",),
     "fav_pool_s2_bwd": ("pool_s2_bwd_kernel",),
+    "fav_emit_adv_mask": ("emit_adv_mask_kernel",),
+    "fav_fused_apply_fwd": ("fused_apply_fwd_kernel",),
+    "fav_fused_apply_bwd": ("fused_apply_bwd_partial_kernel", "fused_apply_bwd_final_kernel"),
 }
 
 

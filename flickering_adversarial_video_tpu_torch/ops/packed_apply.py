@@ -11,6 +11,13 @@ compute dtype; the stem conv + BN + relu (kernel B1) on adv.  Saved: the stem
 output y and the u8 clip mask (2x the gradient of the clip: {0,1,2}, so 0.5 at
 an exact boundary, which pixel value 0 hits exactly at -1.0).
 
+adv and the mask come from one pass, kernel B7 ``emit_adv_mask``, which
+replaces the Pallas emitter ``emit_tmajor`` (``ops/stem_tmajor.py:363``,
+kernel ``_emit_tmajor_kernel`` :350); CUDA source ``csrc/emit.cu``.  It
+computes that kernel's values on NDHWC, without its transpose into the
+T-major view.  A forward that needs no gradient (eval, clean) asks for no
+mask, and the kernel then writes none.  Bound by bytes on the H100.
+
 Backward: g2 = g*(y>0)*rsqrt(var+eps); the wide transposed conv gives
 ``part`` (tap m's d(adv) block, still temporally unshifted); each tap's block
 is shifted by (1-m) frames, multiplied by the mask and reduced over
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from . import kernels
 from .conv_unit import masked_scale
 from .stem_combine import catbwd_part
 from .stem_conv import BWD_PADS, pk_to_oidhw, stem_conv_bn_relu
@@ -46,17 +54,58 @@ def clip_grad_mask2(pre: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return (two_max * two_min) // 2
 
 
+def emit_adv_mask_plain(packed_u8, dl, lo: float, hi: float, out_dtype, want_mask: bool = True):
+    """The emitter in plain PyTorch: (adv in out_dtype, mask2 uint8 or None)
+    from the packed clip [B,T',H',W',CH] and dl [T',CH] f32 = flag*pack(delta)."""
+    pre = packed_u8.float() / 128.0 - 1.0 + dl.float()[:, None, None, :]
+    adv = pre.clamp(lo, hi).to(out_dtype)
+    return adv, (clip_grad_mask2(pre, lo, hi) if want_mask else None)
+
+
+def emit_adv_mask(packed_u8, dl, lo: float, hi: float, out_dtype, want_mask: bool = True):
+    """B7: packed uint8 [B,T',H',W',CH], dl [T',CH] f32 -> (adv, mask2 or None)."""
+    if packed_u8.dim() != 5 or packed_u8.dtype != torch.uint8:
+        raise TypeError(f"the packed clip must be uint8 [B,T',H',W',CH], got "
+                        f"{packed_u8.dtype} {tuple(packed_u8.shape)}")
+    b, t, h, w, ch = packed_u8.shape
+    if tuple(dl.shape) != (t, ch):
+        raise ValueError(f"dl {tuple(dl.shape)} is not [{t},{ch}]")
+    if not packed_u8.is_cuda:
+        return emit_adv_mask_plain(packed_u8, dl, lo, hi, out_dtype, want_mask)
+    if out_dtype not in kernels.DTYPE_CODE:
+        raise TypeError(f"kernel dtype {out_dtype} not supported (float32, bfloat16)")
+    u8 = packed_u8.contiguous()
+    dl = dl.float().contiguous()
+    kernels.check(dl, dtype=torch.float32)
+    if dl.device != u8.device:
+        raise ValueError("kernel operands must lie on one CUDA device")
+    adv = torch.empty(u8.shape, dtype=out_dtype, device=u8.device)
+    mask2 = torch.empty(u8.shape, dtype=torch.uint8, device=u8.device) if want_mask else None
+    kernels.launch(
+        "fav_emit_adv_mask", u8.data_ptr(), dl.data_ptr(), adv.data_ptr(),
+        mask2.data_ptr() if want_mask else None, u8.numel(), h * w * ch, t, ch,
+        float(lo), float(hi), kernels.DTYPE_CODE[out_dtype], kernels.stream(),
+    )
+    emit_adv_mask.launches += 1
+    return adv, mask2
+
+
+emit_adv_mask.launches = 0
+
+
 class _FlickerStem(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, packed_u8, delta_applied, adv_flag, pk, mean, var, bias, lo, hi, out_dtype):
+    def forward(ctx, packed_u8, delta_applied, adv_flag, pk, mean, var, bias, lo, hi, out_dtype,
+                want_grad):
         dpk = pack_flicker_delta(delta_applied.float())
-        pre = packed_u8.float() / 128.0 - 1.0 + adv_flag.float() * dpk
-        adv = pre.clamp(lo, hi).to(out_dtype)
-        mask2 = clip_grad_mask2(pre, lo, hi)
-        del pre
+        # dl folds the flag, so the emitter is a pure function of the batch;
+        # d(flag) in the backward needs dpk itself
+        dl = adv_flag.float() * dpk[:, 0, 0, :]
+        adv, mask2 = emit_adv_mask(packed_u8, dl, lo, hi, out_dtype, want_mask=want_grad)
         y = stem_conv_bn_relu(adv, pk.to(out_dtype), mean, var, bias, EPS)
-        ctx.save_for_backward(y, mask2, dpk, adv_flag, pk.to(out_dtype), var)
-        ctx.delta_shape = delta_applied.shape
+        if want_grad:
+            ctx.save_for_backward(y, mask2, dpk, adv_flag, pk.to(out_dtype), var)
+            ctx.delta_shape = delta_applied.shape
         return y
 
     @staticmethod
@@ -86,7 +135,7 @@ class _FlickerStem(torch.autograd.Function):
             d_delta = d_dpk.reshape(t, 2, 2, 2, c).sum(dim=(2, 3)).reshape(ctx.delta_shape)
         if ctx.needs_input_grad[2]:
             d_flag = (s_tc * dpk[:, 0, 0, :]).sum().reshape(adv_flag.shape)
-        return None, d_delta, d_flag, None, None, None, None, None, None, None
+        return None, d_delta, d_flag, None, None, None, None, None, None, None, None
 
 
 def flicker_stem(
@@ -97,7 +146,8 @@ def flicker_stem(
     the value-clipped (and frame-masked) delta [T,1,1,C]; adv_flag a 0-d
     tensor; pk the packed stem kernel.  Returns the stem output
     [B,T',H',W',Cout] in out_dtype."""
+    want_grad = torch.is_grad_enabled() and (delta_applied.requires_grad or adv_flag.requires_grad)
     return _FlickerStem.apply(
         packed_u8, delta_applied, adv_flag, pk, mean, var, bias,
-        float(input_min), float(input_max), out_dtype,
+        float(input_min), float(input_max), out_dtype, want_grad,
     )

@@ -15,7 +15,9 @@ Port of ``stem_tmajor.stem_conv_bn_relu_view`` / ``stem_bn_relu_tmajor``
 * ``stem_bn_relu`` is the autograd op for a stem whose INPUT needs a
   gradient (the model's own forward): B1 forward; backward as ``_tmajor_bwd``
   -- one wide transposed conv of g*(y>0)*rsqrt(var+eps), then the temporal
-  combine B2 with t_plo 1.  The attack step does not take this path: its
+  combine B2 with t_plo 1 (4 taps of 24 channels, one launch a step).  The
+  attack step takes this path with ``AttackConfig.use_pallas_fused`` (YAML
+  ``USE_PALLAS_FUSED``), where B8's backward needs d(adv); by default its
   input head (``packed_apply.flicker_stem``) reduces straight to d(delta).
 """
 

@@ -1,0 +1,152 @@
+"""Shared runner plumbing: victim construction + engine wiring from config.
+
+Port of the JAX package's ``runners/common.py`` for the I3D victim on one
+device.  Real victims need the DeepMind I3D checkpoint and its conversion,
+which is not ported yet: an existing checkpoint path raises, a missing one
+gives seeded random weights with a loud warning (the attack machinery is
+weight-agnostic).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, List, Optional, Tuple
+
+import torch
+
+from ..attack import FlickerSpec
+from ..convert import init_i3d_state
+from ..engine import AttackConfig, AttackEngine
+from ..models.registry import MODEL_REGISTRY, create_model
+from ..utils.labels import load_label_map
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def build_victim(
+    model_name: str,
+    ckpt_path: Optional[str],
+    compute_dtype,
+    frames: int,
+    size: int,
+    num_classes: Optional[int] = None,
+    eval_type: str = "rgb",
+    device=None,
+) -> torch.nn.Module:
+    """The frozen victim on `device` (CUDA unless told otherwise).  A missing
+    checkpoint falls back to random weights from seed 0 with a loud warning;
+    a checkpoint that exists is not silently ignored."""
+    if eval_type != "rgb":
+        raise NotImplementedError(f"EVAL_TYPE {eval_type!r}: only the Kinetics-400 'rgb' world is ported")
+    if ckpt_path and (os.path.exists(ckpt_path) or os.path.exists(ckpt_path + ".index")):
+        raise NotImplementedError(
+            f"a checkpoint exists at {ckpt_path!r}, but checkpoint conversion "
+            "(convert/tf_i3d.py; ROADMAP.md queue A item 12) is not ported yet"
+        )
+    model, spec = create_model(
+        model_name, num_classes=num_classes, compute_dtype=compute_dtype, device=device
+    )
+    print(
+        f"[warn] no checkpoint for {model_name} at {ckpt_path!r}; "
+        "using random init (attack mechanics only, no meaningful victims)"
+    )
+    model.load_state_dict(init_i3d_state(0, num_classes or spec.num_classes))
+    return model
+
+
+def build_engine(
+    attack_cfg,
+    model_cfg,
+    *,
+    frames: Optional[int] = None,
+    size: Optional[int] = None,
+    attack_kind: str = "flickering",
+    track_probs: bool = True,
+    device=None,
+) -> Tuple[AttackEngine, List[str]]:
+    """AttackEngine + label list from run_config.yml sections."""
+    if attack_kind != "flickering":
+        raise NotImplementedError(
+            f"attack_kind {attack_kind!r}: the L1,2 sparse attack is ROADMAP.md queue A item 9"
+        )
+    if attack_cfg.get("CYCLIC_ATTACK", False) or attack_cfg.get("CYCLIC_PERTURBATION_ATTACK", False):
+        raise NotImplementedError("the cyclic attack modes are ROADMAP.md queue A item 5")
+    model_name = attack_cfg.get("MODEL_NAME", "i3d")
+    if model_name not in MODEL_REGISTRY:
+        raise NotImplementedError(f"MODEL_NAME {model_name!r}: only 'i3d' is ported")
+    reg = MODEL_REGISTRY[model_name]
+    frames = frames or reg.default_frames
+    size = size or reg.default_size
+    compute_dtype = _DTYPES[attack_cfg.get("COMPUTE_DTYPE", "bfloat16")]
+    num_classes = model_cfg.get("NUM_CLASSES")
+
+    model = build_victim(
+        model_name,
+        model_cfg.get("CKPT_PATH"),
+        compute_dtype,
+        frames,
+        size,
+        num_classes=num_classes,
+        eval_type=model_cfg.get("EVAL_TYPE", "rgb"),
+        device=device,
+    )
+
+    labels = load_label_map(
+        model_cfg.get("LABEL_MAP_PATH"), num_classes=num_classes or reg.num_classes
+    )
+    targeted = bool(attack_cfg.get("TARGETED_ATTACK", False))
+    target_class = labels.index(attack_cfg.get("TARGETED_CLASS")) if targeted else None
+
+    frame_window = attack_cfg.get("ATTACK_FRAME_WINDOW")
+    if frame_window is not None:
+        frame_window = (int(frame_window[0]), int(frame_window[1]))
+
+    cfg = AttackConfig(
+        improve_loss=bool(attack_cfg.get("IMPROVE_ADV_LOSS", True)),
+        margin=float(attack_cfg.get("PROB_MARGIN", 0.05)),
+        targeted=targeted,
+        use_logits=bool(attack_cfg.get("USE_LOGITS", False)),
+        reg_weighting="tf",
+        target_class=target_class,
+        use_pallas_fused=bool(attack_cfg.get("USE_PALLAS_FUSED", False)),
+        frame_window=frame_window,
+    )
+    engine = AttackEngine(model, FlickerSpec(frames=frames), cfg, track_probs=track_probs)
+    return engine, labels
+
+
+def make_shard_batches(
+    attack_cfg,
+    engine: AttackEngine,
+    tfrecord_batches_fn,
+    *,
+    frames: int,
+    size: Optional[int],
+    batch_size: int,
+):
+    """(batches_fn, prepack): the tfrecord-pipeline factory of the
+    universal/class-gen runners.
+
+    Host-prepacked input defaults on (PREPACK_INPUT) whenever the engine's
+    packed path exists and the geometry is even; with USE_PALLAS_FUSED the
+    packed path is off and the pipeline delivers unpacked uint8 clips.
+
+    `tfrecord_batches_fn` is passed in (the runner's module-level symbol) so
+    tests can monkeypatch it per runner."""
+    size_eff = size or 224
+    prepack = (
+        bool(attack_cfg.get("PREPACK_INPUT", True))
+        and engine._packed_supported()
+        and frames % 2 == 0
+        and size_eff % 2 == 0
+    )
+    if prepack:
+        print("input pipeline: host-prepacked space-to-depth uint8")
+
+    def batches(shards):
+        return tfrecord_batches_fn(
+            shards, batch_size, frames=frames, height=size_eff,
+            width=size_eff, prepack=prepack,
+        )
+
+    return batches, prepack

@@ -160,6 +160,11 @@ class TestEntryPoints:
             "import flickering_adversarial_video_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
+            "for name in ('runners.universal', 'runners.common', 'engine.loops',\n"
+            "             'engine.checkpoint', 'viz.tensorboard', 'data.tfrecord',\n"
+            "             'data.example_proto', 'data.video_dataset', 'utils.config',\n"
+            "             'utils.labels', 'models.registry', 'ops.fused_apply'):\n"
+            "    assert p.__name__ + '.' + name in sys.modules, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'flax' or m.startswith('flickering_adversarial_video_tpu.')\n"
             "       or m == 'flickering_adversarial_video_tpu']\n"

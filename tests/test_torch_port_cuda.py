@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from flickering_adversarial_video_tpu_torch.ops import fused_apply, packed_apply
 from flickering_adversarial_video_tpu_torch.ops import pool_s1, pool_strided, stem_combine, stem_conv
 
 
@@ -64,6 +65,45 @@ class TestKernelsOnCard:
             pool_strided.pool133_s2_bwd(q, dq).float().cpu().numpy(),
             pool_strided.pool133_s2_bwd_plain(q, dq).float().cpu().numpy(),
         )
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [(2, 4, 6, 8, 24), (1, 3, 5, 3, 24)])  # whole vectors / with a tail
+    def test_emit_b7_bit_equal(self, dtype, shape):
+        gen = torch.Generator().manual_seed(1)
+        u8 = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+        u8[0, 0, 0, 0, 0] = 0
+        dl = (torch.rand(shape[1], 24, generator=gen) - 0.5) * 0.6
+        dl[:, 0] = 0.0
+        for want_mask in (True, False):
+            adv, mask = packed_apply.emit_adv_mask(u8.cuda(), dl.cuda(), -1.0, 1.0, dtype, want_mask)
+            wadv, wmask = packed_apply.emit_adv_mask_plain(u8, dl, -1.0, 1.0, dtype, want_mask)
+            assert torch.equal(adv.cpu(), wadv)
+            assert (mask is None and wmask is None) or torch.equal(mask.cpu(), wmask)
+        # the engineered boundary hit landed: u8 0 under dl 0 is exactly lo
+        assert (packed_apply.emit_adv_mask_plain(u8, dl, -1.0, 1.0, dtype)[1] == 1).any()
+
+    @pytest.mark.parametrize("shape", [(2, 4, 8, 16, 3), (1, 3, 5, 5, 3), (1, 2, 80, 80, 3)])
+    def test_fused_apply_b8(self, shape):
+        gen = torch.Generator().manual_seed(2)
+        u8 = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+        u8[0, 1, 2, 3, 1] = 0
+        delta = torch.randn(shape[1], 1, 1, 3, generator=gen) * 0.3
+        delta[1] = 0.0  # frame 1: the black pixel sits exactly on -1
+        g = torch.randn(shape, generator=gen)
+        flag = torch.tensor(1.0)
+        cu = [t.cuda() for t in (u8, delta, flag)]
+        assert torch.equal(fused_apply.fused_apply_fwd(*cu).cpu(),
+                           fused_apply.fused_apply_fwd_plain(u8, delta, flag))
+        got = fused_apply.fused_apply_bwd(*cu, g.cuda())
+        again = fused_apply.fused_apply_bwd(*cu, g.cuda())
+        assert torch.equal(got, again)  # deterministic
+        want = fused_apply.fused_apply_bwd_plain(u8, delta, flag, g)
+        _close(got.cpu().numpy(), want.numpy(), 1e-5)
+        big = torch.full_like(delta, 5.0).cuda()
+        assert fused_apply.fused_apply_bwd(cu[0], big, cu[2], g.cuda()).abs().max().item() == 0.0
+        d = delta.cuda().requires_grad_(True)
+        fused_apply.fused_normalize_perturb(cu[0], d, cu[2]).backward(g.cuda())
+        assert torch.equal(d.grad, got)
 
 
 def _bn_t(gen, c):

@@ -121,3 +121,83 @@ def test_runtime_flags_and_frame_window(setup):
     moved = state.delta.abs().reshape(FRAMES, -1).amax(1).numpy()
     assert np.all(moved[[0, 1, 6, 7]] == 0) and np.all(moved[2:6] > 0)
     assert moved.max() == pytest.approx(0.01, rel=1e-3)
+
+
+# ---- the fused-kernel (B8) path: use_pallas_fused on an unpacked uint8 video ----
+
+@pytest.fixture(scope="module")
+def jax_fused_run(setup):
+    """3 JAX train steps through the Pallas fused kernel (interpreted off the
+    TPU; B*T = 16 and H*W*C = 768 are a geometry it takes), then eval."""
+    variables, video, labels, _ = setup
+    m = JaxI3D(num_classes=K, compute_dtype=jnp.float32)
+    eng = JaxEngine(lambda v, x: m.apply(v, x)[0], variables, JaxSpec(frames=FRAMES),
+                    JaxConfig(use_pallas_fused=True))
+    batch = {"video": jnp.asarray(video), "labels": jnp.asarray(labels)}
+    state, key, metrics = eng.init_state(), jax.random.key(0), []
+    for _ in range(STEPS):
+        state, mt = eng.train_step(state, batch, JaxFlags(), key)
+        metrics.append({k: float(mt[k]) for k in TERMS})
+    ev = eng.eval_step(state.delta, batch, JaxFlags(), key)
+    return (metrics, np.asarray(state.delta), (int(ev["miss"]), int(ev["valid"])),
+            np.asarray(ev["adv_probs"]))
+
+
+@pytest.fixture(scope="module")
+def port_fused_run(setup):
+    _, video, labels, model = setup
+    eng = AttackEngine(model, FlickerSpec(frames=FRAMES), AttackConfig(use_pallas_fused=True))
+    batch = {"video": video, "labels": labels}
+    state, metrics = eng.init_state(), []
+    for _ in range(STEPS):
+        state, mt = eng.train_step(state, batch, RuntimeFlags())
+        metrics.append({k: float(mt[k]) for k in TERMS})
+    ev = eng.eval_step(state.delta, batch)
+    return (metrics, state.delta.numpy(), (int(ev["miss"]), int(ev["valid"])),
+            ev["adv_probs"].numpy(), eng)
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+def test_fused_path_loss_terms_match(jax_fused_run, port_fused_run, step):
+    for k in TERMS:
+        assert port_fused_run[0][step][k] == pytest.approx(
+            jax_fused_run[0][step][k], rel=1e-5, abs=1e-9), k
+
+
+def test_fused_path_delta_trajectory_matches(jax_fused_run, port_fused_run):
+    want, got = jax_fused_run[1], port_fused_run[1]
+    assert np.abs(want).max() > 1e-3
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+
+
+def test_fused_path_eval_takes_the_generic_path_and_matches(jax_fused_run, port_fused_run):
+    assert port_fused_run[2] == jax_fused_run[2]
+    np.testing.assert_allclose(port_fused_run[3], jax_fused_run[3], atol=1e-4, rtol=0)
+
+
+def test_fused_path_refuses_packed_batches_and_other_bounds(setup, port_fused_run):
+    _, video, labels, model = setup
+    eng = port_fused_run[4]
+    with pytest.raises(ValueError, match="video_packed"):
+        eng.train_step(eng.init_state(), {"video_packed": pack_video_np(video), "labels": labels})
+    with pytest.raises(ValueError, match="video_packed"):
+        eng.eval_step(eng.init_state().delta, {"video_packed": pack_video_np(video),
+                                               "labels": labels})
+    with pytest.raises(ValueError, match="fixed bounds"):
+        AttackEngine(model, FlickerSpec(frames=FRAMES, input_min=0.0),
+                     AttackConfig(use_pallas_fused=True))
+
+
+def test_fused_and_default_paths_agree_away_from_the_bounds(setup, port_run):
+    """No pixel of this clip is 0 in the first step (delta 0), so no value
+    sits on a bound and the strict tie rule cannot show: the two paths give
+    the same first loss and nearly the same first delta."""
+    _, video, labels, model = setup
+    clip = np.maximum(video, 1)
+    out = {}
+    for fused in (False, True):
+        eng = AttackEngine(model, FlickerSpec(frames=FRAMES), AttackConfig(use_pallas_fused=fused))
+        state, mt = eng.train_step(eng.init_state(), {"video": clip, "labels": labels})
+        out[fused] = (float(mt["total_loss"]), state.delta.numpy())
+    assert out[True][0] == pytest.approx(out[False][0], rel=1e-6)
+    np.testing.assert_allclose(out[True][1], out[False][1], atol=1e-6)

@@ -256,6 +256,47 @@ class TestInputHead:
         assert float(f.grad) == pytest.approx(float(jf), rel=1e-4)
 
 
+class TestEmitB7:
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    def test_bit_equal_with_pallas_interpret(self, rng, dtype):
+        """B7's plain version vs emit_tmajor in interpret mode: the same adv
+        and mask bits after the layout change (lane = t'*B + b), with an
+        engineered boundary hit: u8 0 under dl 0 is exactly lo, mask 1."""
+        b, t, h, w, c = 2, 4, 6, 8, 24
+        u8 = rng.integers(0, 256, (b, t, h, w, c), dtype=np.uint8)
+        u8[0, 0, 0, 0, 0] = 0
+        dl = rng.uniform(-0.3, 0.3, (t, c)).astype(np.float32)  # flag * pack(delta)
+        dl[:, 0] = 0.0
+        dl_lanes = np.broadcast_to(dl.T[:, :, None], (c, t, b)).reshape(c, t * b)
+        want_adv, want_mask = jst.emit_tmajor(
+            jnp.asarray(u8), jnp.asarray(dl_lanes), -1.0, 1.0, dtype, interpret=True
+        )
+        tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+        adv, mask = packed_apply.emit_adv_mask(_t(u8), _t(dl), -1.0, 1.0, tdt)
+        assert packed_apply.emit_adv_mask.launches == 0  # CPU: the plain version
+        assert adv.dtype == tdt and mask.dtype == torch.uint8
+        np.testing.assert_array_equal(
+            adv.float().numpy(), from_view(np.asarray(want_adv, np.float32), b)
+        )
+        np.testing.assert_array_equal(mask.numpy(), from_view(np.asarray(want_mask), b))
+        assert (mask.numpy() == 1).any()
+
+    def test_no_grad_forward_asks_for_no_mask(self, rng):
+        u8 = _t(rng.integers(0, 256, (1, 2, 2, 2, 24), dtype=np.uint8))
+        dl = torch.zeros(2, 24)
+        adv, mask = packed_apply.emit_adv_mask(u8, dl, -1.0, 1.0, torch.float32, want_mask=False)
+        assert mask is None
+        np.testing.assert_array_equal(adv.numpy(), u8.numpy().astype(np.float32) / 128.0 - 1.0)
+
+    def test_operand_checks(self):
+        with pytest.raises(TypeError):
+            packed_apply.emit_adv_mask(torch.zeros(1, 2, 2, 2, 24), torch.zeros(2, 24),
+                                       -1.0, 1.0, torch.float32)
+        with pytest.raises(ValueError):
+            packed_apply.emit_adv_mask(torch.zeros(1, 2, 2, 2, 24, dtype=torch.uint8),
+                                       torch.zeros(3, 24), -1.0, 1.0, torch.float32)
+
+
 class TestKernelSymbols:
     def test_symbols_match_the_cuda_sources(self):
         """Every exported launcher has a signature and its kernels listed,
