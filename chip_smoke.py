@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths -- the universal flickering attack on full-width
-I3D (400 classes, every Mixed block), B=8 uint8 clips of 64x224x224, bf16,
-random weights from a numpy seed -- after building the port's CUDA kernels
-from ``flickering_adversarial_video_tpu_torch/csrc``: the attack step through
-``AttackEngine.train_steps`` and ``eval_step``, and the universal runner
-(``runners.universal.run``: tfrecord shards -> loop -> eval -> checkpoints)
-in its two configurations.  Phases, each of which fails the run:
+Drives the port's main paths on full-width I3D (400 classes, every Mixed
+block, bf16, random weights from a numpy seed) after building the port's CUDA
+kernels from ``flickering_adversarial_video_tpu_torch/csrc``: the universal
+flickering attack on B=8 uint8 clips of 64x224x224 (the attack step through
+``AttackEngine.train_steps`` and ``eval_step``; the universal runner,
+``runners.universal.run``: tfrecord shards -> loop -> eval -> checkpoints, in
+its two configurations; the class-gen runner), and the single-video attack on
+float32 clips of 90x224x224 (``runners.single_video.run``: npy -> loop ->
+pkl), with and without the index-pair pools (kernel B9).  Phases, each of
+which fails the run:
 
 1. build the kernels (nvcc, sm_90a), timed as set-up;
 2. hold each kernel against its plain PyTorch version at the main paths'
@@ -19,17 +22,27 @@ in its two configurations.  Phases, each of which fails the run:
    f32 with an engineered boundary hit, bit-equal; B8 forward bit-equal; B8
    backward to f32 sum order, exactly 0 where everything clips, bit-equal to
    itself on a second run, and all of B8 also at [1,90,224,224,3], a geometry
-   the TPU kernel refused;
+   the TPU kernel refused; B9 forward (values bit-equal to the plain version
+   and to B5's, index equal everywhere, a null index pointer writes nothing)
+   and backward (bit-equal to the plain version; against B6 on the same
+   (x, dy): equal on integer tie grids, to f32 sum order otherwise) at
+   MaxPool3d_2a's and 3a's shapes and at the single-video clip's
+   [1,45,112,112,64]; B1..B6 also at the single-video shapes, where B*T' is
+   odd (T' = 45, 23, 12), B2 with both of its uses there (3 taps, and the
+   stem's 4 taps of 24 channels);
 3. the attack step: launch counts of every kernel (reset just before, read
    just after) must equal the per-step counts (train step: B1 1, B2 19, B3 9,
    B4 9, B5 3, B6 3, B7 1; eval step: B1 2, B3 18, B5 6, B7 2), losses finite,
-   delta moved;
+   delta moved; then the same step with MaxPool3d_2a on the index pair (B5 2,
+   B6 2, B9 forward 1, B9 backward 1; eval: B5 4, B9 forward 2 with no
+   index), first loss and first d(delta) beside the default engine's;
 4. the same engine at a small geometry in f32, in both configurations,
    against the plain versions on the CPU: loss and delta trajectory to
    tolerance;
 5. timings with CUDA events (kernels, their plain versions, one library call
    where one computes the same function, the bound at the shapes), the step
-   time of both configurations, peak memory, the card's name and power limit;
+   time of both configurations and with the pair at 2a and at 2a+3a, peak
+   memory, the card's name and power limit;
 6. where the step's device time goes, by torch.profiler over 2 train steps;
 7. the runner, default configuration (host-packed input; B7 then B1): 2
    shards x 8 records written with the port's own TFRecordWriter, labelled
@@ -43,7 +56,23 @@ in its two configurations.  Phases, each of which fails the run:
 8. the runner with USE_PALLAS_FUSED: True (unpacked uint8; B8 forward and
    backward, the stem with an input gradient), 4 steps on the same shards;
    its first loss against the default configuration's, and the two paths'
-   first d(delta) side by side.
+   first d(delta) side by side;
+9. the single-video runner at full width: three float32 npy clips
+   [1,90,224,224,3] in [-1,1], two named with the seeded model's clean
+   prediction and one with a wrong class (skipped), the two kept clips in a
+   directory each (a pkl is named by class, thickness and roughness, which
+   agree on random weights); ``configs/run_config.yml`` loaded unchanged,
+   only NPY_PATH, PKL_RESULT_PATH and MAX_NUM_STEP overridden; run over both
+   directories twice, default and with FLICKER_POOL_PALLAS_2A=2; two pkls
+   on disk each time, each with every key of the result schema, finite losses, a moved delta,
+   histories of total_steps + 1 entries; exact launch counts per step and per
+   clean forward (float path: B1 1, B2 20, B3 9, B4 9, B5 3, B6 3, or B5 2,
+   B6 2, B9 1 + 1 with the pair; no B7, no B8); the two configurations' first
+   losses agree; steps/s by the loop's timer beside the chained step;
+10. the class-gen runner on phase 7's shards: one epoch (2 batches), then a
+   resume into a second; epoch-end checkpoints, res.pkl keys, launch counts
+   as the default universal configuration's; one ``InferenceModel`` call,
+   clean and adversarial, against ``engine.forward``.
 
 Prints the kernel table as one JSON line, then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -57,6 +86,8 @@ import io
 import json
 import math
 import os
+import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -71,16 +102,38 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PROFILE_STEPS = 2
 # kernel names of cuDNN / cuBLAS / CUTLASS convolutions and matrix products
 CONV_MARKS = ("conv", "cudnn", "xmma", "gemm", "sm90", "cutlass", "dgrad", "wgrad", "implicit")
-NAMES = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8f", "B8b")
+NAMES = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8f", "B8b", "B9f", "B9b")
 # launches per step; the default configuration (packed input head) ...
-TRAIN_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 3, 3, 1, 0, 0)))
-EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 2, 0, 0)))
+TRAIN_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 3, 3, 1, 0, 0, 0, 0)))
+EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 2, 0, 0, 0, 0)))
 # ... and USE_PALLAS_FUSED: B8 instead of B7, one more B2 (the stem's input
 # gradient); its evals take the generic path (no B7, no B8)
-FUSED_TRAIN_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 1, 1)))
-FUSED_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 0, 0, 0)))
+FUSED_TRAIN_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 1, 1, 0, 0)))
+FUSED_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 0, 0, 0, 0, 0)))
+# ... the default configuration with MaxPool3d_2a on the index pair: one B5
+# and one B6 become B9 forward and backward (an eval's forwards keep no index)
+PAIR_TRAIN_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 2, 2, 1, 0, 0, 1, 1)))
+PAIR_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 4, 0, 2, 0, 0, 2, 0)))
+# ... and the single-video attack's float32 clip (generic path: the victim's
+# own forward with an input gradient, so B2 once more for the stem; no B7, no
+# B8), per step and per clean forward, default and with the pair at 2a
+SV_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0)))
+SV_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 3, 0, 0, 0, 0, 0, 0)))
+SV_PAIR_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 2, 2, 0, 0, 0, 1, 1)))
+SV_PAIR_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 2, 0, 0, 0, 0, 1, 0)))
 RUNNER_STEPS, RESUME_STEPS, FUSED_STEPS = 12, 16, 4
 SHARDS, PER_SHARD = 2, 8
+SV_FRAMES, SV_MAX_NUM_STEP = 90, 1   # hard cap 40 * MAX_NUM_STEP steps a clip
+SV_RESULT_KEYS = {
+    "correct_cls", "correct_cls_id", "correct_cls_prob", "softmax_init", "rgb_sample",
+    "total_loss_l", "adv_loss_l", "reg_loss_l", "norm_reg_loss_l", "diff_norm_reg_loss_l",
+    "perturbation", "adv_video", "softmax", "total_steps", "beta_0", "beta_1", "beta_2", "beta_3",
+    "fatness", "smoothness", "is_adversarial", "final_delta", "steps_per_sec",
+}
+CLASS_GEN_KEYS = {
+    "total_loss_l", "adv_loss_l", "reg_loss_l", "norm_reg_loss_l", "diff_norm_reg_loss_l",
+    "perturbation", "total_steps", "beta_1", "beta_2", "fatness", "smoothness", "fool_rate",
+}
 
 
 def fail(msg: str) -> None:
@@ -166,13 +219,17 @@ def main() -> None:
         from flickering_adversarial_video_tpu_torch.engine import (
             AttackConfig, AttackEngine, RuntimeFlags)
         from flickering_adversarial_video_tpu_torch.engine import loops
+        from flickering_adversarial_video_tpu_torch.data.npy import save_npy_clip
         from flickering_adversarial_video_tpu_torch.engine.checkpoint import AttackCheckpointer
+        from flickering_adversarial_video_tpu_torch.engine.inference import InferenceModel
         from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
         from flickering_adversarial_video_tpu_torch.ops import fused_apply, kernels, packed_apply
         from flickering_adversarial_video_tpu_torch.ops import pool_s1, pool_strided
         from flickering_adversarial_video_tpu_torch.ops import stem_combine, stem_conv
-        from flickering_adversarial_video_tpu_torch.runners import common, universal
+        from flickering_adversarial_video_tpu_torch.runners import (
+            class_gen, common, single_video, universal)
         from flickering_adversarial_video_tpu_torch.utils.config import load_config
+        from flickering_adversarial_video_tpu_torch.viz.results import load_result
     except ImportError as e:
         fail(f"the port is not importable next to this script ({e})")
     if not torch.cuda.is_available():
@@ -201,6 +258,15 @@ def main() -> None:
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    dgen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def drandn(*shape, dtype=torch.float32):
+        """Made on the card: the many large tensors of the later checks."""
+        return torch.randn(*shape, generator=dgen, device=dev).to(dtype)
+
+    def drandint(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=dgen, device=dev).to(dtype)
 
     def compare(got, want):
         got, want = got.float(), want.float()
@@ -241,6 +307,20 @@ def main() -> None:
            ("B6", torch.bfloat16): 1e-2, ("B6", torch.float32): 1e-6}
     checks = {}
     inputs = {}
+
+    def hold(name, kern, plain, dtype):
+        """Run a kernel and its plain version; (max abs err, max rel err),
+        failing above the kernel's tolerance."""
+        got = kern()
+        torch.cuda.synchronize()
+        err, rel = compare(got, plain())
+        limit = tol.get((name.split()[0], dtype), 0.0)
+        print(f"[check] {name:13s} {str(dtype)[6:]:8s} max_abs_err {err:.3e} "
+              f"max_rel_err {rel:.3e} (max_rel_err tolerance {limit:g})", flush=True)
+        if not rel <= limit:
+            fail(f"{name} {dtype} disagrees with its plain version")
+        return err, rel
+
     for dtype in (torch.bfloat16, torch.float32):
         x1 = (torch.randint(0, 256, shapes["B1"], generator=gen).float() / 128 - 1).to(dev, dtype)
         pk = randn(4, 4, 4, 24, 64, dtype=dtype) * 0.05
@@ -262,17 +342,9 @@ def main() -> None:
                             lambda: pool_s1.pool333_bwd_plain(xc, dyc)),
         }
         for name, (kern, plain) in {**runs, **runs_5c}.items():
-            got = kern()
-            torch.cuda.synchronize()
-            err, rel = compare(got, plain())
-            limit = tol.get((name.split()[0], dtype), 0.0)
-            checks[(name, dtype)] = (err, rel)
-            print(f"[check] {name:13s} {str(dtype)[6:]:8s} max_abs_err {err:.3e} "
-                  f"max_rel_err {rel:.3e} (max_rel_err tolerance {limit:g})", flush=True)
-            if not rel <= limit:
-                fail(f"{name} {dtype} disagrees with its plain version")
+            checks[(name, dtype)] = hold(name, kern, plain, dtype)
         if dtype == torch.bfloat16:
-            inputs = dict(x1=x1, pk=pk, bn=bn, xp=xp, x5=x5, runs=runs,
+            inputs = dict(x1=x1, pk=pk, bn=bn, xp=xp, x5=x5, dy5=dy5, runs=runs,
                           b2_stem=runs_5c["B2 stem dgrad"])
     for name, xshape, yshape, kern, plain in (
         ("B4", shapes["B4"], shapes["B4"], pool_s1.pool333_bwd, pool_s1.pool333_bwd_plain),
@@ -350,6 +422,102 @@ def main() -> None:
                 lambda u=u8v, d=dlt, g=gup: fused_apply.fused_apply_bwd_plain(u, d, flag1, g))
         del u8v, dlt, gup, dd, dd2, sat
 
+    # B9: the index pair at MaxPool3d_2a's and 3a's shapes and at the
+    # single-video clip's.  Forward: values bit-equal to the plain version and
+    # to B5's, the index equal everywhere (the plain version's first-match
+    # rule is held against the Pallas kernel on the CPU).  Backward: bit-equal
+    # to the plain version (the same <=4 f32 terms in the same order, one
+    # rounding), exact on integer grids; against B6 on the same (x, dy): equal
+    # on an integer tie grid, to f32 sum order otherwise (B6 sums H first,
+    # then W): B6's own tolerance.
+    pair_shapes = (shapes["B5"], (B, T // 2, th // 2, tw // 2, 192),
+                   (1, SV_FRAMES // 2, th, tw, 64))
+    for shape9 in pair_shapes:
+        pooled9 = (*shape9[:2], shape9[2] // 2, shape9[3] // 2, shape9[4])
+        for dtype in (torch.bfloat16, torch.float32):
+            for grid in ("random", "integer ties"):
+                if grid == "random":
+                    x9, dy9 = drandn(*shape9, dtype=dtype), drandn(*pooled9, dtype=dtype)
+                else:
+                    x9 = drandint(0, 3, shape9, dtype)
+                    dy9 = drandint(-8, 9, pooled9, dtype)
+                y9, idx9 = pool_strided.pool133_s2_pair_fwd(x9)
+                torch.cuda.synchronize()
+                want_y, want_idx = pool_strided.pool133_s2_pair_fwd_plain(x9)
+                yerr, _ = compare(y9, want_y)
+                ierr = (idx9.int() - want_idx.int()).abs().max().item()
+                b5err, _ = compare(y9, pool_strided.pool133_s2_fwd(x9))
+                del want_y
+                canary = torch.full((y9.numel(),), 171, dtype=torch.uint8, device=dev)
+                y_only, no_idx = pool_strided.pool133_s2_pair_fwd(x9, want_idx=False)
+                torch.cuda.synchronize()
+                null_ok = (no_idx is None and torch.equal(y_only, y9)
+                           and bool((canary == 171).all()))
+                del canary, y_only
+                dx9 = pool_strided.pool133_s2_pair_bwd(idx9, dy9)
+                torch.cuda.synchronize()
+                berr, _ = compare(dx9, pool_strided.pool133_s2_pair_bwd_plain(want_idx, dy9))
+                b6err, b6rel = compare(dx9, pool_strided.pool133_s2_bwd(x9, dy9))
+                b6tol = 0.0 if grid != "random" else tol[("B6", dtype)]
+                print(f"[check] B9 {list(shape9)} {str(dtype)[6:]:8s} {grid}: forward y "
+                      f"max_abs_err {yerr:.3e}, index max_abs_err {ierr}, y against B5 {b5err:.3e} "
+                      f"(tolerance 0); indices used {sorted(idx9.unique().tolist())}; null-index "
+                      f"forward {'writes values only' if null_ok else 'DIFFERS'}; backward "
+                      f"max_abs_err {berr:.3e} (tolerance 0); against B6 max_abs_err {b6err:.3e} "
+                      f"max_rel_err {b6rel:.3e} (max_rel_err tolerance {b6tol:g})", flush=True)
+                if yerr != 0 or ierr != 0 or b5err != 0 or not null_ok or berr != 0:
+                    fail(f"B9 disagrees with its plain version at {shape9} {dtype} ({grid})")
+                if not b6rel <= b6tol:
+                    fail(f"B9 backward disagrees with B6 at {shape9} {dtype} ({grid})")
+                if grid == "random" and shape9 == shapes["B5"] and dtype == torch.bfloat16:
+                    checks[("B9f", dtype)] = (max(yerr, float(ierr)), 0.0)
+                    checks[("B9b", dtype)] = (berr, 0.0)
+                del x9, dy9, y9, idx9, want_idx, dx9
+    x5, dy5 = inputs["x5"], inputs["dy5"]
+    idx5 = pool_strided.pool133_s2_pair_fwd(x5)[1]
+    inputs["runs"]["B9f"] = (lambda: pool_strided.pool133_s2_pair_fwd(x5),
+                             lambda: pool_strided.pool133_s2_pair_fwd_plain(x5))
+    inputs["runs"]["B9b"] = (lambda: pool_strided.pool133_s2_pair_bwd(idx5, dy5),
+                             lambda: pool_strided.pool133_s2_pair_bwd_plain(idx5, dy5))
+
+    # B1..B6 at the single-video attack's shapes: B=1, T=90 gives T' = 45 ->
+    # 23 -> 12 down the trunk, so B*T' is odd for the first time
+    tp = SV_FRAMES // 2
+    sv_part = {45: (1, 45, th // 2, tw // 2, 3 * 64),     # Conv3d_2c backward
+               23: (1, 23, th // 8, tw // 8, 3 * 112),    # Mixed_4c Branch_1 3x3 backward
+               12: (1, 12, th // 16, tw // 16, 3 * 160)}  # Mixed_5b Branch_1 3x3 backward
+    sv_pool = ((1, 45, th // 4, tw // 4, 192), (1, 23, th // 8, tw // 8, 480),
+               (1, 12, th // 16, tw // 16, 832))
+    for dtype in (torch.bfloat16, torch.float32):
+        x1s = (drandint(0, 256, (1, tp, th, tw, 24), torch.float32) / 128 - 1).to(dtype)
+        pks = drandn(4, 4, 4, 24, 64, dtype=dtype) * 0.05
+        bns = (drandn(64), drandn(64).abs() + 0.5, drandn(64))
+        hold("B1 [1,45,..]", lambda: stem_conv.stem_conv_bn_relu(x1s, pks, *bns),
+             lambda: stem_conv.stem_conv_bn_relu_plain(x1s, pks, *bns), dtype)
+        for tq, pshape in sv_part.items():
+            part_s = drandn(*pshape, dtype=dtype)
+            cin = pshape[-1] // 3
+            hold(f"B2 T'={tq}", lambda: stem_combine.temporal_combine(part_s, cin, 1),
+                 lambda: stem_combine.temporal_combine_plain(part_s, cin, 1), dtype)
+        # the stem's own dgrad (a float32 clip takes an input gradient): the
+        # step's 20th B2 launch, 4 taps of 24 channels
+        part4s = drandn(1, tp, th, tw, 4 * 24, dtype=dtype)
+        hold(f"B2 stem T'={tp}", lambda: stem_combine.temporal_combine(part4s, 24, 1),
+             lambda: stem_combine.temporal_combine_plain(part4s, 24, 1), dtype)
+        for pshape in sv_pool:
+            xs, dys = drandn(*pshape, dtype=dtype), drandn(*pshape, dtype=dtype)
+            hold(f"B3 T'={pshape[1]}", lambda: pool_s1.pool333_fwd(xs),
+                 lambda: pool_s1.pool333_fwd_plain(xs), dtype)
+            hold(f"B4 T'={pshape[1]}", lambda: pool_s1.pool333_bwd(xs, dys),
+                 lambda: pool_s1.pool333_bwd_plain(xs, dys), dtype)
+        x5s = drandn(1, tp, th, tw, 64, dtype=dtype)
+        dy5s = drandn(1, tp, th // 2, tw // 2, 64, dtype=dtype)
+        hold("B5 [1,45,..]", lambda: pool_strided.pool133_s2_fwd(x5s),
+             lambda: pool_strided.pool133_s2_fwd_plain(x5s), dtype)
+        hold("B6 [1,45,..]", lambda: pool_strided.pool133_s2_bwd(x5s, dy5s),
+             lambda: pool_strided.pool133_s2_bwd_plain(x5s, dy5s), dtype)
+        del x1s, pks, x5s, dy5s, xs, dys, part_s, part4s
+
     # ---- 3. the full-width attack step through the engine -----------------------
     model = InceptionI3D(CLASSES, torch.bfloat16, device=dev)
     model.load_state_dict(init_i3d_state(SEED, CLASSES))
@@ -388,6 +556,45 @@ def main() -> None:
         fail("delta did not move")
     if not (ev["adv_probs"].shape == (B, CLASSES) and torch.isfinite(ev["adv_probs"]).all()):
         fail("eval probabilities malformed")
+
+    # the same step with MaxPool3d_2a on the index pair (B9): exact counts,
+    # the first loss and the first d(delta) beside the default engine's.  Both
+    # compute the same pooled values; the routed gradient differs by the f32
+    # sum order in cells that collect several windows, then by bf16 rounding
+    # downstream: 1e-3 relative on the loss, cosine >= 0.99 on d(delta)
+    # (Adam's first moment after one step from zero is 0.1 * gradient)
+    def with_pair(pools):
+        m = InceptionI3D(CLASSES, torch.bfloat16, device=dev, pair_pools=pools)
+        m.load_state_dict(model.state_dict())
+        return AttackEngine(m, FlickerSpec(frames=T), track_probs=False)
+
+    pair_engine = with_pair(("MaxPool3d_2a_3x3",))
+    first, first_m = engine.train_step(engine.init_state(), batch, flags)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    pfirst, pfirst_m = pair_engine.train_step(pair_engine.init_state(), batch, flags)
+    torch.cuda.synchronize()
+    got_train = read_counts(ops)
+    ops.reset_launch_counts()
+    pev = pair_engine.eval_step(pfirst.delta, batch, flags)
+    torch.cuda.synchronize()
+    got_eval = read_counts(ops)
+    l0, l1 = float(first_m["total_loss"]), float(pfirst_m["total_loss"])
+    g0, g1 = (first.mu * 10).flatten().double(), (pfirst.mu * 10).flatten().double()
+    cos = F.cosine_similarity(g0, g1, dim=0).item()
+    print(f"[slice] pair at MaxPool3d_2a: train step launches {got_train} (expected "
+          f"{PAIR_TRAIN_COUNTS}); eval step launches {got_eval} (expected {PAIR_EVAL_COUNTS}); "
+          f"first total_loss {l1:.6f} against the default engine's {l0:.6f} (rel diff "
+          f"{abs(l1 - l0) / max(abs(l0), 1e-30):.2e}, tolerance 1e-3); first d(delta) max abs "
+          f"{g0.abs().max().item():.3e}, max abs difference {(g1 - g0).abs().max().item():.3e}, "
+          f"cosine {cos:.6f} (required >= 0.99)", flush=True)
+    if got_train != PAIR_TRAIN_COUNTS or got_eval != PAIR_EVAL_COUNTS:
+        fail("kernel launch counts of the pair configuration differ from the per-step counts")
+    if not (abs(l1 - l0) <= 1e-3 * abs(l0) and cos >= 0.99):
+        fail("the pair configuration's first step disagrees with the default engine's")
+    if not torch.isfinite(pev["adv_probs"]).all():
+        fail("the pair configuration's eval probabilities are not finite")
+    del first, pfirst, pev, g0, g1
 
     # ---- 4. small geometry, f32: kernels vs the plain versions on the CPU ----
     small = {"video": rng.integers(0, 256, (2, 8, 32, 32, 3), dtype=np.uint8),
@@ -430,6 +637,16 @@ def main() -> None:
     print(f"[time] train step (USE_PALLAS_FUSED) {fused_ms:.2f} ms ({1000 / fused_ms:.3f} steps/s), "
           f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
 
+    for tag, eng in (("pair at MaxPool3d_2a", pair_engine),
+                     ("pair at MaxPool3d_2a and 3a",
+                      with_pair(("MaxPool3d_2a_3x3", "MaxPool3d_3a_3x3")))):
+        torch.cuda.reset_peak_memory_stats()
+        pair_ms = cuda_ms(torch, lambda: eng.train_steps(state, batch, flags, 1), iters=5, warmup=1)
+        print(f"[time] train step ({tag}) {pair_ms:.2f} ms ({1000 / pair_ms:.3f} steps/s), peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; default "
+              f"{step_ms:.2f} ms in this run", flush=True)
+    del pair_engine, eng
+
     x1, pk, bn, xp, x5 = (inputs[k] for k in ("x1", "pk", "bn", "xp", "x5"))
     isz = 2
 
@@ -452,6 +669,10 @@ def main() -> None:
         # B8: u8 read and f32 written / u8 and f32 g read; ~5 operations an element
         "B8f": (n8 * (1 + 4) + T * 3 * 4, 5 * n8, PEAK_F32_FLOPS),
         "B8b": (n8 * (1 + 4) + 2 * T * 3 * 4, 5 * n8, PEAK_F32_FLOPS),
+        # B9 forward: x read, y and one index byte an output written; 8 max and
+        # 9 compares an output.  Backward: dy and the index read, dx written
+        "B9f": (nb["B5"] * isz + nb["B5"] // 4 * (isz + 1), 17 * nb["B5"] // 4, PEAK_F32_FLOPS),
+        "B9b": (nb["B5"] // 4 * (isz + 1) + nb["B5"] * isz, 18 * nb["B5"] // 4, PEAK_F32_FLOPS),
     }
     x1p = F.pad(x1.permute(0, 4, 1, 2, 3), (1, 2) * 3)
     w1 = stem_conv.pk_to_oidhw(pk).contiguous(memory_format=torch.channels_last_3d)
@@ -472,6 +693,8 @@ def main() -> None:
         "B7": "flickering_adversarial_video_tpu/ops/stem_tmajor.py:363",
         "B8f": "flickering_adversarial_video_tpu/ops/fused_apply.py:132",
         "B8b": "flickering_adversarial_video_tpu/ops/fused_apply.py:172",
+        "B9f": "flickering_adversarial_video_tpu/ops/pallas_pool.py:397",
+        "B9b": "flickering_adversarial_video_tpu/ops/pallas_pool.py:429",
     }
     source = {
         "B1": "flickering_adversarial_video_tpu_torch/csrc/stem_conv.cu",
@@ -483,6 +706,8 @@ def main() -> None:
         "B7": "flickering_adversarial_video_tpu_torch/csrc/emit.cu",
         "B8f": "flickering_adversarial_video_tpu_torch/csrc/fused_apply.cu",
         "B8b": "flickering_adversarial_video_tpu_torch/csrc/fused_apply.cu",
+        "B9f": "flickering_adversarial_video_tpu_torch/csrc/pool_pair.cu",
+        "B9b": "flickering_adversarial_video_tpu_torch/csrc/pool_pair.cu",
     }
     table = []
     for full_name, _ in ops.kernel_wrappers():
@@ -512,33 +737,50 @@ def main() -> None:
     print(f"[time] B2 at the stem's dgrad [{B},{T // 2},{th},{tw},96] (USE_PALLAS_FUSED): "
           f"{cuda_ms(torch, kern):.3f} ms (bound {5 * n4 * isz / PEAK_BYTES * 1e3:.3f} ms, bytes), "
           f"plain {cuda_ms(torch, plain, iters=3, warmup=1):.3f} ms", flush=True)
+    part4s = drandn(1, SV_FRAMES // 2, th, tw, 4 * 24, dtype=torch.bfloat16)
+    n4s = part4s.numel() // 4
+    ms4s = cuda_ms(torch, lambda: stem_combine.temporal_combine(part4s, 24, 1))
+    plain4s = cuda_ms(torch, lambda: stem_combine.temporal_combine_plain(part4s, 24, 1),
+                      iters=3, warmup=1)
+    print(f"[time] B2 at the stem's dgrad {list(part4s.shape)} (the single-video clip): "
+          f"{ms4s:.3f} ms (bound {5 * n4s * isz / PEAK_BYTES * 1e3:.3f} ms, bytes), "
+          f"plain {plain4s:.3f} ms", flush=True)
+    del part4s
 
     # ---- 6. where the step's device time goes ---------------------------------
     from torch.profiler import ProfilerActivity, profile
 
     symbols = [s for names in kernels.KERNEL_SYMBOLS.values() for s in names]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_ms = cuda_ms(torch, lambda: engine.train_steps(state, batch, flags, 1),
-                          iters=PROFILE_STEPS, warmup=0)
-    rows = kernel_rows(prof, PROFILE_STEPS)
-    busy = sum(r[0] for r in rows)
-    if busy > 0:
+
+    def breakdown(tag, step_fn, untraced_ms, top=12):
+        """PROFILE_STEPS calls of `step_fn` under torch.profiler: the device's
+        busy share of the traced wall, kernel time by group, the slowest
+        kernels, and the kernels' sum against the untraced step time."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_ms = cuda_ms(torch, step_fn, iters=PROFILE_STEPS, warmup=0)
+        rows = kernel_rows(prof, PROFILE_STEPS)
+        busy = sum(r[0] for r in rows)
+        if not busy > 0:
+            print(f"[profile] {tag}: torch.profiler saw no device time: breakdown not measured")
+            return
         groups = defaultdict(float)
         for ms, _, name in rows:
             if any(sym in name for sym in symbols):
-                groups["the port's kernels B1-B8"] += ms
+                groups["the port's kernels B1-B9"] += ms
             elif any(mark in name.lower() for mark in CONV_MARKS):
                 groups["convolution / matmul (cuDNN, cuBLAS)"] += ms
             else:
                 groups["other (elementwise, reductions, copies)"] += ms
-        print(f"[profile] {PROFILE_STEPS} train steps: wall {wall_ms:.2f} ms/step; kernels "
-              f"{busy:.2f} ms/step; device busy {busy / wall_ms:.1%}, idle {1 - busy / wall_ms:.1%}")
+        print(f"[profile] {tag}, {PROFILE_STEPS} train steps: wall {wall_ms:.2f} ms/step; kernels "
+              f"{busy:.2f} ms/step in {sum(r[1] for r in rows):.0f} launches/step; device busy "
+              f"{busy / wall_ms:.1%}, idle {1 - busy / wall_ms:.1%}; untraced the step takes "
+              f"{untraced_ms:.2f} ms, so the kernels fill {busy / untraced_ms:.1%} of it")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"[profile]   {g:42s} {ms:9.2f} ms/step  {ms / busy:6.1%}")
-        for ms, n, name in sorted(rows, reverse=True)[:12]:
+        for ms, n, name in sorted(rows, reverse=True)[:top]:
             print(f"[profile]   slowest: {ms:8.3f} ms/step {n:5.1f} launches/step  {name[:90]}")
-    else:
-        print("[profile] torch.profiler saw no device time: breakdown not measured")
+
+    breakdown(f"B={B} T={T}", lambda: engine.train_steps(state, batch, flags, 1), step_ms)
     packed, is_packed, _ = engine.prepare_batch(batch)
     with torch.no_grad():
         fwd_ms = cuda_ms(torch, lambda: engine._logits(state.delta, packed, is_packed, flags),
@@ -709,9 +951,193 @@ def main() -> None:
               f"0.5) and by the bf16 rounding of the combined d(adv)", flush=True)
         if not cos >= 0.99:
             fail("the two configurations' first gradients point apart")
+        del grads
+        torch.cuda.empty_cache()
+
+        # ---- 9. the single-video runner at full width ---------------------------------
+        sv = cfg.SINGLE_VIDEO_ATTACK
+        # a pkl is named by class, thickness and roughness alone (the
+        # reference's convention), and on random weights every clip gets one
+        # class and numbers that agree to the 0.01% printed: the two kept
+        # clips lie in a directory each, so that neither pkl overwrites the other
+        npy_dirs = [os.path.join(tmp, "npy", d) for d in ("a", "b")]
+        for d in npy_dirs:
+            os.makedirs(d)
+        sv.MAX_NUM_STEP = SV_MAX_NUM_STEP
+        if sv.COMPUTE_DTYPE != "bfloat16" or sv.TARGETED_ATTACK or sv.SLOTS != 1:
+            fail("configs/run_config.yml is not the single-video configuration this phase expects")
+        pair_env = ("FLICKER_POOL_PALLAS_2A", "FLICKER_POOL_PALLAS_3A")
+        for key in pair_env:
+            os.environ.pop(key, None)
+        with contextlib.redirect_stdout(io.StringIO()):
+            sv_engine, sv_labels = common.build_engine(sv, cfg.MODEL, frames=SV_FRAMES)
+        # three clips: two named with the seeded model's clean prediction (one
+        # of noise, one darker and smoother), the third with a wrong class
+        rng = np.random.default_rng(SEED + 9)
+        infer = InferenceModel(sv_engine)
+        sv_clip = None
+        for k in range(3):
+            clip = rng.uniform(-1, 1, (1, SV_FRAMES, SIZE, SIZE, 3)).astype(np.float32)
+            if k == 1:
+                clip = 0.5 * clip - 0.4
+            top = int(infer(clip).argmax())
+            cls = top if k < 2 else (top + 1) % CLASSES
+            save_npy_clip(os.path.join(
+                npy_dirs[k == 1], f"rgb_{k}@{sv_labels[cls].replace(' ', '_')}.npy"), clip)
+            if sv_clip is None:
+                sv_clip = {"video": torch.from_numpy(clip).to(dev),
+                           "labels": torch.tensor([top], device=dev)}
+        sv_ms = cuda_ms(torch, lambda: sv_engine.train_steps(sv_engine.init_state(), sv_clip, flags, 1),
+                        iters=10, warmup=2)
+        print(f"[time] chained train step at B=1 T={SV_FRAMES} {SIZE}x{SIZE} bf16, float32 clip "
+              f"(the single-video path): {sv_ms:.2f} ms ({1000 / sv_ms:.3f} steps/s)", flush=True)
+        breakdown(f"single-video B=1 T={SV_FRAMES}",
+                  lambda: sv_engine.train_steps(sv_engine.init_state(), sv_clip, flags, 1), sv_ms,
+                  top=8)
+        del sv_engine, infer, sv_clip
+
+        def run_single(tag, out_dir, pair, step_counts, clean_counts):
+            """single_video.run over both clip directories, with the counts
+            reset just before and read just after; checks the pkls and the
+            exact launch counts."""
+            if pair:
+                os.environ["FLICKER_POOL_PALLAS_2A"] = "2"
+            said = io.StringIO()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                written = []
+                with contextlib.redirect_stdout(said):
+                    for npy_dir in npy_dirs:
+                        sv.NPY_PATH = npy_dir
+                        sv.PKL_RESULT_PATH = os.path.join(tmp, out_dir, os.path.basename(npy_dir))
+                        written += single_video.run(cfg, frames=SV_FRAMES)
+            finally:
+                os.environ.pop("FLICKER_POOL_PALLAS_2A", None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts(ops)
+            said = said.getvalue()
+            # the runner's line per clip, in the order of `written`
+            lines = re.findall(r"fooled=(\w+) steps=(\d+) .*\(([\d.]+) steps/s\)", said)
+            steps = [int(n) + 1 for _, n, _ in lines]
+            n_steps = sum(steps)
+            want = {k: n_steps * step_counts[k] + 3 * clean_counts[k] for k in NAMES}
+            results = [load_result(path) for path in written]
+            print(f"[single-video] {tag}: {len(written)} pkls "
+                  f"{[os.path.basename(w) for w in written]} in {wall:.2f} s; steps {steps}, "
+                  f"fooled {[f for f, _, _ in lines]}, final thickness and roughness in % "
+                  f"{[(round(r['fatness'][-1], 5), round(r['smoothness'][-1], 5)) for r in results]}"
+                  f", steps/s a clip {[float(r) for _, _, r in lines]}; launches {got} (expected {want})",
+                  flush=True)
+            if (len(set(written)) != 2 or len(lines) != 2
+                    or not all(os.path.isfile(w) for w in written)
+                    or said.count("clean model misclassifies") != 1):
+                fail(f"single-video {tag}: expected two pkls and one skipped clip")
+            if [r["total_steps"] + 1 for r in results] != steps:
+                fail(f"single-video {tag}: the pkls' total_steps differ from the printed lines")
+            if got != want:
+                fail(f"single-video {tag}: kernel launch counts differ from the per-step counts")
+            for path, r in zip(written, results):
+                n = r["total_steps"] + 1
+                if set(r) != SV_RESULT_KEYS:
+                    fail(f"single-video {tag}: result keys {sorted(set(r) ^ SV_RESULT_KEYS)} differ")
+                if "_beta1_0.5_th_" not in os.path.basename(path) or not path.endswith("%.pkl"):
+                    fail(f"single-video {tag}: {path} does not follow the filename pattern")
+                lists = ("total_loss_l", "adv_loss_l", "reg_loss_l", "norm_reg_loss_l",
+                         "diff_norm_reg_loss_l", "fatness", "smoothness", "perturbation", "softmax")
+                if any(len(r[k]) != n for k in lists) or not 2 <= n <= 40 * SV_MAX_NUM_STEP + 1:
+                    fail(f"single-video {tag}: history lengths differ from total_steps + 1 = {n}")
+                if not all(math.isfinite(v) for k in lists[:5] for v in r[k]):
+                    fail(f"single-video {tag}: a loss is not finite")
+                if (r["final_delta"].shape != (SV_FRAMES, 1, 1, 3)
+                        or not np.abs(r["final_delta"]).max() > 0
+                        or r["perturbation"][0].shape != (SV_FRAMES, 1, 1, 3)
+                        or r["adv_video"].shape != (1, SV_FRAMES, SIZE, SIZE, 3)
+                        or not np.isfinite(r["adv_video"]).all()):
+                    fail(f"single-video {tag}: final_delta did not move or a shape is wrong")
+            rate = n_steps / sum(n / float(r) for n, (_, _, r) in zip(steps, lines))
+            print(f"[time] single-video {tag}: {rate:.3f} steps/s by the loop's timer "
+                  f"({1000 / max(rate, 1e-9):.1f} ms/step; the chained step alone takes "
+                  f"{sv_ms:.1f} ms)", flush=True)
+            return results, got
+
+        sv_default, _ = run_single("default", "sv_default", False, SV_STEP_COUNTS, SV_CLEAN_COUNTS)
+        sv_pair, pair_counts = run_single(
+            "FLICKER_POOL_PALLAS_2A=2", "sv_pair", True, SV_PAIR_STEP_COUNTS, SV_PAIR_CLEAN_COUNTS)
+        for a, b in zip(sv_default, sv_pair):
+            la, lb = a["total_loss_l"][0], b["total_loss_l"][0]
+            lrel = abs(la - lb) / max(abs(la), 1e-30)
+            print(f"[single-video] {a['correct_cls']}: first-step total_loss default {la:.6f}, "
+                  f"pair {lb:.6f} (rel diff {lrel:.2e}, tolerance 1e-3)", flush=True)
+            if not lrel <= 1e-3:
+                fail("the pair configuration's first single-video loss disagrees")
+        del sv_default, sv_pair
+
+        # ---- 10. the class-gen runner and the inference wrapper -------------------------
+        cg = cfg.CLASS_GEN_ATTACK
+        cg.TF_RECORDS_TRAIN_PATH = [shard_dir]
+        cg.TF_RECORDS_VAL_PATH = [shard_dir]
+        cg.NUM_OF_TRAIN_TF_RECORDS = SHARDS
+        cg.NUM_OF_VAL_TF_RECORDS = SHARDS
+        cg.PKL_RESULT_PATH = os.path.join(tmp, "class_gen") + "/"
+        cg.BATCH_SIZE = B
+        if cg.get("COMPUTE_DTYPE", "bfloat16") != "bfloat16" or cg.TARGETED_ATTACK:
+            fail("configs/run_config.yml is not the class-gen configuration this phase expects")
+        for max_steps, resumed in ((SHARDS, False), (2 * SHARDS, True)):
+            cg.MAX_NUM_STEP = max_steps
+            said = io.StringIO()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            with contextlib.redirect_stdout(said):
+                out = class_gen.run(cfg, frames=T)
+            torch.cuda.synchronize()
+            got = read_counts(ops)
+            hist = out["history"]
+            start = hist["fool_rate_steps"][0]
+            n_eval = len(hist["fool_rate_steps"]) * SHARDS
+            want = {k: (max_steps - start) * TRAIN_COUNTS[k] + n_eval * EVAL_COUNTS[k]
+                    for k in NAMES}
+            ckpts = AttackCheckpointer(os.path.join(cg.PKL_RESULT_PATH, "ckpt")).steps()
+            with open(os.path.join(cg.PKL_RESULT_PATH, "res.pkl"), "rb") as f:
+                res = pickle.load(f)
+            print(f"[class-gen] steps {start}->{out['steps']}; evals at {hist['fool_rate_steps']}; "
+                  f"final eval {out['final_eval']}; checkpoints {ckpts}; "
+                  f"{out['steps_per_sec']:.3f} steps/s by the loop's timer; launches {got} "
+                  f"(expected {want})", flush=True)
+            if out["steps"] != max_steps or start != (SHARDS if resumed else 0):
+                fail("class-gen: wrong start or end step")
+            if resumed != (f"resumed from step {SHARDS}" in said.getvalue()):
+                fail("class-gen: the resume line is missing or unexpected")
+            if got != want:
+                fail("class-gen: kernel launch counts differ from the per-step counts")
+            if max_steps not in ckpts or set(res) != CLASS_GEN_KEYS or res["total_steps"] != max_steps:
+                fail("class-gen: the epoch-end checkpoint or res.pkl is missing or malformed")
+            if out["final_eval"]["total_valid_videos"] != SHARDS * PER_SHARD:
+                fail("class-gen: not every self-labelled clip counted as valid")
+            if not (math.isfinite(out["final_eval"]["miss_rate"])
+                    and all(math.isfinite(v) for v in res["total_loss_l"])):
+                fail("class-gen: a loss or the fooling rate is not finite")
+        with contextlib.redirect_stdout(io.StringIO()):
+            eng, _ = common.build_engine(cg, cfg.MODEL, frames=T, track_probs=False)
+        infer = InferenceModel(eng, out["state"].delta.cpu().numpy())
+        clip = first_batch["video"][:1]
+        one = {"video": clip, "labels": first_batch["labels"][:1]}
+        for adv_flag, adversarial in ((0.0, False), (1.0, True)):
+            probs = infer(clip, adv_flag=adv_flag)
+            ref = eng.forward(out["state"].delta, one, flags, adversarial=adversarial).cpu().numpy()
+            err = float(np.abs(probs - ref).max())
+            print(f"[inference] InferenceModel adv_flag={adv_flag:g} against engine.forward("
+                  f"adversarial={adversarial}): max_abs_err {err:.3e} (tolerance 1e-6), top-1 "
+                  f"{int(probs.argmax())}", flush=True)
+            if probs.shape != (1, CLASSES) or not err <= 1e-6:
+                fail("InferenceModel disagrees with engine.forward")
+        del eng, infer
     for row in table:
         name = row["name"].split()[0]
-        row["launches"] = (fused_counts if name.startswith("B8") else counts)[name]
+        row["launches"] = (fused_counts if name.startswith("B8") else
+                           pair_counts if name.startswith("B9") else counts)[name]
 
     try:
         smi = subprocess.run(

@@ -3,7 +3,11 @@
 //
 // Replace the Pallas kernels ops/pool_s1_view_pallas.py:331 `_fwd_impl`
 // (`_fwd_kernel` :140) and :370 `_bwd_impl` (`_bwd_kernel` :166), the two
-// halves of the public VJP `s1_pool333_view_pallas` (:427).
+// halves of the public VJP `s1_pool333_view_pallas` (:427).  The forward is
+// also the function of ops/pallas_pool.py:664 `overlap_pool_333` in its three
+// TPU blockings on b-major NDHWC (`_overlap_fwd_kernel` :132,
+// `_overlap_fwd_kernel_blocked` :148, `_conv_fwd_kernel` :593), which this
+// layout makes one.
 //
 // Forward: y = max over the 27 neighbours in range (-inf SAME pads).
 // Backward: dx[c] = sum of dy[o] over the <=27 windows o that contain cell c

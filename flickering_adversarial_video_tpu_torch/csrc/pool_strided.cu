@@ -4,8 +4,12 @@
 //
 // Replaces the Pallas kernel ops/pallas_pool.py:206 `_strided_fwd_kernel` as
 // ops/stem_tmajor.py:718 `strided_pool_view` launches it (pallas_call :754).
-// The same function is B5b (ops/pallas_pool.py:263 strided_spatial_pool_conv)
-// and B11 (:742 spatial_pool_132) in other TPU layouts.
+// The same function in other TPU layouts, which NDHWC makes one: B5b
+// (ops/pallas_pool.py:263 `strided_spatial_pool_conv`, pallas_call :306, the
+// same kernel body :206) and B11 (:742 `spatial_pool_132`,
+// `_spatial_fwd_kernel` :50, pallas_call :94); their backward is XLA's
+// select-and-scatter, whose rule B6 below implements.  The index pair B9 of
+// this pool is csrc/pool_pair.cu.
 //
 //   y[n,ho,wo,c] = max_{r in 2ho..2ho+2, s in 2wo..2wo+2, in range} x[n,r,s,c]
 //

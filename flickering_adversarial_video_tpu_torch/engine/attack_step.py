@@ -315,3 +315,16 @@ class AttackEngine:
             delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
         logits = self._logits(delta if adversarial else None, video, packed, flags)
         return torch.softmax(logits, dim=-1)
+
+    @torch.no_grad()
+    def adversarial_video(
+        self, delta: torch.Tensor, batch: Dict, flags: RuntimeFlags = RuntimeFlags()
+    ) -> torch.Tensor:
+        """The adversarial clip itself (the result dict's ``adv_video``): the
+        normalized ``"video"`` plus the clipped (and frame-masked) delta,
+        clipped to the input range."""
+        x = self._normalize(torch.as_tensor(batch["video"], device=self.device))
+        delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
+        return pert_lib.apply_perturbation(
+            x, delta, self.spec, adv_flag=self._flag(flags.adv_flag), mask=self._mask
+        )

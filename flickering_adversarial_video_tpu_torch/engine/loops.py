@@ -1,14 +1,18 @@
-"""Attack loops: the step-driven (universal) and epoch (class-gen) loop.
+"""Attack loops: single-video, epoch (class-gen) and step-driven (universal).
 
-Port of the JAX package's ``engine/loops.py`` without ``single_video_attack``
-(which comes with the single-video runner).  Host-side orchestration around
-the attack step: the clip stays on the device through a step, and metrics
-stay tensors; the loop reads them to Python floats only on a `log_every`
-step, so the host does not wait for the device on the steps between.
+Port of the JAX package's ``engine/loops.py``.  Host-side orchestration
+around the attack step: the clip stays on the device through a step, and
+metrics stay tensors.  The batched loop reads them to Python floats only on
+a `log_every` step, so the host does not wait for the device on the steps
+between; the single-video loop must know after every step whether the clip
+is fooled, and reads that step's scalars in one transfer.
 
-Loop semantics: the universal attack is step-driven with periodic eval and
-checkpoints (the tf.estimator cadence of the reference); class-gen takes an
-epoch as one pass over the train shards and evaluates and checkpoints at
+Loop semantics: the single-video attack stops at `step > max_step and
+fooled` (it never stops early and runs past max_step until it fools;
+``stop_rule="early"`` offers first-success stopping, `hard_cap` bounds the
+never-fooled case); the universal attack is step-driven with periodic eval
+and checkpoints (the tf.estimator cadence of the reference); class-gen takes
+an epoch as one pass over the train shards and evaluates and checkpoints at
 epoch ends.
 """
 
@@ -92,6 +96,101 @@ class StepTimer:
     @property
     def steps_per_sec(self) -> float:
         return self.count / self.total if self.total else 0.0
+
+
+SINGLE_VIDEO_SCALARS = WRITTEN + ("is_adversarial",)
+
+
+def single_video_attack(
+    engine: AttackEngine,
+    clip: np.ndarray,
+    label: int,
+    flags: RuntimeFlags,
+    *,
+    target_label: Optional[int] = None,
+    max_step: int = 2500,
+    stop_rule: str = "reference",
+    hard_cap: Optional[int] = None,
+    track_history: bool = True,
+    seed: int = 0,
+    log_fn: Optional[Callable[[int, Dict], None]] = None,
+) -> Optional[Dict[str, Any]]:
+    """Attack one clip until fooled.
+
+    `label` is the TRUE class (the clean-prediction skip check uses it); for
+    targeted attacks `target_label` is the class the attack drives toward and
+    is what the loss and the stop rule see.  Returns None when the clean model
+    misclassifies the clip, else a result dict in the reference's schema,
+    holding numpy arrays and Python scalars only.
+
+    `seed` feeds only the cyclic rolls in the JAX package; the cyclic modes
+    are not ported, so it is accepted and ignored.
+    """
+    del seed
+    attack_label = label if target_label is None else target_label
+    video = np.asarray(clip if clip.ndim == 5 else clip[None])
+    batch = {
+        "video": torch.as_tensor(video, device=engine.device),
+        "labels": torch.as_tensor(np.asarray([attack_label], np.int64), device=engine.device),
+    }
+    state = engine.init_state()
+    clean_probs = engine.forward(state.delta, batch, flags, adversarial=False).cpu().numpy()
+    if int(clean_probs.argmax()) != label:
+        return None
+
+    hist: Dict[str, List] = {k: [] for k in WRITTEN + ("perturbation", "softmax")}
+    timer = StepTimer()
+    step = 0
+    fooled = False
+    cap = hard_cap if hard_cap is not None else max_step * 40
+    while True:
+        timer.tick()
+        state, metrics = engine.train_step(state, batch, flags)
+        # the step's scalars in one read of the device
+        values = dict(zip(
+            SINGLE_VIDEO_SCALARS,
+            torch.stack([metrics[k].float() for k in SINGLE_VIDEO_SCALARS]).tolist(),
+        ))
+        fooled = bool(values["is_adversarial"])
+        if track_history:
+            for k in WRITTEN:
+                percent = k in ("thickness", "roughness")  # of the [-1, 1] range
+                hist[k].append(values[k] / 2.0 * 100 if percent else values[k])
+            hist["perturbation"].append(state.delta.cpu().numpy())
+            if "probs" in metrics:
+                hist["softmax"].append(metrics["probs"].cpu().numpy())
+        if log_fn is not None:
+            log_fn(step, metrics)
+        done_reference = step > max_step and fooled
+        done_early = stop_rule == "early" and fooled
+        if done_reference or done_early or step >= cap:
+            break
+        step += 1
+
+    return {
+        "correct_cls_id": label,
+        "correct_cls_prob": float(clean_probs.max()),
+        "softmax_init": clean_probs,
+        "rgb_sample": video,
+        "total_loss_l": hist["total_loss"],
+        "adv_loss_l": hist["adv_loss"],
+        "reg_loss_l": hist["reg_loss"],
+        "norm_reg_loss_l": hist["norm_reg"],
+        "diff_norm_reg_loss_l": hist["diff_norm_reg"],
+        "perturbation": hist["perturbation"],
+        "adv_video": engine.adversarial_video(state.delta, batch, flags).cpu().numpy(),
+        "softmax": hist["softmax"],
+        "total_steps": step,
+        "beta_0": float(flags.beta0),
+        "beta_1": float(flags.beta1),
+        "beta_2": float(flags.beta2),
+        "beta_3": float(flags.beta3),
+        "fatness": hist["thickness"],
+        "smoothness": hist["roughness"],
+        "is_adversarial": fooled,
+        "final_delta": state.delta.cpu().numpy(),
+        "steps_per_sec": timer.steps_per_sec,
+    }
 
 
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,8 @@
 """Inception-v1 Inflated 3D ConvNet (I3D) in PyTorch, NDHWC, frozen victim.
 
 Port of the JAX package's ``models/i3d.py`` (``InceptionI3D``): the packed
-space-to-depth stem (kernel B1), MaxPool3d_2a/3a (kernel B5), Unit3D convs
+space-to-depth stem (kernel B1), MaxPool3d_2a/3a (kernels B5/B6, or the
+index pair B9 for the endpoints named in ``pair_pools``), Unit3D convs
 (conv + frozen BN + relu, backward through kernel B2 for KT=3), nine Inception
 Mixed blocks with the stride-1 branch pool (kernels B3/B4), MaxPool3d_4a/5a,
 and the Logits head: a VALID average pool of window (min(2,T), min(7,H),
@@ -30,7 +31,7 @@ from ..device import resolve_device
 from ..ops.conv_unit import conv_bn_relu
 from ..ops.maxpool import pool4a, pool5a
 from ..ops.pool_s1 import max_pool_333
-from ..ops.pool_strided import max_pool_133_s2
+from ..ops.pool_strided import max_pool_133_s2, max_pool_133_s2_pair
 from ..ops.space_to_depth import pack_input, pack_stem_kernel
 from ..ops.stem_conv import stem_bn_relu
 
@@ -70,6 +71,9 @@ _MIXED_CHANNELS: Dict[str, Tuple[int, int, int, int, int, int]] = {
 
 # Reference quirk: Mixed_5b's second Branch_2 conv is named 'Conv3d_0a_3x3'.
 _BRANCH2_SECOND_NAME = {"Mixed_5b": "Conv3d_0a_3x3"}
+
+# the (1,3,3)/(1,2,2) pools that `pair_pools` may route through kernel B9
+PAIR_POOL_ENDPOINTS = ("MaxPool3d_2a_3x3", "MaxPool3d_3a_3x3")
 
 _POOL_AFTER = {"Mixed_3c": ("MaxPool3d_4a_3x3", pool4a), "Mixed_4f": ("MaxPool3d_5a_2x2", pool5a)}
 
@@ -151,16 +155,22 @@ class InceptionI3D(nn.Module):
     runs everything after the stem from the stem output (the attack step
     computes the stem inside its input head).  Weights start at zero: load a
     state dict (``convert.flax_i3d``).  Runs on CUDA unless ``device`` says
-    otherwise."""
+    otherwise.  ``pair_pools`` names the endpoints out of
+    ``PAIR_POOL_ENDPOINTS`` whose pool keeps its argmax index for the backward
+    (kernel B9) instead of its input (B5/B6); the values are the same."""
 
     def __init__(
         self, num_classes: int = 400, compute_dtype: torch.dtype = torch.bfloat16,
-        device=None,
+        device=None, pair_pools: Sequence[str] = (),
     ):
         super().__init__()
         device = resolve_device(device)
+        unknown = set(pair_pools) - set(PAIR_POOL_ENDPOINTS)
+        if unknown:
+            raise ValueError(f"pair_pools {sorted(unknown)}: choose from {PAIR_POOL_ENDPOINTS}")
         self.num_classes = num_classes
         self.compute_dtype = compute_dtype
+        self.pair_pools = tuple(pair_pools)
         self.Conv3d_1a_7x7 = Unit3D(3, 64, (7, 7, 7), device=device)
         self.Conv3d_2b_1x1 = Unit3D(64, 64, device=device)
         self.Conv3d_2c_3x3 = Unit3D(64, 192, (3, 3, 3), device=device)
@@ -207,9 +217,12 @@ class InceptionI3D(nn.Module):
                 endpoints[name] = x
             return final_endpoint == name
 
+        def strided_pool(name: str, v: torch.Tensor) -> torch.Tensor:
+            return max_pool_133_s2_pair(v) if name in self.pair_pools else max_pool_133_s2(v)
+
         if done("Conv3d_1a_7x7"):
             return x
-        x = max_pool_133_s2(x)
+        x = strided_pool("MaxPool3d_2a_3x3", x)
         if done("MaxPool3d_2a_3x3"):
             return x
         x = self.Conv3d_2b_1x1(x)
@@ -218,7 +231,7 @@ class InceptionI3D(nn.Module):
         x = self.Conv3d_2c_3x3(x)
         if done("Conv3d_2c_3x3"):
             return x
-        x = max_pool_133_s2(x)
+        x = strided_pool("MaxPool3d_3a_3x3", x)
         if done("MaxPool3d_3a_3x3"):
             return x
         for name in _MIXED_CHANNELS:

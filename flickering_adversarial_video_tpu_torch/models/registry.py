@@ -29,8 +29,10 @@ class ModelSpec:
     num_classes: int = 400
 
 
-def _i3d_factory(num_classes=400, compute_dtype=torch.float32, device=None):
-    return InceptionI3D(num_classes=num_classes, compute_dtype=compute_dtype, device=device)
+def _i3d_factory(num_classes=400, compute_dtype=torch.float32, device=None, pair_pools=()):
+    return InceptionI3D(
+        num_classes=num_classes, compute_dtype=compute_dtype, device=device, pair_pools=pair_pools
+    )
 
 
 MODEL_REGISTRY: Dict[str, ModelSpec] = {
@@ -40,10 +42,13 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
 
 
 def create_model(
-    name: str, num_classes: Optional[int] = None, compute_dtype=torch.float32, device=None
+    name: str, num_classes: Optional[int] = None, compute_dtype=torch.float32, device=None,
+    pair_pools=(),
 ) -> Tuple[Any, ModelSpec]:
+    """`pair_pools`: the I3D pools routed through the index pair (kernel B9)."""
     spec = MODEL_REGISTRY[name]
     model = spec.factory(
-        num_classes=num_classes or spec.num_classes, compute_dtype=compute_dtype, device=device
+        num_classes=num_classes or spec.num_classes, compute_dtype=compute_dtype, device=device,
+        pair_pools=tuple(pair_pools),
     )
     return model, spec

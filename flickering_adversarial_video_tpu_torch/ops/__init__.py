@@ -3,11 +3,12 @@
 
 def kernel_wrappers():
     """(name, wrapper) of every CUDA kernel of the attack's paths, in order
-    B1..B8; each wrapper carries a `launches` count."""
+    B1..B9; each wrapper carries a `launches` count."""
     from .fused_apply import fused_apply_bwd, fused_apply_fwd
     from .packed_apply import emit_adv_mask
     from .pool_s1 import pool333_bwd, pool333_fwd
-    from .pool_strided import pool133_s2_bwd, pool133_s2_fwd
+    from .pool_strided import (
+        pool133_s2_bwd, pool133_s2_fwd, pool133_s2_pair_bwd, pool133_s2_pair_fwd)
     from .stem_combine import temporal_combine
     from .stem_conv import stem_conv_bn_relu
 
@@ -21,6 +22,8 @@ def kernel_wrappers():
         ("B7 emit_adv_mask", emit_adv_mask),
         ("B8f fused_apply_fwd", fused_apply_fwd),
         ("B8b fused_apply_bwd", fused_apply_bwd),
+        ("B9f pool133_s2_pair_fwd", pool133_s2_pair_fwd),
+        ("B9b pool133_s2_pair_bwd", pool133_s2_pair_bwd),
     )
 
 

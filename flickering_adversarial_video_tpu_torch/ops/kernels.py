@@ -50,6 +50,10 @@ SIGNATURES = {
     "fav_pool_s2_fwd": (_P,) * 2 + (_I,) * 4 + (_D, _P),
     # x, dy, dx, N, H, W, C, dtype, stream
     "fav_pool_s2_bwd": (_P,) * 3 + (_I,) * 4 + (_D, _P),
+    # x, y, idx (or null), N, H, W, C, dtype, stream
+    "fav_pool_pair_fwd": (_P,) * 3 + (_I,) * 4 + (_D, _P),
+    # idx, dy, dx, N, Ho, Wo, C, dtype, stream
+    "fav_pool_pair_bwd": (_P,) * 3 + (_I,) * 4 + (_D, _P),
     # u8, dl, adv, mask2 (or null), n, row_len, T, CH, lo, hi, dtype, stream
     "fav_emit_adv_mask": (_P,) * 4 + (_I,) * 4 + (_F, _F, _D, _P),
     # u8, delta, flag, out, B, T, row_len, C, stream
@@ -66,6 +70,8 @@ KERNEL_SYMBOLS = {
     "fav_pool_s1_bwd": ("pool_s1_bwd_kernel",),
     "fav_pool_s2_fwd": ("pool_s2_fwd_kernel",),
     "fav_pool_s2_bwd": ("pool_s2_bwd_kernel",),
+    "fav_pool_pair_fwd": ("pool_pair_fwd_kernel",),
+    "fav_pool_pair_bwd": ("pool_pair_bwd_kernel",),
     "fav_emit_adv_mask": ("emit_adv_mask_kernel",),
     "fav_fused_apply_fwd": ("fused_apply_fwd_kernel",),
     "fav_fused_apply_bwd": ("fused_apply_bwd_partial_kernel", "fused_apply_bwd_final_kernel"),

@@ -5,7 +5,11 @@ Port of ``ops/pool_s1_view_pallas.py`` and ``stem_tmajor.stride1_pool333_view``
 instead of the TPU's [H,W,C,T'B] view.
 
 * B3 ``pool333_fwd`` replaces ``_fwd_impl`` (``pool_s1_view_pallas.py:331``,
-  ``_fwd_kernel`` :140); CUDA source ``csrc/pool_s1.cu``.
+  ``_fwd_kernel`` :140); CUDA source ``csrc/pool_s1.cu``.  It also computes
+  ``overlap_pool_333`` (``ops/pallas_pool.py:664``: ``_overlap_fwd_kernel``
+  :132, ``_overlap_fwd_kernel_blocked`` :148 and the conv-layout
+  ``_conv_fwd_kernel`` :593), the same pool on b-major NDHWC in three TPU
+  blockings (held in ``tests/test_torch_port_pool_pair.py``).
 * B4 ``pool333_bwd`` replaces ``_bwd_impl`` (:370, ``_bwd_kernel`` :166).
 * ``max_pool_333`` is the autograd op (the counterpart of the public VJP
   ``s1_pool333_view_pallas`` :427): B3 forward, B4 backward, x the only

@@ -1,4 +1,4 @@
-"""The (1,3,3)/(1,2,2) SAME spatial max pool, pads (0,1), kernel B5.
+"""The (1,3,3)/(1,2,2) SAME spatial max pool, pads (0,1): kernels B5, B6, B9.
 
 Port of ``stem_tmajor.strided_pool_view`` (``ops/stem_tmajor.py:718-830``)
 of the JAX package on NDHWC [B,T,H,W,C] with even H and W: MaxPool3d_2a,
@@ -6,7 +6,11 @@ MaxPool3d_3a and the spatial half of MaxPool3d_4a.
 
 * B5 ``pool133_s2_fwd`` replaces the Pallas ``_strided_fwd_kernel``
   (``ops/pallas_pool.py:206``) as ``strided_pool_view`` launches it (:754);
-  CUDA source ``csrc/pool_strided.cu``.  Bound by bytes on the H100.
+  CUDA source ``csrc/pool_strided.cu``.  Bound by bytes on the H100.  The
+  same function in the TPU's other layouts, which the port's b-major NDHWC
+  makes one: ``strided_spatial_pool_conv`` (``ops/pallas_pool.py:263``, the
+  same kernel body) and ``spatial_pool_132`` (:742, kernel :50); their
+  backward is XLA's select-and-scatter, which is B6's rule.
 * B6 ``pool133_s2_bwd`` is the backward: a window's cotangent goes to its
   first maximal element in H-then-W raster order (the GE select rule of the
   XLA select-and-scatter the JAX package runs here, :796-827).  Its kernel
@@ -15,9 +19,20 @@ MaxPool3d_3a and the spatial half of MaxPool3d_4a.
   the main path here; same CUDA source.  Bound by bytes.  A cell's up to four
   window contributions are summed in f32 and rounded once, in the kernel and
   in its plain version.
+* B9 ``pool133_s2_pair_fwd`` / ``pool133_s2_pair_bwd`` replace the Pallas pair
+  ``strided_spatial_pool_pair`` (``ops/pallas_pool.py:474``; ``_pair_fwd_kernel``
+  :397, ``_pair_bwd_kernel`` :429): the forward also stores each window's
+  first-match argmax index k = kh*3+kw (uint8; 9 where no candidate equals
+  the value, i.e. NaN), and the backward routes dy by that index alone, so
+  the autograd op ``max_pool_133_s2_pair`` saves the index and never x.  CUDA
+  source ``csrc/pool_pair.cu``; both bound by bytes.  The same f32 sum, one
+  rounding, as B6 (the TPU kernel adds in the cotangent dtype).  No geometry
+  limit beyond even H and W.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -90,3 +105,115 @@ class _Pool133S2(torch.autograd.Function):
 def max_pool_133_s2(x: torch.Tensor) -> torch.Tensor:
     """(1,3,3)/(1,2,2) SAME max pool over NDHWC: B5 forward, B6 backward."""
     return _Pool133S2.apply(x.contiguous())
+
+
+def _window_candidates(x: torch.Tensor) -> list:
+    """The 9 candidates of every window in row-major order k = kh*3+kw, each
+    [B,T,H/2,W/2,C]; -inf outside the frame (the (0,1) pads)."""
+    b, t, h, w, c = x.shape
+    xp = x.new_full((b, t, h + 1, w + 1, c), float("-inf"))
+    xp[:, :, :h, :w] = x
+    return [xp[:, :, kh : kh + h : 2, kw : kw + w : 2] for kh in range(3) for kw in range(3)]
+
+
+def pool133_s2_pair_fwd_plain(
+    x: torch.Tensor, want_idx: bool = True
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(y, idx): the pool's values and, per window, the smallest k whose
+    candidate equals the value compared in f32; 9 where none does."""
+    cands = _window_candidates(x)
+    y = cands[0]
+    for cand in cands[1:]:
+        y = torch.maximum(y, cand)
+    y = y.contiguous()
+    if not want_idx:
+        return y, None
+    y32 = y.float()
+    idx = torch.full(y.shape, 9, dtype=torch.uint8, device=x.device)
+    for k in range(8, -1, -1):  # descending: the smallest matching k wins
+        idx = torch.where(cands[k].float() == y32, torch.full_like(idx, k), idx)
+    return y, idx
+
+
+def pool133_s2_pair_bwd_plain(idx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dx from (idx, dy): tap k of window (a,b) is cell (2a+kh, 2b+kw); a
+    cell's terms are summed in f32 in ascending k and rounded once."""
+    b, t, ho, wo, c = dy.shape
+    acc = torch.zeros((b, t, 2 * ho + 1, 2 * wo + 1, c), dtype=torch.float32, device=dy.device)
+    g = dy.float()
+    zero = torch.zeros_like(g)
+    for k in range(9):
+        kh, kw = divmod(k, 3)
+        acc[:, :, kh : kh + 2 * ho : 2, kw : kw + 2 * wo : 2] += torch.where(idx == k, g, zero)
+    return acc[:, :, : 2 * ho, : 2 * wo].to(dy.dtype).contiguous()
+
+
+def pool133_s2_pair_fwd(
+    x: torch.Tensor, want_idx: bool = True
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """B9 forward: (y, idx uint8), or (y, None) when no index is wanted (the
+    kernel then writes values only)."""
+    if x.dim() != 5 or x.shape[2] % 2 or x.shape[3] % 2:
+        raise ValueError(f"expected NDHWC with even H, W; got {tuple(x.shape)}")
+    if not x.is_cuda:
+        return pool133_s2_pair_fwd_plain(x, want_idx)
+    b, t, h, w, c = x.shape
+    code = kernels.check(x)
+    y = torch.empty((b, t, h // 2, w // 2, c), dtype=x.dtype, device=x.device)
+    idx = torch.empty(y.shape, dtype=torch.uint8, device=x.device) if want_idx else None
+    kernels.launch(
+        "fav_pool_pair_fwd", x.data_ptr(), y.data_ptr(), idx.data_ptr() if want_idx else None,
+        b * t, h, w, c, code, kernels.stream(),
+    )
+    pool133_s2_pair_fwd.launches += 1
+    return y, idx
+
+
+pool133_s2_pair_fwd.launches = 0
+
+
+def pool133_s2_pair_bwd(idx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """B9 backward: dx [B,T,2H',2W',C] of the pool from the index and dy."""
+    if idx.dtype != torch.uint8 or idx.shape != dy.shape or dy.dim() != 5:
+        raise ValueError(
+            f"expected a uint8 index of dy's shape [B,T,H',W',C]; got {idx.dtype} "
+            f"{tuple(idx.shape)} for dy {tuple(dy.shape)}"
+        )
+    if not dy.is_cuda:
+        return pool133_s2_pair_bwd_plain(idx, dy)
+    b, t, ho, wo, c = dy.shape
+    code = kernels.check(dy)
+    if idx.device != dy.device or not idx.is_contiguous():
+        raise ValueError("the index must be contiguous and lie on dy's device")
+    dx = torch.empty((b, t, 2 * ho, 2 * wo, c), dtype=dy.dtype, device=dy.device)
+    kernels.launch(
+        "fav_pool_pair_bwd", idx.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        b * t, ho, wo, c, code, kernels.stream(),
+    )
+    pool133_s2_pair_bwd.launches += 1
+    return dx
+
+
+pool133_s2_pair_bwd.launches = 0
+
+
+class _Pool133S2Pair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, want_grad):
+        y, idx = pool133_s2_pair_fwd(x, want_idx=want_grad)
+        if want_grad:
+            ctx.save_for_backward(idx)  # never x
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (idx,) = ctx.saved_tensors
+        return pool133_s2_pair_bwd(idx, dy.contiguous()), None
+
+
+def max_pool_133_s2_pair(x: torch.Tensor) -> torch.Tensor:
+    """(1,3,3)/(1,2,2) SAME max pool over NDHWC: B9 forward and backward.
+    The residual is the uint8 index (a quarter of x's elements, one byte
+    each); a forward that needs no gradient stores none."""
+    want_grad = torch.is_grad_enabled() and x.requires_grad
+    return _Pool133S2Pair.apply(x.contiguous(), want_grad)

@@ -10,7 +10,7 @@ weight-agnostic).
 from __future__ import annotations
 
 import os
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,6 +23,20 @@ from ..utils.labels import load_label_map
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+def pair_pools_from_env(environ: Optional[Mapping[str, str]] = None) -> Tuple[str, ...]:
+    """The I3D pools routed through the index pair (kernel B9), from the JAX
+    package's own switches (its ``ops/maxpool.py``): ``FLICKER_POOL_PALLAS_2A=2``
+    selects the pair for MaxPool3d_2a (C=64), and ``FLICKER_POOL_PALLAS_3A``
+    other than 0 extends it to MaxPool3d_3a.  Read here, once per engine, and
+    nowhere deeper."""
+    environ = os.environ if environ is None else environ
+    if environ.get("FLICKER_POOL_PALLAS_2A", "1") != "2":
+        return ()
+    if environ.get("FLICKER_POOL_PALLAS_3A", "0") == "0":
+        return ("MaxPool3d_2a_3x3",)
+    return ("MaxPool3d_2a_3x3", "MaxPool3d_3a_3x3")
+
+
 def build_victim(
     model_name: str,
     ckpt_path: Optional[str],
@@ -32,10 +46,12 @@ def build_victim(
     num_classes: Optional[int] = None,
     eval_type: str = "rgb",
     device=None,
+    pair_pools: Sequence[str] = (),
 ) -> torch.nn.Module:
     """The frozen victim on `device` (CUDA unless told otherwise).  A missing
     checkpoint falls back to random weights from seed 0 with a loud warning;
-    a checkpoint that exists is not silently ignored."""
+    a checkpoint that exists is not silently ignored.  `pair_pools`: see
+    :func:`pair_pools_from_env`."""
     if eval_type != "rgb":
         raise NotImplementedError(f"EVAL_TYPE {eval_type!r}: only the Kinetics-400 'rgb' world is ported")
     if ckpt_path and (os.path.exists(ckpt_path) or os.path.exists(ckpt_path + ".index")):
@@ -44,7 +60,8 @@ def build_victim(
             "(convert/tf_i3d.py; ROADMAP.md queue A item 12) is not ported yet"
         )
     model, spec = create_model(
-        model_name, num_classes=num_classes, compute_dtype=compute_dtype, device=device
+        model_name, num_classes=num_classes, compute_dtype=compute_dtype, device=device,
+        pair_pools=pair_pools,
     )
     print(
         f"[warn] no checkpoint for {model_name} at {ckpt_path!r}; "
@@ -89,6 +106,7 @@ def build_engine(
         num_classes=num_classes,
         eval_type=model_cfg.get("EVAL_TYPE", "rgb"),
         device=device,
+        pair_pools=pair_pools_from_env(),
     )
 
     labels = load_label_map(

@@ -163,7 +163,9 @@ class TestEntryPoints:
             "for name in ('runners.universal', 'runners.common', 'engine.loops',\n"
             "             'engine.checkpoint', 'viz.tensorboard', 'data.tfrecord',\n"
             "             'data.example_proto', 'data.video_dataset', 'utils.config',\n"
-            "             'utils.labels', 'models.registry', 'ops.fused_apply'):\n"
+            "             'utils.labels', 'models.registry', 'ops.fused_apply',\n"
+            "             'runners.single_video', 'runners.class_gen', 'engine.inference',\n"
+            "             'data.npy', 'viz.results'):\n"
             "    assert p.__name__ + '.' + name in sys.modules, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'flax' or m.startswith('flickering_adversarial_video_tpu.')\n"

@@ -67,6 +67,35 @@ class TestKernelsOnCard:
         )
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [(2, 3, 10, 14, 40), (1, 5, 4, 6, 3)])  # odd B*T, H != W
+    def test_pool_pair_b9(self, dtype, shape):
+        gen = torch.Generator().manual_seed(3)
+        b, t, h, w, c = shape
+        for x in (torch.randint(0, 3, shape, generator=gen).to(dtype),   # a tie grid
+                  torch.randn(shape, generator=gen).to(dtype)):
+            y, idx = pool_strided.pool133_s2_pair_fwd(x.cuda())
+            wy, widx = pool_strided.pool133_s2_pair_fwd_plain(x)
+            assert torch.equal(y.cpu(), wy) and torch.equal(idx.cpu(), widx)
+            assert torch.equal(y, pool_strided.pool133_s2_fwd(x.cuda()))
+            y2, none = pool_strided.pool133_s2_pair_fwd(x.cuda(), want_idx=False)
+            assert none is None and torch.equal(y2, y)
+            dy = torch.randn(b, t, h // 2, w // 2, c, generator=gen).to(dtype)
+            dx = pool_strided.pool133_s2_pair_bwd(idx, dy.cuda())
+            assert torch.equal(dx.cpu(), pool_strided.pool133_s2_pair_bwd_plain(widx, dy))
+            dyi = torch.randint(-8, 9, dy.shape, generator=gen).to(dtype)
+            assert torch.equal(pool_strided.pool133_s2_pair_bwd(idx, dyi.cuda()),
+                               pool_strided.pool133_s2_bwd(x.cuda(), dyi.cuda()))
+            xg = x.cuda().requires_grad_(True)
+            pool_strided.max_pool_133_s2_pair(xg).backward(dy.cuda())
+            assert torch.equal(xg.grad, dx)
+        nan = torch.zeros(1, 1, 4, 4, 1, dtype=dtype)
+        nan[0, 0, 0, 1, 0] = float("nan")
+        nan[0, 0, 2:, 2:, 0] = float("-inf")
+        y, idx = pool_strided.pool133_s2_pair_fwd(nan.cuda())
+        wy, widx = pool_strided.pool133_s2_pair_fwd_plain(nan)
+        assert torch.equal(idx.cpu(), widx) and torch.equal(y.cpu().isnan(), wy.isnan())
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shape", [(2, 4, 6, 8, 24), (1, 3, 5, 3, 24)])  # whole vectors / with a tail
     def test_emit_b7_bit_equal(self, dtype, shape):
         gen = torch.Generator().manual_seed(1)

@@ -310,6 +310,7 @@ class TestKernelSymbols:
         kernel = r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\("
         globals_ = set(re.findall(kernel, text))
         assert launchers == set(kernels.SIGNATURES) == set(kernels.KERNEL_SYMBOLS)
+        assert {"fav_pool_pair_fwd", "fav_pool_pair_bwd"} <= launchers  # B9
         listed = [s for names in kernels.KERNEL_SYMBOLS.values() for s in names]
         assert len(listed) == len(set(listed))
         assert set(listed) == globals_
