@@ -29,7 +29,10 @@ which fails the run:
    MaxPool3d_2a's and 3a's shapes and at the single-video clip's
    [1,45,112,112,64]; B1..B6 also at the single-video shapes, where B*T' is
    odd (T' = 45, 23, 12), B2 with both of its uses there (3 taps, and the
-   stem's 4 taps of 24 channels);
+   stem's 4 taps of 24 channels); B1 also at the edges of its tiling (W' =
+   112, 56, 100, 128; an odd H'; T' = 1); and B1, B3..B6 on a grid holding a
+   NaN and a -inf block, where NaN positions and the other values (and the
+   routed gradients) must equal the plain versions;
 3. the attack step: launch counts of every kernel (reset just before, read
    just after) must equal the per-step counts (train step: B1 1, B2 19, B3 9,
    B4 9, B5 3, B6 3, B7 1; eval step: B1 2, B3 18, B5 6, B7 2), losses finite,
@@ -40,10 +43,13 @@ which fails the run:
    against the plain versions on the CPU: loss and delta trajectory to
    tolerance;
 5. timings with CUDA events (kernels, their plain versions, one library call
-   where one computes the same function, the bound at the shapes), the step
+   where one computes the same function, the bound at the shapes; B1 also at
+   the single-video clip's shape beside F.conv3d), the step
    time of both configurations and with the pair at 2a and at 2a+3a, peak
    memory, the card's name and power limit;
-6. where the step's device time goes, by torch.profiler over 2 train steps;
+6. where the step's device time goes, by torch.profiler over 2 train steps:
+   by group, each of the port's kernels a step with its share (B1's among
+   them), the slowest kernels;
 7. the runner, default configuration (host-packed input; B7 then B1): 2
    shards x 8 records written with the port's own TFRecordWriter, labelled
    with the seeded model's clean prediction; ``configs/run_config.yml``
@@ -360,6 +366,58 @@ def main() -> None:
         if err != 0:
             fail(f"{name} is not exact on the integer tie grid")
         del ties, dyi
+
+    # B1 at the edges of its tiling: W' = 112 (a ragged second 64-position
+    # tile), 56 (one tile), 100 with an odd H' (a half-used row pair), 128
+    # (the widest row) with T' = 1
+    for edge in ((2, 3, 8, 112, 24), (2, 3, 8, 56, 24), (1, 2, 7, 100, 24), (2, 1, 6, 128, 24)):
+        for dtype in (torch.bfloat16, torch.float32):
+            xe = (torch.randint(0, 256, edge, generator=gen).float() / 128 - 1).to(dev, dtype)
+            pke = randn(4, 4, 4, 24, 64, dtype=dtype) * 0.05
+            bne = (randn(64), randn(64).abs() + 0.5, randn(64))
+            hold(f"B1 {list(edge)}", lambda: stem_conv.stem_conv_bn_relu(xe, pke, *bne),
+                 lambda: stem_conv.stem_conv_bn_relu_plain(xe, pke, *bne), dtype)
+
+    # The NaN rule: a NaN and a -inf block reach B1 and B3..B6.  Each kernel
+    # equals its plain version: NaN positions equal, and the other values
+    # equal (B1 to its tolerance; the pools and their routed gradients exactly)
+    for dtype in (torch.bfloat16, torch.float32):
+        xn = torch.randint(0, 3, (1, 2, 4, 4, 2), generator=gen).float()
+        xn[0, 0, 0, 1, 0] = float("nan")
+        xn[0, :, 2:, 2:, :] = float("-inf")
+        xn = xn.to(dev, dtype)
+        dyn = torch.randint(1, 9, xn.shape, generator=gen).to(dev, dtype)
+        dyn5 = torch.randint(1, 9, (1, 2, 2, 2, 2), generator=gen).to(dev, dtype)
+        xs1 = (torch.randint(-3, 4, (1, 2, 4, 4, 24), generator=gen).float() / 4).to(dev, dtype)
+        xs1[0, 0, 0, 0, 5] = float("nan")
+        xs1[0, :, 3, 3, :] = float("-inf")
+        pkn = randn(4, 4, 4, 24, 64, dtype=dtype) * 0.05
+        bnn = (randn(64), randn(64).abs() + 0.5, randn(64))
+        for name, kern, plain in (
+            ("B1", lambda: stem_conv.stem_conv_bn_relu(xs1, pkn, *bnn),
+             lambda: stem_conv.stem_conv_bn_relu_plain(xs1, pkn, *bnn)),
+            ("B3", lambda: pool_s1.pool333_fwd(xn), lambda: pool_s1.pool333_fwd_plain(xn)),
+            ("B4", lambda: pool_s1.pool333_bwd(xn, dyn), lambda: pool_s1.pool333_bwd_plain(xn, dyn)),
+            ("B5", lambda: pool_strided.pool133_s2_fwd(xn),
+             lambda: pool_strided.pool133_s2_fwd_plain(xn)),
+            ("B6", lambda: pool_strided.pool133_s2_bwd(xn, dyn5),
+             lambda: pool_strided.pool133_s2_bwd_plain(xn, dyn5)),
+        ):
+            got, want = kern().float(), plain().float()
+            torch.cuda.synchronize()
+            inf = want.isinf()
+            same_nan = torch.equal(got.isnan(), want.isnan()) and torch.equal(got[inf], want[inf])
+            keep = want.isfinite()
+            err, rel = compare(got[keep], want[keep])
+            limit = tol.get((name, dtype), 0.0) if name == "B1" else 0.0
+            print(f"[check] {name} NaN/-inf grid {str(dtype)[6:]:8s} NaN positions "
+                  f"{'equal' if same_nan else 'DIFFER'} ({int(want.isnan().sum())} NaN, {int(inf.sum())} inf, "
+                  f"equal); finite values "
+                  f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (max_rel_err tolerance "
+                  f"{limit:g})", flush=True)
+            if not (same_nan and rel <= limit):
+                fail(f"{name} {dtype} breaks the NaN rule of its plain version")
+        del xn, dyn, dyn5, xs1
 
     # B7: the emitter at the input head's shape; adv and mask bit-equal, with
     # an engineered boundary hit (u8 0 under dl 0 is exactly lo: mask 1)
@@ -732,6 +790,20 @@ def main() -> None:
               f"plain {plain_ms:.3f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}", flush=True)
 
+    # B1 at the single-video path's shape, beside F.conv3d and its bound
+    x1s = (drandint(0, 256, (1, SV_FRAMES // 2, th, tw, 24), torch.float32) / 128 - 1).to(
+        torch.bfloat16)
+    macs_s = 24 * 64 * n_in_range(SV_FRAMES // 2, 1, 4) * n_in_range(th, 1, 4) * n_in_range(tw, 1, 4)
+    bytes_s = x1s.numel() * isz + pk.numel() * isz + x1s.numel() // 24 * 64 * isz + 3 * 64 * 4
+    bound_s = max(2 * macs_s / PEAK_BF16_FLOPS, bytes_s / PEAK_BYTES) * 1e3
+    ms1s = cuda_ms(torch, lambda: stem_conv.stem_conv_bn_relu(x1s, pk, *bn))
+    x1sp = F.pad(x1s.permute(0, 4, 1, 2, 3), (1, 2) * 3)
+    lib1s = cuda_ms(torch, lambda: F.conv3d(x1sp, w1))
+    print(f"[time] B1 at the single-video clip's {list(x1s.shape)}: {ms1s:.3f} ms (bound "
+          f"{bound_s:.3f} ms, operations; {bound_s / ms1s:.1%} of it), F.conv3d {lib1s:.3f} ms",
+          flush=True)
+    del x1s, x1sp
+
     kern, plain = inputs["b2_stem"]
     n4 = B * (T // 2) * th * tw * 24
     print(f"[time] B2 at the stem's dgrad [{B},{T // 2},{th},{tw},96] (USE_PALLAS_FUSED): "
@@ -777,6 +849,13 @@ def main() -> None:
               f"{untraced_ms:.2f} ms, so the kernels fill {busy / untraced_ms:.1%} of it")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             print(f"[profile]   {g:42s} {ms:9.2f} ms/step  {ms / busy:6.1%}")
+        ours = groups["the port's kernels B1-B9"]
+        for launcher, syms in kernels.KERNEL_SYMBOLS.items():
+            ms = sum(r[0] for r in rows if any(sym in r[2] for sym in syms))
+            n = sum(r[1] for r in rows if any(sym in r[2] for sym in syms))
+            if n:
+                print(f"[profile]   port kernel {launcher:24s} {ms:8.3f} ms/step {n:5.1f} launches/step"
+                      f"  {ms / max(ours, 1e-12):6.1%} of the port's, {ms / busy:6.1%} of all")
         for ms, n, name in sorted(rows, reverse=True)[:top]:
             print(f"[profile]   slowest: {ms:8.3f} ms/step {n:5.1f} launches/step  {name[:90]}")
 

@@ -32,6 +32,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even
 }
 
+// max(a, b), NaN if either is NaN (jnp.maximum's rule; fmaxf drops a NaN),
+// in one instruction.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 // One rounding to T and back: `rt<T>(a + b)` is an add carried out in T.
 template <typename T>
 __device__ __forceinline__ float rt(float v) { return to_f(from_f<T>(v)); }

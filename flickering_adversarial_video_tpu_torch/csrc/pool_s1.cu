@@ -9,10 +9,13 @@
 // `_overlap_fwd_kernel_blocked` :148, `_conv_fwd_kernel` :593), which this
 // layout makes one.
 //
-// Forward: y = max over the 27 neighbours in range (-inf SAME pads).
+// Forward: y = max over the 27 neighbours in range (-inf SAME pads); a NaN
+// in the window gives NaN, as jnp.maximum does.
 // Backward: dx[c] = sum of dy[o] over the <=27 windows o that contain cell c
 // and whose first maximal element in raster (t, h, w) order is c -- the cell
-// that routing T, then H, then W first-match selects.  The residual is x only.
+// that routing T, then H, then W first-match selects.  Routing compares by
+// equality with the pooled value, so a window whose maximum is NaN routes
+// nothing.  The residual is x only.
 // Sums run in f32 over the windows in a fixed order and are rounded once:
 // exact on integer grids in f32, within bf16 rounding of the staged
 // cotangent-dtype adds of the TPU kernel otherwise.
@@ -102,8 +105,8 @@ pool_s1_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int T_, int H, in
     float m = -INFINITY;
 #pragma unroll
     for (int k = 0; k < 27; ++k)
-      m = fmaxf(m, fav::to_f(xs[(((a + k / 9) * SH + p + (k / 3) % 3) * SW + q + k % 3) * CT +
-                                threadIdx.x]));
+      m = fav::fmax_nan(m, fav::to_f(xs[(((a + k / 9) * SH + p + (k / 3) % 3) * SW + q + k % 3) *
+                                            CT + threadIdx.x]));
     y[offset(tl, t, h, w, T_, H, W, C)] = fav::from_f<T>(m);
   }
 }
@@ -134,18 +137,23 @@ pool_s1_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restr
   // argmax of the window centred at output (t0-1+a, h0-1+p, w0-1+q)
   for (int pos = threadIdx.y; pos < OT * OH * OW; pos += ROWS) {
     const int q = pos % OW, p = (pos / OW) % OH, a = pos / (OW * OH);
-    float best = -INFINITY;
-    int arg = 255;
+    // the first tap equal to the window's NaN-propagating maximum, pads
+    // (-inf) included: an all -inf window routes to its first tap (dropped
+    // when that is a pad), a window holding a NaN routes nothing
+    float best = fav::to_f(xs[((a * XH + p) * XW + q) * CT + lane]);
+    float m = best;  // the NaN-propagating maximum
+    int arg = 0;
 #pragma unroll
-    for (int k = 0; k < 27; ++k) {
+    for (int k = 1; k < 27; ++k) {
       const float u =
           fav::to_f(xs[(((a + k / 9) * XH + p + (k / 3) % 3) * XW + q + k % 3) * CT + lane]);
       if (u > best) {  // strict: the earliest maximum keeps the window
         best = u;
         arg = k;
       }
+      m = fav::fmax_nan(m, u);
     }
-    am[pos * CT + lane] = static_cast<unsigned char>(arg);
+    am[pos * CT + lane] = static_cast<unsigned char>(m != m ? 255 : arg);
   }
   __syncthreads();
   if (!tl.c_ok) return;

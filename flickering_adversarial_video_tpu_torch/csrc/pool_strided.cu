@@ -12,6 +12,7 @@
 // this pool is csrc/pool_pair.cu.
 //
 //   y[n,ho,wo,c] = max_{r in 2ho..2ho+2, s in 2wo..2wo+2, in range} x[n,r,s,c]
+//   (NaN if any of them is NaN, as jnp.maximum)
 //
 // Bound on the H100: bytes (read x once, write y = x/4).  Design: one thread
 // per output, channels fastest; the 9 loads of a warp are coalesced rows and
@@ -21,14 +22,16 @@
 // kernel ops/pool_s2_view_pallas.py:246 s2_pool_view_bwd_pallas (`_bwd_kernel`
 // :71), which the JAX package keeps gated off (its default is XLA's
 // select-and-scatter); the port runs it on the main path.  A window's
-// cotangent goes to its first maximal element in H-then-W raster order; a
-// cell, in up to 2x2 windows, sums their contributions in f32 and rounds once
-// (the TPU kernel adds in the cotangent dtype): exact on integer grids in
-// f32, within bf16 rounding otherwise.  Bound by bytes (read x and dy, write
-// dx).  Design: a block owns an 8x8-cell spatial tile of one frame and 32
-// channels (threadIdx.x = channel), stages the 11x11 x positions its 5x5
-// windows read in shared memory, computes each window's argmax once, then
-// each cell gathers from the windows that chose it.
+// cotangent goes where XLA's select-and-scatter (GE) sends it: its first
+// maximal element in H-then-W raster order, and after a NaN the scan's next
+// pick (below; the gated-off TPU kernel routes nothing from such a window).
+// A cell, in up to 2x2 windows, sums their contributions in f32 in ascending
+// tap order and rounds once (the TPU kernel adds in the cotangent dtype):
+// bit-equal to the plain version, within bf16 rounding of the TPU kernel.
+// Bound by bytes (read x and dy, write dx).  Design: a block owns an 8x8-cell
+// spatial tile of one frame and 32 channels (threadIdx.x = channel), stages
+// the 11x11 x positions its 5x5 windows read in shared memory, computes each
+// window's argmax once, then each cell gathers from the windows that chose it.
 
 #include "common.cuh"
 
@@ -55,7 +58,7 @@ pool_s2_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n_out, in
 #pragma unroll
       for (int ds = 0; ds < 3; ++ds) {
         const int ss = 2 * wo + ds;
-        if (ss < W) m = fmaxf(m, fav::to_f(base[(int64_t(rr) * W + ss) * C]));
+        if (ss < W) m = fav::fmax_nan(m, fav::to_f(base[(int64_t(rr) * W + ss) * C]));
       }
     }
     y[i] = fav::from_f<T>(m);
@@ -94,12 +97,16 @@ pool_s2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restr
   // window (i, j) is output (h0/2-1+i, w0/2-1+j): staged rows 2i..2i+2, cols 2j..2j+2
   for (int pos = threadIdx.y; pos < NWIN * NWIN; pos += BROWS) {
     const int i = pos / NWIN, j = pos % NWIN;
-    float best = -INFINITY;
-    int arg = 255;
+    // XLA's select-and-scatter with GE: a scan in raster order over all 9
+    // taps, pads (-inf) included, that moves to a tap unless the kept value
+    // is >= it.  Without NaN that is the first maximum; a NaN is taken and
+    // then left for the next tap, and a pad taken so routes nothing.
+    float best = fav::to_f(xs[(2 * i * NX + 2 * j) * BC + lane]);
+    int arg = 0;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) {
+    for (int k = 1; k < 9; ++k) {
       const float u = fav::to_f(xs[((2 * i + k / 3) * NX + 2 * j + k % 3) * BC + lane]);
-      if (u > best) {  // strict: the earliest maximum keeps the window
+      if (!(best >= u)) {
         best = u;
         arg = k;
       }
@@ -116,12 +123,12 @@ pool_s2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restr
     if (h >= H || w >= W) continue;
     float acc = 0.f;
 #pragma unroll
-    for (int di = 0; di < 2; ++di) {
+    for (int di = 1; di >= 0; --di) {  // ascending tap k, as the plain version sums
       const int i = p / 2 - 1 + di;  // windows with 2i <= p <= 2i+2
       const int ho = h0 / 2 - 1 + i;
       if (i < 0 || ho < 0 || ho >= Ho) continue;
 #pragma unroll
-      for (int dj = 0; dj < 2; ++dj) {
+      for (int dj = 1; dj >= 0; --dj) {
         const int j = q / 2 - 1 + dj;
         const int wo = w0 / 2 - 1 + j;
         if (j < 0 || wo < 0 || wo >= Wo) continue;

@@ -11,14 +11,16 @@ MaxPool3d_3a and the spatial half of MaxPool3d_4a.
   makes one: ``strided_spatial_pool_conv`` (``ops/pallas_pool.py:263``, the
   same kernel body) and ``spatial_pool_132`` (:742, kernel :50); their
   backward is XLA's select-and-scatter, which is B6's rule.
-* B6 ``pool133_s2_bwd`` is the backward: a window's cotangent goes to its
-  first maximal element in H-then-W raster order (the GE select rule of the
-  XLA select-and-scatter the JAX package runs here, :796-827).  Its kernel
-  replaces the Pallas ``s2_pool_view_bwd_pallas``
+* B6 ``pool133_s2_bwd`` is the backward: a window's cotangent goes where
+  the XLA select-and-scatter (GE) the JAX package runs here (:796-827) sends
+  it, its first maximal element in H-then-W raster order on NaN-free data.
+  Its kernel replaces the Pallas ``s2_pool_view_bwd_pallas``
   (``ops/pool_s2_view_pallas.py:246``), gated off in the JAX package and on
-  the main path here; same CUDA source.  Bound by bytes.  A cell's up to four
-  window contributions are summed in f32 and rounded once, in the kernel and
-  in its plain version.
+  the main path here; same CUDA source.  The two JAX routes differ only on a
+  window holding a NaN, where the Pallas kernel routes nothing; the port
+  follows select-and-scatter.  Bound by bytes.  A cell's up to four window
+  contributions are summed in f32 in ascending tap order and rounded once,
+  in the kernel and in its plain version.
 * B9 ``pool133_s2_pair_fwd`` / ``pool133_s2_pair_bwd`` replace the Pallas pair
   ``strided_spatial_pool_pair`` (``ops/pallas_pool.py:474``; ``_pair_fwd_kernel``
   :397, ``_pair_bwd_kernel`` :429): the forward also stores each window's
@@ -37,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernels
-from .maxpool import max_pool_plain, max_pool_route_plain
+from .maxpool import max_pool_plain
 
 WINDOW, STRIDES = (1, 3, 3), (1, 2, 2)
 
@@ -47,8 +49,19 @@ def pool133_s2_fwd_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def pool133_s2_bwd_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """First-match routing (H, then W) with f32 sums, one rounding."""
-    return max_pool_route_plain(x.float(), dy.float(), WINDOW, STRIDES).to(dy.dtype)
+    """XLA's select-and-scatter (GE) routing, with f32 sums in ascending tap
+    order and one rounding: each window scans its 9 taps in raster order,
+    pads (-inf) included, and moves to a tap unless the kept value is >= it.
+    Without NaN that is the first maximum in H-then-W order; a NaN is taken
+    and then left for the next tap (a pad taken so routes nothing)."""
+    cands = _window_candidates(x.float())
+    kept = cands[0]
+    idx = torch.zeros(kept.shape, dtype=torch.uint8, device=x.device)
+    for k in range(1, 9):
+        move = ~(kept >= cands[k])
+        kept = torch.where(move, cands[k], kept)
+        idx = torch.where(move, torch.full_like(idx, k), idx)
+    return pool133_s2_pair_bwd_plain(idx, dy)
 
 
 def pool133_s2_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

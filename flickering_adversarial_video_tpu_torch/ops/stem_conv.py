@@ -9,9 +9,11 @@ Port of ``stem_tmajor.stem_conv_bn_relu_view`` / ``stem_bn_relu_tmajor``
   the space-to-depth packed clip, pk [4,4,4,24,64] the packed kernel (DHWIO),
   SAME pads (1,2).  All 64 taps accumulate in one f32 contraction, then the
   sum is rounded to x's dtype and BN ((y-mean)*rsqrt(var+eps)+bias, with
-  rsqrt taken in f32 as the Pallas kernel does) and relu follow in that dtype.
-  Bound by operations on the H100 (about 631 GFLOP per call at B=8, T=64,
-  224^2); the design is in the CUDA source.
+  rsqrt taken in f32 as the Pallas kernel does) and relu follow in that dtype;
+  relu keeps a NaN, as ``jnp.maximum`` does.  Bound by operations on the H100
+  (about 631 GFLOP per call at B=8, T=64, 224^2); the design (a persistent
+  wgmma implicit GEMM, the weight resident in shared memory) is in the CUDA
+  source.  W' <= 128; any B, T', H'.
 * ``stem_bn_relu`` is the autograd op for a stem whose INPUT needs a
   gradient (the model's own forward): B1 forward; backward as ``_tmajor_bwd``
   -- one wide transposed conv of g*(y>0)*rsqrt(var+eps), then the temporal

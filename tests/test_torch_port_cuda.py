@@ -67,6 +67,55 @@ class TestKernelsOnCard:
         )
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [
+        (2, 3, 8, 112, 24),   # W' = 112: a ragged second 64-position tile
+        (2, 3, 8, 56, 24),    # W' = 56: one tile, the second warpgroup idle
+        (1, 2, 7, 100, 24),   # W' = 100 and odd H': a half-used row pair
+        (2, 1, 6, 128, 24),   # W' = 128, the widest row; T' = 1
+        (1, 45, 112, 112, 24),  # the single-video clip: B*T' odd
+    ])
+    def test_stem_b1_edges(self, dtype, shape):
+        gen = torch.Generator().manual_seed(4)
+        x = (torch.randint(0, 256, shape, generator=gen).float() / 128 - 1).to("cuda", dtype)
+        pk = (torch.randn(4, 4, 4, 24, 64, generator=gen) * 0.05).to("cuda", dtype)
+        bn = [t.cuda() for t in _bn_t(gen, 64)]
+        got = stem_conv.stem_conv_bn_relu(x, pk, *bn)
+        want = stem_conv.stem_conv_bn_relu_plain(x, pk, *bn)
+        _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+               1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_nan_rule(self, dtype):
+        """A NaN and a -inf block: each kernel equals its plain version, NaN
+        positions, values and routed gradients (B4 and B6 route by equality
+        with the pooled value and by select-and-scatter, as the plain ones)."""
+        gen = torch.Generator().manual_seed(5)
+        x = torch.randint(0, 3, (1, 2, 4, 4, 2), generator=gen).float()
+        x[0, 0, 0, 1, 0] = float("nan")
+        x[0, :, 2:, 2:, :] = float("-inf")
+        x = x.to("cuda", dtype)
+        dy = torch.randint(1, 9, x.shape, generator=gen).to("cuda", dtype)
+        dy5 = torch.randint(1, 9, (1, 2, 2, 2, 2), generator=gen).to("cuda", dtype)
+        for got, want in (
+            (pool_s1.pool333_fwd(x), pool_s1.pool333_fwd_plain(x)),
+            (pool_s1.pool333_bwd(x, dy), pool_s1.pool333_bwd_plain(x, dy)),
+            (pool_strided.pool133_s2_fwd(x), pool_strided.pool133_s2_fwd_plain(x)),
+            (pool_strided.pool133_s2_bwd(x, dy5), pool_strided.pool133_s2_bwd_plain(x, dy5)),
+        ):
+            np.testing.assert_array_equal(got.float().cpu().numpy(), want.float().cpu().numpy())
+        xs = (torch.randint(-3, 4, (1, 2, 4, 4, 24), generator=gen).float() / 4).to("cuda", dtype)
+        xs[0, 0, 0, 0, 5] = float("nan")
+        xs[0, :, 3, 3, :] = float("-inf")
+        pk = (torch.randn(4, 4, 4, 24, 64, generator=gen) * 0.05).to("cuda", dtype)
+        bn = [t.cuda() for t in _bn_t(gen, 64)]
+        got = stem_conv.stem_conv_bn_relu(xs, pk, *bn).float().cpu().numpy()
+        want = stem_conv.stem_conv_bn_relu_plain(xs, pk, *bn).float().cpu().numpy()
+        assert np.isnan(want).any() and np.isfinite(want).any()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        keep = np.isfinite(want)
+        _close(got[keep], want[keep], 1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shape", [(2, 3, 10, 14, 40), (1, 5, 4, 6, 3)])  # odd B*T, H != W
     def test_pool_pair_b9(self, dtype, shape):
         gen = torch.Generator().manual_seed(3)

@@ -207,6 +207,67 @@ class TestPoolStridedB5:
             pool_strided.pool133_s2_fwd(torch.zeros(1, 2, 5, 4, 3))
 
 
+def _nan_grid(rng, shape):
+    """A tie grid with one NaN and a -inf block: windows whose maximum is
+    NaN, windows of -inf only (some starting on a pad), and plain ones."""
+    x = _tie_grid(rng, shape)
+    x[0, 0, 0, 1, 0] = np.nan
+    x[0, :, 2:, 2:, :] = -np.inf
+    return x
+
+
+class TestNanRule:
+    """Each kernel's plain version against its JAX function where a NaN or a
+    -inf reaches it: values and NaN positions equal, and the routed
+    gradients equal."""
+
+    @pytest.mark.parametrize("kernel", ["B1", "B3", "B4", "B5", "B6"])
+    def test_plain_matches_jax(self, rng, kernel):
+        b, shape = 1, (1, 2, 4, 4, 16)  # 16 channels: the s1 Pallas pool's tile
+        x = _nan_grid(rng, shape)
+        xv = jnp.asarray(to_view(x))
+        if kernel == "B1":  # NaN in outputs 0..1 and -inf (as NaN) in 1..3 of H and W
+            x = rng.integers(-3, 4, (1, 2, 4, 4, 24)).astype(np.float32)
+            x[0, 0, 0, 0, 5] = np.nan
+            x[0, :, 3, 3, :] = -np.inf
+            pk = rng.integers(-2, 3, (4, 4, 4, 24, 64)).astype(np.float32)
+            mean, var, bias = _bn(rng, 64)
+            want = from_view(stem_conv_bn_relu_view_pallas(
+                jnp.asarray(to_view(x)), jnp.asarray(pk), jnp.asarray(mean), jnp.asarray(var),
+                jnp.asarray(bias), b, interpret=True), b)
+            got = stem_conv.stem_conv_bn_relu(_t(x), _t(pk), _t(mean), _t(var), _t(bias)).numpy()
+            assert np.isnan(want).any() and np.isfinite(want).any()
+            # integer sums are exact; BN's f32 ops reassociate (as in the test above)
+            scale = np.abs(want[np.isfinite(want)]).max()
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)  # NaN where NaN
+            return
+        elif kernel in ("B3", "B4"):
+            dy = rng.integers(1, 9, size=shape).astype(np.float32)
+            y, vjp = jax.vjp(lambda q: s1_pool333_view_pallas(q, b, True), xv)
+            if kernel == "B3":
+                want, got = from_view(y, b), pool_s1.pool333_fwd(_t(x)).numpy()
+            else:
+                want = from_view(vjp(jnp.asarray(to_view(dy)))[0], b)
+                got = pool_s1.pool333_bwd(_t(x), _t(dy)).numpy()
+        else:
+            dy = rng.integers(1, 9, size=(1, 2, 2, 2, 16)).astype(np.float32)
+            y, vjp = jax.vjp(lambda q: jst.strided_pool_view(q, True), xv)
+            if kernel == "B5":
+                want, got = from_view(y, b), pool_strided.pool133_s2_fwd(_t(x)).numpy()
+            else:  # the select-and-scatter backward the JAX package runs
+                want = from_view(vjp(jnp.asarray(to_view(dy)))[0], b)
+                got = pool_strided.pool133_s2_bwd(_t(x), _t(dy)).numpy()
+                # the gated-off Pallas B6 routes nothing from the NaN window
+                # (the index pair's rule), where select-and-scatter moves on
+                pallas = from_view(s2_pool_view_bwd_pallas(xv, jnp.asarray(to_view(dy)),
+                                                           interpret=True), b)
+                idx = pool_strided.pool133_s2_pair_fwd_plain(_t(x))[1]
+                np.testing.assert_array_equal(
+                    pallas, pool_strided.pool133_s2_pair_bwd_plain(idx, _t(dy)).numpy())
+                assert not np.array_equal(pallas, want)
+        np.testing.assert_array_equal(got, want)  # NaN where NaN
+
+
 class TestPools4a5a:
     @pytest.mark.parametrize("which", ["4a", "5a"])
     def test_values_and_tie_grads(self, rng, which):
