@@ -17,8 +17,10 @@ which fails the run:
 2. hold each kernel against its plain PyTorch version at the main paths'
    shapes, with the stated tolerances: B1..B6 in bf16 and f32 (B2 also at the
    stem's own 4-tap dgrad [8,32,112,112,96], which USE_PALLAS_FUSED adds; B3
-   and B4 also at Mixed_5c's branch pool, where the tiles are partial; B4 and
-   B6 also on integer tie grids, where they must be exact); B7 in bf16 and
+   and B4 also at Mixed_5c's branch pool, where the tiles are partial; B4,
+   bit-equal, also at Mixed_3c's, 4b's and 4f's and at two odd geometries
+   (partial tiles in every dimension; C = 40 and C = 13); B4 and B6 also on
+   integer tie grids, where they must be exact); B7 in bf16 and
    f32 with an engineered boundary hit, bit-equal; B8 forward bit-equal; B8
    backward to f32 sum order, exactly 0 where everything clips, bit-equal to
    itself on a second run, and all of B8 also at [1,90,224,224,3], a geometry
@@ -44,7 +46,8 @@ which fails the run:
    tolerance;
 5. timings with CUDA events (kernels, their plain versions, one library call
    where one computes the same function, the bound at the shapes; B1 also at
-   the single-video clip's shape beside F.conv3d), the step
+   the single-video clip's shape beside F.conv3d; B4 at all nine branch-pool
+   shapes, summed as one B=8 step beside its bound), the step
    time of both configurations and with the pair at 2a and at 2a+3a, peak
    memory, the card's name and power limit;
 6. where the step's device time goes, by torch.profiler over 2 train steps:
@@ -306,10 +309,19 @@ def main() -> None:
     shapes["B6"] = shapes["B5"]
     shape5c = (B, T // 8, th // 16, tw // 16, 832)  # Mixed_5c branch pool
     pooled5 = (B, T // 2, th // 2, tw // 2, 64)
+    # the branch_3 pool's input of the other Mixed blocks B4 runs at (3b is
+    # shapes["B4"], 5c shape5c): 28x28 in 4 tiles, 14x14 in one, and C = 528,
+    # which is no multiple of 32 channels; then an odd geometry, partial in
+    # every tile dimension, and one whose C takes the scalar tail (not a
+    # multiple of B4's 16-byte channel vector)
+    b4_shapes = {"Mixed_3c": (B, T // 2, th // 4, tw // 4, 256),
+                 "Mixed_4b": (B, T // 4, th // 8, tw // 8, 480),
+                 "Mixed_4f": (B, T // 4, th // 8, tw // 8, 528),
+                 "odd": (1, 3, 5, 7, 40), "odd, C=13": (2, 3, 5, 7, 13)}
     # relative tolerances, max |err| / max |plain|: bf16 rounds differently
-    # when the f32 sums' order differs (B1 64-tap contraction, B4 <=27 adds)
+    # when the f32 sums' order differs (B1 64-tap contraction); every other
+    # kernel, B4 included, is held bit-equal (tolerance 0)
     tol = {("B1", torch.bfloat16): 1e-2, ("B1", torch.float32): 1e-5,
-           ("B4", torch.bfloat16): 1e-2, ("B4", torch.float32): 1e-6,
            ("B6", torch.bfloat16): 1e-2, ("B6", torch.float32): 1e-6}
     checks = {}
     inputs = {}
@@ -349,12 +361,21 @@ def main() -> None:
         }
         for name, (kern, plain) in {**runs, **runs_5c}.items():
             checks[(name, dtype)] = hold(name, kern, plain, dtype)
+        for block, shape4 in b4_shapes.items():
+            x4, dy4 = drandn(*shape4, dtype=dtype), drandn(*shape4, dtype=dtype)
+            hold(f"B4 {block}", lambda: pool_s1.pool333_bwd(x4, dy4),
+                 lambda: pool_s1.pool333_bwd_plain(x4, dy4), dtype)
+            del x4, dy4
         if dtype == torch.bfloat16:
-            inputs = dict(x1=x1, pk=pk, bn=bn, xp=xp, x5=x5, dy5=dy5, runs=runs,
+            inputs = dict(x1=x1, pk=pk, bn=bn, xp=xp, dy=dy, x5=x5, dy5=dy5, runs=runs,
                           b2_stem=runs_5c["B2 stem dgrad"])
     for name, xshape, yshape, kern, plain in (
         ("B4", shapes["B4"], shapes["B4"], pool_s1.pool333_bwd, pool_s1.pool333_bwd_plain),
         ("B4 Mixed_5c", shape5c, shape5c, pool_s1.pool333_bwd, pool_s1.pool333_bwd_plain),
+        ("B4 odd", b4_shapes["odd"], b4_shapes["odd"], pool_s1.pool333_bwd,
+         pool_s1.pool333_bwd_plain),
+        ("B4 odd, C=13", b4_shapes["odd, C=13"], b4_shapes["odd, C=13"], pool_s1.pool333_bwd,
+         pool_s1.pool333_bwd_plain),
         ("B6", shapes["B6"], pooled5, pool_strided.pool133_s2_bwd,
          pool_strided.pool133_s2_bwd_plain),
     ):
@@ -736,9 +757,17 @@ def main() -> None:
     w1 = stem_conv.pk_to_oidhw(pk).contiguous(memory_format=torch.channels_last_3d)
     xpp = F.pad(xp.permute(0, 4, 1, 2, 3), (1, 1) * 3, value=float("-inf"))
     x5p = F.pad(x5.permute(0, 4, 1, 2, 3), (0, 1, 0, 1), value=float("-inf"))
+    # B4's yardstick: ATen's max-pool backward on the same dy in
+    # channels_last_3d, which needs the forward's int64 indices (taken here
+    # from F.max_pool3d on the same x) and follows another NaN rule
+    xp_cl = xp.permute(0, 4, 1, 2, 3)
+    idx4 = F.max_pool3d(xp_cl, 3, 1, 1, return_indices=True)[1]
+    dy_cl = inputs["dy"].permute(0, 4, 1, 2, 3)
     library = {
         "B1": lambda: F.conv3d(x1p, w1),
         "B3": lambda: F.max_pool3d(xpp, 3, 1),
+        "B4": lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+            dy_cl, xp_cl, [3, 3, 3], [1, 1, 1], [1, 1, 1], [1, 1, 1], False, idx4),
         "B5": lambda: F.max_pool3d(x5p, (1, 3, 3), (1, 2, 2)),
     }
     replaces = {
@@ -789,6 +818,29 @@ def main() -> None:
               f"{'bytes' if t_bytes >= t_ops else 'operations'}; {bound_ms / ms:.1%} of it), "
               f"plain {plain_ms:.3f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}", flush=True)
+
+    # B4 at the nine branch-pool shapes of the step: one B=8 step's B4 time
+    step4 = {"Mixed_3b": shapes["B4"], **{k: v for k, v in b4_shapes.items() if "odd" not in k},
+             "Mixed_4c": (B, T // 4, th // 8, tw // 8, 512), "Mixed_5b": shape5c,
+             "Mixed_5c": shape5c}
+    step4["Mixed_4d"] = step4["Mixed_4e"] = step4["Mixed_4c"]
+    sum4, bound4 = 0.0, 0.0
+    for block, shape4 in sorted(step4.items()):
+        x4 = drandn(*shape4, dtype=torch.bfloat16)
+        dy4 = drandn(*shape4, dtype=torch.bfloat16)
+        ms4 = cuda_ms(torch, lambda: pool_s1.pool333_bwd(x4, dy4))
+        b4 = 3 * x4.numel() * isz / PEAK_BYTES * 1e3
+        sum4, bound4 = sum4 + ms4, bound4 + b4
+        print(f"[time] B4 {block} {list(shape4)}: {ms4:.4f} ms (bound {b4:.4f} ms, bytes)",
+              flush=True)
+        del x4, dy4
+    print(f"[time] B4 a B=8 step (the nine branch pools, one launch each): {sum4:.4f} ms "
+          f"(bound {bound4:.4f} ms, bytes; {bound4 / sum4:.1%} of it)", flush=True)
+    lib4 = next(row["library_ms"] for row in table if row["name"].split()[0] == "B4")
+    print(f"[time] B4's library yardstick at {list(shapes['B4'])}: "
+          f"aten.max_pool3d_with_indices_backward in channels_last_3d {lib4:.4f} "
+          f"ms; it needs the forward's int64 indices (a read of 8 bytes an output) and routes "
+          f"by another NaN rule", flush=True)
 
     # B1 at the single-video path's shape, beside F.conv3d and its bound
     x1s = (drandint(0, 256, (1, SV_FRAMES // 2, th, tw, 24), torch.float32) / 128 - 1).to(

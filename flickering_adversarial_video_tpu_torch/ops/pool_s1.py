@@ -17,10 +17,10 @@ instead of the TPU's [H,W,C,T'B] view.
 
 Both are bound by bytes on the H100 (one read of x, one write of y; reads of
 x and dy, one write of dx).  The design notes are in the CUDA source.  The
-backward sums the <=27 window contributions of a cell in f32 and rounds once
-(the plain version here does the same), where the TPU kernel adds in the
-cotangent dtype per routing stage: exact in f32 on integer grids, within
-bf16 rounding otherwise.
+backward routes T, then H, then W, each stage summing in f32 in ascending tap
+order, and rounds once: the plain version's arithmetic, so B4 is bit-equal
+to it (for finite dy).  The TPU kernel adds in the cotangent dtype per
+routing stage: equal in f32, within bf16 rounding otherwise.
 """
 
 from __future__ import annotations

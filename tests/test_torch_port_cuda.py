@@ -52,8 +52,10 @@ class TestKernelsOnCard:
             pool_s1.pool333_fwd(p).cpu().float().numpy(),
             pool_s1.pool333_fwd_plain(p).cpu().float().numpy(),
         )
-        _close(pool_s1.pool333_bwd(p, dy).float().cpu().numpy(),
-               pool_s1.pool333_bwd_plain(p, dy).float().cpu().numpy(), 1e-2)
+        np.testing.assert_array_equal(
+            pool_s1.pool333_bwd(p, dy).float().cpu().numpy(),
+            pool_s1.pool333_bwd_plain(p, dy).float().cpu().numpy(),
+        )
         np.testing.assert_array_equal(
             pool_strided.pool133_s2_fwd(p).cpu().float().numpy(),
             pool_strided.pool133_s2_fwd_plain(p).cpu().float().numpy(),
@@ -83,6 +85,29 @@ class TestKernelsOnCard:
         want = stem_conv.stem_conv_bn_relu_plain(x, pk, *bn)
         _close(got.float().cpu().numpy(), want.float().cpu().numpy(),
                1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [
+        (2, 3, 14, 14, 528),  # Mixed_4f's C: no multiple of 32 channels
+        (1, 3, 5, 7, 40),     # partial tiles in every dimension
+        (2, 1, 5, 7, 13),     # T = 1; C takes the scalar tail
+        (1, 9, 7, 7, 24),     # the 7x7 tile of Mixed_5x
+        (1, 20, 30, 29, 16),  # 28x28-like planes over 3x3 tiles, T split in runs
+    ])
+    def test_pool_s1_backward_b4_bit_equal(self, dtype, shape):
+        """B4 is bit-equal to its plain version: random values, and an
+        integer tie grid."""
+        gen = torch.Generator().manual_seed(6)
+        for x, dy in (
+            (torch.randn(shape, generator=gen), torch.randn(shape, generator=gen)),
+            (torch.randint(0, 3, shape, generator=gen).float(),
+             torch.randint(-8, 9, shape, generator=gen).float()),
+        ):
+            x, dy = x.to("cuda", dtype), dy.to("cuda", dtype)
+            np.testing.assert_array_equal(
+                pool_s1.pool333_bwd(x, dy).float().cpu().numpy(),
+                pool_s1.pool333_bwd_plain(x, dy).float().cpu().numpy(),
+            )
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_nan_rule(self, dtype):

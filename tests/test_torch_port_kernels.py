@@ -23,6 +23,7 @@ from flickering_adversarial_video_tpu.ops.pool_s1_view_pallas import s1_pool333_
 from flickering_adversarial_video_tpu.ops.pool_s2_view_pallas import s2_pool_view_bwd_pallas
 from flickering_adversarial_video_tpu.ops.stem_combine_pallas import catbwd_lane_combine_pallas
 from flickering_adversarial_video_tpu.ops.stem_conv_pallas import stem_conv_bn_relu_view_pallas
+from flickering_adversarial_video_tpu.ops import maxpool as jmaxpool
 from flickering_adversarial_video_tpu.ops import stem_tmajor as jst
 from flickering_adversarial_video_tpu_torch.ops import conv_unit, maxpool, packed_apply
 from flickering_adversarial_video_tpu_torch.ops import pool_s1, pool_strided, stem_combine, stem_conv
@@ -155,6 +156,23 @@ class TestPoolS1B3B4:
         assert pool_s1.pool333_fwd.launches == 0 and pool_s1.pool333_bwd.launches == 0
         np.testing.assert_array_equal(got_y.numpy(), from_view(y, b))
         np.testing.assert_array_equal(got_dx.numpy(), from_view(dxv, b))
+
+    @pytest.mark.parametrize("geom", [
+        (1, 3, 5, 7, 40),   # odd T, H, W: partial tiles of B4 in every dimension
+        (2, 1, 5, 7, 40),   # T = 1
+        (1, 5, 9, 3, 40),   # H > W, both odd
+        (2, 9, 7, 7, 8),    # Mixed_5x's 7x7 plane, an odd T
+    ])
+    def test_backward_plain_matches_jax_max_pool_same(self, rng, geom):
+        """B4's plain version against the JAX package's separable SAME pool
+        VJP (`ops/maxpool.max_pool_same`, window (3,3,3), stride 1) at
+        geometries the Pallas view kernel's blocking refuses."""
+        x = _tie_grid(rng, geom)
+        dy = rng.integers(-8, 9, size=geom).astype(np.float32)
+        _, vjp = jax.vjp(lambda q: jmaxpool.max_pool_same(q, (3, 3, 3), (1, 1, 1)), jnp.asarray(x))
+        (want,) = vjp(jnp.asarray(dy))
+        got = pool_s1.pool333_bwd_plain(_t(x), _t(dy))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
     def test_autograd_op(self, rng):
         x = _tie_grid(rng, (2, 4, 6, 6, 8))
