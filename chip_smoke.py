@@ -20,15 +20,18 @@ which fails the run:
    and B4 also at Mixed_5c's branch pool, where the tiles are partial; B4,
    bit-equal, also at Mixed_3c's, 4b's and 4f's and at two odd geometries
    (partial tiles in every dimension; C = 40 and C = 13); B4 and B6 also on
-   integer tie grids, where they must be exact); B7 in bf16 and
-   f32 with an engineered boundary hit, bit-equal; B8 forward bit-equal; B8
+   integer tie grids, where they must be exact; B6, bit-equal, also at the
+   step's other strided pools (MaxPool3d_3a, the spatial half of 4a), the
+   single-video clip's three and three edge geometries (one window with the
+   pads in both axes, 3 window rows, the scalar channel tail), on random,
+   integer-tie and NaN/-inf grids); B7 in bf16 and f32 with an engineered
+   boundary hit, bit-equal; B8 forward bit-equal; B8
    backward to f32 sum order, exactly 0 where everything clips, bit-equal to
    itself on a second run, and all of B8 also at [1,90,224,224,3], a geometry
    the TPU kernel refused; B9 forward (values bit-equal to the plain version
    and to B5's, index equal everywhere, a null index pointer writes nothing)
-   and backward (bit-equal to the plain version; against B6 on the same
-   (x, dy): equal on integer tie grids, to f32 sum order otherwise) at
-   MaxPool3d_2a's and 3a's shapes and at the single-video clip's
+   and backward (bit-equal to the plain version and to B6 on the same
+   (x, dy)) at MaxPool3d_2a's and 3a's shapes and at the single-video clip's
    [1,45,112,112,64]; B1..B6 also at the single-video shapes, where B*T' is
    odd (T' = 45, 23, 12), B2 with both of its uses there (3 taps, and the
    stem's 4 taps of 24 channels); B1 also at the edges of its tiling (W' =
@@ -47,7 +50,8 @@ which fails the run:
 5. timings with CUDA events (kernels, their plain versions, one library call
    where one computes the same function, the bound at the shapes; B1 also at
    the single-video clip's shape beside F.conv3d; B4 at all nine branch-pool
-   shapes, summed as one B=8 step beside its bound), the step
+   shapes and B6 at the three strided pools, each summed as one B=8 step
+   beside its bound), the step
    time of both configurations and with the pair at 2a and at 2a+3a, peak
    memory, the card's name and power limit;
 6. where the step's device time goes, by torch.profiler over 2 train steps:
@@ -320,9 +324,8 @@ def main() -> None:
                  "odd": (1, 3, 5, 7, 40), "odd, C=13": (2, 3, 5, 7, 13)}
     # relative tolerances, max |err| / max |plain|: bf16 rounds differently
     # when the f32 sums' order differs (B1 64-tap contraction); every other
-    # kernel, B4 included, is held bit-equal (tolerance 0)
-    tol = {("B1", torch.bfloat16): 1e-2, ("B1", torch.float32): 1e-5,
-           ("B6", torch.bfloat16): 1e-2, ("B6", torch.float32): 1e-6}
+    # kernel, B4 and B6 included, is held bit-equal (tolerance 0)
+    tol = {("B1", torch.bfloat16): 1e-2, ("B1", torch.float32): 1e-5}
     checks = {}
     inputs = {}
 
@@ -369,24 +372,52 @@ def main() -> None:
         if dtype == torch.bfloat16:
             inputs = dict(x1=x1, pk=pk, bn=bn, xp=xp, dy=dy, x5=x5, dy5=dy5, runs=runs,
                           b2_stem=runs_5c["B2 stem dgrad"])
-    for name, xshape, yshape, kern, plain in (
-        ("B4", shapes["B4"], shapes["B4"], pool_s1.pool333_bwd, pool_s1.pool333_bwd_plain),
-        ("B4 Mixed_5c", shape5c, shape5c, pool_s1.pool333_bwd, pool_s1.pool333_bwd_plain),
-        ("B4 odd", b4_shapes["odd"], b4_shapes["odd"], pool_s1.pool333_bwd,
-         pool_s1.pool333_bwd_plain),
-        ("B4 odd, C=13", b4_shapes["odd, C=13"], b4_shapes["odd, C=13"], pool_s1.pool333_bwd,
-         pool_s1.pool333_bwd_plain),
-        ("B6", shapes["B6"], pooled5, pool_strided.pool133_s2_bwd,
-         pool_strided.pool133_s2_bwd_plain),
-    ):
-        ties = torch.randint(0, 3, xshape, generator=gen).to(dev, torch.float32)
-        dyi = torch.randint(-8, 9, yshape, generator=gen).to(dev, torch.float32)
-        err, _ = compare(kern(ties, dyi), plain(ties, dyi))
+    for name, shape4 in (("B4", shapes["B4"]), ("B4 Mixed_5c", shape5c),
+                         ("B4 odd", b4_shapes["odd"]), ("B4 odd, C=13", b4_shapes["odd, C=13"])):
+        ties = torch.randint(0, 3, shape4, generator=gen).to(dev, torch.float32)
+        dyi = torch.randint(-8, 9, shape4, generator=gen).to(dev, torch.float32)
+        err, _ = compare(pool_s1.pool333_bwd(ties, dyi), pool_s1.pool333_bwd_plain(ties, dyi))
         print(f"[check] {name} integer tie grid f32 max_abs_err {err:.3e} (tolerance 0)",
               flush=True)
         if err != 0:
             fail(f"{name} is not exact on the integer tie grid")
         del ties, dyi
+
+    # B6 at the step's three strided pools (MaxPool3d_2a, 3a, the spatial half
+    # of 4a: C = 480 is no multiple of a 64-channel group), the single-video
+    # clip's three (B*T' = 45: runs of window rows) and three edge geometries
+    # (one window with the pads in both axes; 3 window rows; the scalar
+    # channel tail): bit-equal on random, integer-tie and NaN/-inf grids
+    b6_shapes = {"2a": shapes["B6"], "3a": (B, T // 2, th // 2, tw // 2, 192),
+                 "4a spatial": (B, T // 2, th // 4, tw // 4, 480)}
+    for key, shape6 in list(b6_shapes.items()):
+        b6_shapes[f"{key} [1,{SV_FRAMES // 2},..]"] = (1, SV_FRAMES // 2, *shape6[2:])
+    b6_shapes.update({"one window": (1, 3, 2, 2, 8), "3 rows": (2, 3, 6, 10, 40),
+                      "C=13": (2, 1, 4, 6, 13)})
+    for block, shape6 in b6_shapes.items():
+        pooled6 = (*shape6[:2], shape6[2] // 2, shape6[3] // 2, shape6[4])
+        for dtype in (torch.bfloat16, torch.float32):
+            for grid in ("random", "integer ties", "NaN/-inf"):
+                if grid == "random":
+                    x6, dy6 = drandn(*shape6, dtype=torch.float32), drandn(*pooled6)
+                else:
+                    x6 = drandint(0, 3, shape6, torch.float32)
+                    dy6 = drandint(-8 if grid == "integer ties" else 1, 9, pooled6, torch.float32)
+                if grid == "NaN/-inf":
+                    spots = torch.randint(0, x6.numel(), (max(1, x6.numel() // 1000),),
+                                          generator=dgen, device=dev)
+                    x6.view(-1)[spots] = float("nan")
+                    x6[:, :, shape6[2] // 2:, shape6[3] // 2:] = float("-inf")
+                x6, dy6 = x6.to(dtype), dy6.to(dtype)
+                got = pool_strided.pool133_s2_bwd(x6, dy6)
+                torch.cuda.synchronize()
+                want = pool_strided.pool133_s2_bwd_plain(x6, dy6)
+                err, _ = compare(got, want)
+                print(f"[check] B6 {block} {list(shape6)} {str(dtype)[6:]:8s} {grid}: max_abs_err "
+                      f"{err:.3e} (tolerance 0)", flush=True)
+                if not torch.equal(got, want):
+                    fail(f"B6 is not bit-equal to its plain version at {shape6} {dtype} ({grid})")
+                del x6, dy6, got, want
 
     # B1 at the edges of its tiling: W' = 112 (a ragged second 64-position
     # tile), 56 (one tile), 100 with an odd H' (a half-used row pair), 128
@@ -506,9 +537,9 @@ def main() -> None:
     # to B5's, the index equal everywhere (the plain version's first-match
     # rule is held against the Pallas kernel on the CPU).  Backward: bit-equal
     # to the plain version (the same <=4 f32 terms in the same order, one
-    # rounding), exact on integer grids; against B6 on the same (x, dy): equal
-    # on an integer tie grid, to f32 sum order otherwise (B6 sums H first,
-    # then W): B6's own tolerance.
+    # rounding), exact on integer grids; and bit-equal to B6 on the same
+    # (x, dy): without NaN both route a window to its first maximum and sum
+    # a cell's terms in ascending tap order in f32, rounding once.
     pair_shapes = (shapes["B5"], (B, T // 2, th // 2, tw // 2, 192),
                    (1, SV_FRAMES // 2, th, tw, 64))
     for shape9 in pair_shapes:
@@ -536,17 +567,16 @@ def main() -> None:
                 dx9 = pool_strided.pool133_s2_pair_bwd(idx9, dy9)
                 torch.cuda.synchronize()
                 berr, _ = compare(dx9, pool_strided.pool133_s2_pair_bwd_plain(want_idx, dy9))
-                b6err, b6rel = compare(dx9, pool_strided.pool133_s2_bwd(x9, dy9))
-                b6tol = 0.0 if grid != "random" else tol[("B6", dtype)]
+                b6err, _ = compare(dx9, pool_strided.pool133_s2_bwd(x9, dy9))
                 print(f"[check] B9 {list(shape9)} {str(dtype)[6:]:8s} {grid}: forward y "
                       f"max_abs_err {yerr:.3e}, index max_abs_err {ierr}, y against B5 {b5err:.3e} "
                       f"(tolerance 0); indices used {sorted(idx9.unique().tolist())}; null-index "
                       f"forward {'writes values only' if null_ok else 'DIFFERS'}; backward "
                       f"max_abs_err {berr:.3e} (tolerance 0); against B6 max_abs_err {b6err:.3e} "
-                      f"max_rel_err {b6rel:.3e} (max_rel_err tolerance {b6tol:g})", flush=True)
+                      f"(tolerance 0)", flush=True)
                 if yerr != 0 or ierr != 0 or b5err != 0 or not null_ok or berr != 0:
                     fail(f"B9 disagrees with its plain version at {shape9} {dtype} ({grid})")
-                if not b6rel <= b6tol:
+                if b6err != 0:
                     fail(f"B9 backward disagrees with B6 at {shape9} {dtype} ({grid})")
                 if grid == "random" and shape9 == shapes["B5"] and dtype == torch.bfloat16:
                     checks[("B9f", dtype)] = (max(yerr, float(ierr)), 0.0)
@@ -559,8 +589,8 @@ def main() -> None:
     inputs["runs"]["B9b"] = (lambda: pool_strided.pool133_s2_pair_bwd(idx5, dy5),
                              lambda: pool_strided.pool133_s2_pair_bwd_plain(idx5, dy5))
 
-    # B1..B6 at the single-video attack's shapes: B=1, T=90 gives T' = 45 ->
-    # 23 -> 12 down the trunk, so B*T' is odd for the first time
+    # B1..B5 at the single-video attack's shapes (B6's are above): B=1,
+    # T=90 gives T' = 45 -> 23 -> 12 down the trunk, so B*T' is odd
     tp = SV_FRAMES // 2
     sv_part = {45: (1, 45, th // 2, tw // 2, 3 * 64),     # Conv3d_2c backward
                23: (1, 23, th // 8, tw // 8, 3 * 112),    # Mixed_4c Branch_1 3x3 backward
@@ -590,12 +620,9 @@ def main() -> None:
             hold(f"B4 T'={pshape[1]}", lambda: pool_s1.pool333_bwd(xs, dys),
                  lambda: pool_s1.pool333_bwd_plain(xs, dys), dtype)
         x5s = drandn(1, tp, th, tw, 64, dtype=dtype)
-        dy5s = drandn(1, tp, th // 2, tw // 2, 64, dtype=dtype)
         hold("B5 [1,45,..]", lambda: pool_strided.pool133_s2_fwd(x5s),
              lambda: pool_strided.pool133_s2_fwd_plain(x5s), dtype)
-        hold("B6 [1,45,..]", lambda: pool_strided.pool133_s2_bwd(x5s, dy5s),
-             lambda: pool_strided.pool133_s2_bwd_plain(x5s, dy5s), dtype)
-        del x1s, pks, x5s, dy5s, xs, dys, part_s, part4s
+        del x1s, pks, x5s, xs, dys, part_s, part4s
 
     # ---- 3. the full-width attack step through the engine -----------------------
     model = InceptionI3D(CLASSES, torch.bfloat16, device=dev)
@@ -763,12 +790,20 @@ def main() -> None:
     xp_cl = xp.permute(0, 4, 1, 2, 3)
     idx4 = F.max_pool3d(xp_cl, 3, 1, 1, return_indices=True)[1]
     dy_cl = inputs["dy"].permute(0, 4, 1, 2, 3)
+    # B6's: the same call on x padded by one -inf row and column (the (0,1)
+    # pads), fed the int64 indices of F.max_pool3d on that padded x; it writes
+    # a padded dx and routes a NaN window by another rule
+    x5p_cl = x5p.contiguous(memory_format=torch.channels_last_3d)
+    idx6 = F.max_pool3d(x5p_cl, (1, 3, 3), (1, 2, 2), return_indices=True)[1]
+    dy5_cl = inputs["dy5"].permute(0, 4, 1, 2, 3)
     library = {
         "B1": lambda: F.conv3d(x1p, w1),
         "B3": lambda: F.max_pool3d(xpp, 3, 1),
         "B4": lambda: torch.ops.aten.max_pool3d_with_indices_backward(
             dy_cl, xp_cl, [3, 3, 3], [1, 1, 1], [1, 1, 1], [1, 1, 1], False, idx4),
         "B5": lambda: F.max_pool3d(x5p, (1, 3, 3), (1, 2, 2)),
+        "B6": lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+            dy5_cl, x5p_cl, [1, 3, 3], [1, 2, 2], [0, 0, 0], [1, 1, 1], False, idx6),
     }
     replaces = {
         "B1": "flickering_adversarial_video_tpu/ops/stem_conv_pallas.py:152",
@@ -841,6 +876,25 @@ def main() -> None:
           f"aten.max_pool3d_with_indices_backward in channels_last_3d {lib4:.4f} "
           f"ms; it needs the forward's int64 indices (a read of 8 bytes an output) and routes "
           f"by another NaN rule", flush=True)
+
+    # B6 at the three strided pools of the step: one B=8 step's B6 time
+    sum6, bound6 = 0.0, 0.0
+    for block in ("2a", "3a", "4a spatial"):
+        shape6 = b6_shapes[block]
+        x6 = drandn(*shape6, dtype=torch.bfloat16)
+        dy6 = drandn(*shape6[:2], shape6[2] // 2, shape6[3] // 2, shape6[4], dtype=torch.bfloat16)
+        ms6 = cuda_ms(torch, lambda: pool_strided.pool133_s2_bwd(x6, dy6))
+        b6 = (2 * x6.numel() + dy6.numel()) * isz / PEAK_BYTES * 1e3
+        sum6, bound6 = sum6 + ms6, bound6 + b6
+        print(f"[time] B6 MaxPool3d_{block} {list(shape6)}: {ms6:.4f} ms (bound {b6:.4f} ms, "
+              f"bytes; {b6 / ms6:.1%} of it)", flush=True)
+        del x6, dy6
+    lib6 = next(row["library_ms"] for row in table if row["name"].split()[0] == "B6")
+    print(f"[time] B6 a B=8 step (the three strided pools, one launch each): {sum6:.4f} ms "
+          f"(bound {bound6:.4f} ms, bytes; {bound6 / sum6:.1%} of it); its library yardstick at "
+          f"{list(shapes['B6'])}: aten.max_pool3d_with_indices_backward in channels_last_3d on x "
+          f"padded by one -inf row and column {lib6:.4f} ms (needs F.max_pool3d's int64 indices, "
+          f"writes the padded dx, another NaN rule)", flush=True)
 
     # B1 at the single-video path's shape, beside F.conv3d and its bound
     x1s = (drandint(0, 256, (1, SV_FRAMES // 2, th, tw, 24), torch.float32) / 128 - 1).to(

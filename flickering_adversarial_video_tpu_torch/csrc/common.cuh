@@ -89,6 +89,86 @@ struct RowCursor {
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// ---- 16-byte channel vectors: 8 bf16 or 4 f32 channels of one position ----
+
+template <typename T>
+constexpr int kVec = 16 / int(sizeof(T));
+
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[kVec<T>]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int j = 0; j < kVec<T>; ++j) {
+    if constexpr (sizeof(T) == 4)
+      f[j] = __uint_as_float(w[j]);
+    else
+      f[j] = __uint_as_float((j & 1) ? (w[j >> 1] & 0xffff0000u) : (w[j >> 1] << 16));
+  }
+}
+
+// f holds values of T (maxima of T values, -inf, NaN): packed without rounding
+template <typename T>
+__device__ __forceinline__ uint4 pack_exact(const float (&f)[kVec<T>]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4)
+      w[i] = __float_as_uint(f[i]);
+    else
+      w[i] = (__float_as_uint(f[2 * i]) >> 16) | (__float_as_uint(f[2 * i + 1]) & 0xffff0000u);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// rounded to nearest even, as the plain version's one cast
+template <typename T>
+__device__ __forceinline__ uint4 pack_round(const float (&f)[kVec<T>]) {
+  if constexpr (sizeof(T) == 4) {
+    return pack_exact<T>(f);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 splat(float v) {
+  float f[kVec<T>];
+#pragma unroll
+  for (int j = 0; j < kVec<T>; ++j) f[j] = v;
+  return pack_exact<T>(f);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One channel vector at element offset `off` (channel c0 of a position):
+// 16 bytes at once when C is a multiple of the vector (VEC), else channel by
+// channel with `fill` past C.
+template <typename T, bool VEC>
+__device__ __forceinline__ uint4 load_vec(const T* __restrict__ src, int64_t off, int c0, int C,
+                                          float fill) {
+  if constexpr (VEC) {
+    return __ldg(reinterpret_cast<const uint4*>(src + off));
+  } else {
+    float f[kVec<T>];
+#pragma unroll
+    for (int j = 0; j < kVec<T>; ++j) f[j] = c0 + j < C ? fav::to_f(src[off + j]) : fill;
+    return pack_exact<T>(f);
+  }
+}
+
 }  // namespace fav
 
 FAV_API const char* fav_error_string(int code);

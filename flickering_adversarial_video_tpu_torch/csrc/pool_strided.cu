@@ -28,10 +28,9 @@
 // A cell, in up to 2x2 windows, sums their contributions in f32 in ascending
 // tap order and rounds once (the TPU kernel adds in the cotangent dtype):
 // bit-equal to the plain version, within bf16 rounding of the TPU kernel.
-// Bound by bytes (read x and dy, write dx).  Design: a block owns an 8x8-cell
-// spatial tile of one frame and 32 channels (threadIdx.x = channel), stages
-// the 11x11 x positions its 5x5 windows read in shared memory, computes each
-// window's argmax once, then each cell gathers from the windows that chose it.
+// Bound by bytes (read x and dy, write dx).  Design: its own section below.
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -65,81 +64,262 @@ pool_s2_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n_out, in
   }
 }
 
-constexpr int BT = 8, BC = 32, BROWS = 8;     // cell tile, channels, threadIdx.y
-constexpr int NX = BT + 3, NWIN = BT / 2 + 1;  // staged x positions, windows per axis
+// ---- B6: the backward -------------------------------------------------------
+//
+// A block owns one frame n = b*T + t, one group of nv channel vectors (16
+// bytes: 8 bf16 or 4 f32 channels) and a run of window rows [ho0, ho1) over
+// the full width: thread (cv, wo) = (tid % nv, tid / nv) owns window column wo
+// and vector cv, so a warp's loads and stores are runs of whole vectors.  The
+// block marches down H one window row a step.  Step ho:
+//   (a) prefetches step ho+1's x rows 2ho+3, 2ho+4 and dy row ho+1 into a
+//       3-slot shared-memory ring (cp.async; slot i holds x rows 2p+1, 2p+2,
+//       dy row p and the codes of window row p);
+//   (b) scans window (ho, wo)'s 9 taps: row 2ho is the last slot's second x
+//       row, column 2wo+2 the neighbour's, and the (0,1) pads are -inf; the
+//       tap taken per channel is a 4-bit code, shared through the ring;
+//   (c) after a barrier, sums each of its 2x2 cells' terms in ascending tap
+//       order from 0 in f32: for the even-row, even-column cell k=0 of its own
+//       window, k=2 of the left one (its code and dy from the ring), then k=6
+//       and k=8 of window row ho-1 (the last slot's codes and dy), and rounds
+//       once: rows 2ho and 2ho+1, columns 2wo and 2wo+1 of dx.
+// So x, dy and dx move once, in 16-byte vectors, and each window's argmax is
+// computed once.  A run starts one window row early (x rows 2ho0-2, 2ho0-1,
+// dy row ho0-1) so that the terms from window row ho0-1 exist.  The split
+// into runs minimises waves of resident blocks x steps a block: none at B=8,
+// 8 runs a frame at B=1, T'=45 at MaxPool3d_2a.  Registers are not capped for a
+// second block an SM: at MaxPool3d_2a on an H100 one 448-thread block an SM
+// (83-93 registers) took 0.331 ms against 0.367 for two (64, or 72, registers).
+namespace b6 {
 
+using namespace fav;  // the 16-byte channel vectors of common.cuh
+
+constexpr int kSlots = 3;
+constexpr int kMaxThreads = 512;    // wo x cv; full width needs W/2 <= kMaxThreads
+constexpr int kMinRows = 4;         // the fewest window rows of a run
+
+// code 15, no window, in every channel
 template <typename T>
-__global__ void __launch_bounds__(BC * BROWS)
-pool_s2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-                   int H, int W, int C) {
-  __shared__ T xs[NX * NX * BC];
-  __shared__ unsigned char am[NWIN * NWIN * BC];
-  const int Ho = H / 2, Wo = W / 2;
-  const int n_c = (C + BC - 1) / BC, n_w = (W + BT - 1) / BT, n_h = (H + BT - 1) / BT;
-  int64_t blk = blockIdx.x;
-  const int c = int(blk % n_c) * BC + threadIdx.x;
-  blk /= n_c;
-  const int w0 = int(blk % n_w) * BT;
-  blk /= n_w;
-  const int h0 = int(blk % n_h) * BT;
-  const int64_t nt = blk / n_h;  // (b, t)
-  const bool c_ok = c < C;
-  const int lane = threadIdx.x;
-  const T* xb = x + nt * H * int64_t(W) * C + c;
-  // staged (i, j) is cell (h0-2+i, w0-2+j); -inf outside the frame
-  for (int pos = threadIdx.y; pos < NX * NX; pos += BROWS) {
-    const int h = h0 - 2 + pos / NX, w = w0 - 2 + pos % NX;
-    T v = fav::from_f<T>(-INFINITY);
-    if (c_ok && h >= 0 && h < H && w >= 0 && w < W) v = xb[(int64_t(h) * W + w) * C];
-    xs[pos * BC + lane] = v;
-  }
-  __syncthreads();
-  // window (i, j) is output (h0/2-1+i, w0/2-1+j): staged rows 2i..2i+2, cols 2j..2j+2
-  for (int pos = threadIdx.y; pos < NWIN * NWIN; pos += BROWS) {
-    const int i = pos / NWIN, j = pos % NWIN;
-    // XLA's select-and-scatter with GE: a scan in raster order over all 9
-    // taps, pads (-inf) included, that moves to a tap unless the kept value
-    // is >= it.  Without NaN that is the first maximum; a NaN is taken and
-    // then left for the next tap, and a pad taken so routes nothing.
-    float best = fav::to_f(xs[(2 * i * NX + 2 * j) * BC + lane]);
-    int arg = 0;
+constexpr unsigned kNoneAll = kVec<T> == 8 ? 0xffffffffu : 0xffffu;
+
+// slot: x rows A and B (W*nv vectors each), dy row (Wo*nv); then the codes
+inline size_t smem_bytes(int W, int nv) {
+  const int Wo = W / 2;
+  return size_t(kSlots) * ((2 * W + Wo) * nv * 16 + Wo * nv * 4);
+}
+
+// The first tap a select-and-scatter (GE) scan keeps over the 9 taps of a
+// window in raster order, per channel, 4 bits each.
+template <typename T>
+__device__ __forceinline__ unsigned scan9(const uint4 (&tap)[9]) {
+  constexpr int N = kVec<T>;
+  float f[9][N];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) unpack<T>(tap[k], f[k]);
+  unsigned code = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float kept = f[0][j];
+    unsigned k_kept = 0;
 #pragma unroll
     for (int k = 1; k < 9; ++k) {
-      const float u = fav::to_f(xs[((2 * i + k / 3) * NX + 2 * j + k % 3) * BC + lane]);
-      if (!(best >= u)) {
-        best = u;
-        arg = k;
+      if (!(kept >= f[k][j])) {
+        kept = f[k][j];
+        k_kept = k;
       }
     }
-    am[pos * BC + lane] = static_cast<unsigned char>(arg);
+    code |= k_kept << (4 * j);
   }
+  return code;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+pool_s2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx, int H,
+                   int W, int C, int nv, int groups, int rows, int runs) {
+  constexpr int N = kVec<T>;
+  const int Ho = H / 2, Wo = W / 2;
+  const int xrow = W * nv, slot = 2 * xrow + Wo * nv, lanes = Wo * nv;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* ring = reinterpret_cast<uint4*>(smem);                         // [kSlots][slot]
+  unsigned* codes = reinterpret_cast<unsigned*>(ring + kSlots * slot);  // [kSlots][lanes]
+
+  int64_t blk = blockIdx.x;
+  const int g = int(blk % groups);
+  blk /= groups;
+  const int run = int(blk % runs);
+  const int64_t n = blk / runs;
+  const int ho0 = run * rows, ho1 = min(ho0 + rows, Ho), s0 = max(ho0 - 1, 0);
+  const int tid = threadIdx.x, cv = tid % nv, wo = tid / nv;
+  const int c0 = (g * nv + cv) * N;
+  const bool live = c0 < C;  // the vector holds channels
+  const T* xn = x + n * H * int64_t(W) * C + c0;
+  const T* dyn = dy + n * Ho * int64_t(Wo) * C + c0;
+  T* dxn = dx + n * H * int64_t(W) * C + c0;
+  const uint4 neg = splat<T>(-INFINITY);
+
+  // thread (cv, wo) stages vector cv of columns wo and wo + Wo of an x row
+  auto stage_row = [&](int r, uint4* dst) {
+    if (!live) return;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = wo + half * Wo;
+      const int64_t off = (int64_t(r) * W + col) * C;
+      if constexpr (VEC)
+        cp_async16(dst + col * nv + cv, xn + off);
+      else
+        dst[col * nv + cv] = load_vec<T, false>(xn, off, c0, C, -INFINITY);
+    }
+  };
+  auto stage_step = [&](int p, uint4* dst) {  // x rows 2p+1, 2p+2 (if inside), dy row p
+    stage_row(2 * p + 1, dst);
+    if (2 * p + 2 < H) stage_row(2 * p + 2, dst + xrow);
+    if (live) {
+      const int64_t off = (int64_t(p) * Wo + wo) * C;
+      if constexpr (VEC)
+        cp_async16(dst + 2 * xrow + tid, dyn + off);
+      else
+        dst[2 * xrow + tid] = load_vec<T, false>(dyn, off, c0, C, 0.f);
+    }
+    if constexpr (VEC) asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  // slot 0 stands for window row s0-1: its second x row is row 2*s0, its
+  // codes none, its dy 0; slot 1 holds step s0
+  codes[tid] = kNoneAll<T>;
+  ring[2 * xrow + tid] = make_uint4(0, 0, 0, 0);
+  stage_row(2 * s0, ring + xrow);
+  stage_step(s0, ring + slot);
+  cp_async_wait_all();
   __syncthreads();
-  if (!c_ok) return;
-  const T* dyb = dy + nt * Ho * int64_t(Wo) * C + c;
-  T* dxb = dx + nt * H * int64_t(W) * C + c;
-  for (int pos = threadIdx.y; pos < BT * BT; pos += BROWS) {
-    const int p = pos / BT + 2, q = pos % BT + 2;  // staged coordinates of the cell
-    const int h = h0 + p - 2, w = w0 + q - 2;
-    if (h >= H || w >= W) continue;
-    float acc = 0.f;
+
+  for (int ho = s0, i = 0; ho < ho1; ++ho, ++i) {
+    const int cur = (i + 1) % kSlots, prev = i % kSlots;
+    if (ho + 1 < ho1) stage_step(ho + 1, ring + ((i + 2) % kSlots) * slot);
+    const uint4* sc = ring + cur * slot;
+    const uint4* sp = ring + prev * slot;
+    // (b) the taps of window (ho, wo): rows 2ho (sp's B), 2ho+1 (sc's A), 2ho+2 (sc's B)
+    uint4 tap[9];
+    const bool right = wo + 1 < Wo, bottom = 2 * ho + 2 < H;
 #pragma unroll
-    for (int di = 1; di >= 0; --di) {  // ascending tap k, as the plain version sums
-      const int i = p / 2 - 1 + di;  // windows with 2i <= p <= 2i+2
-      const int ho = h0 / 2 - 1 + i;
-      if (i < 0 || ho < 0 || ho >= Ho) continue;
+    for (int kh = 0; kh < 3; ++kh) {
+      const uint4* row = (kh == 0 ? sp + xrow : sc + (kh - 1) * xrow) + 2 * wo * nv + cv;
+      const bool in = kh < 2 || bottom;
+      tap[3 * kh] = in ? row[0] : neg;
+      tap[3 * kh + 1] = in ? row[nv] : neg;
+      tap[3 * kh + 2] = in && right ? row[2 * nv] : neg;
+    }
+    const unsigned code = scan9<T>(tap);
+    codes[cur * lanes + tid] = code;
+    __syncthreads();
+    // (c) the 2x2 cells of (ho, wo)
+    if (ho >= ho0 && live) {
+      const bool left = wo > 0;
+      const unsigned cl = left ? codes[cur * lanes + tid - nv] : kNoneAll<T>;
+      const unsigned cp = codes[prev * lanes + tid];
+      const unsigned clp = left ? codes[prev * lanes + tid - nv] : kNoneAll<T>;
+      const uint4* dyc = sc + 2 * xrow + tid;
+      const uint4* dyp = sp + 2 * xrow + tid;
+      float d[N], dl[N], dp[N], dlp[N];
+      unpack<T>(dyc[0], d);
+      unpack<T>(dyp[0], dp);
+      unpack<T>(left ? dyc[-nv] : make_uint4(0, 0, 0, 0), dl);
+      unpack<T>(left ? dyp[-nv] : make_uint4(0, 0, 0, 0), dlp);
+      float a00[N], a01[N], a10[N], a11[N];
 #pragma unroll
-      for (int dj = 1; dj >= 0; --dj) {
-        const int j = q / 2 - 1 + dj;
-        const int wo = w0 / 2 - 1 + j;
-        if (j < 0 || wo < 0 || wo >= Wo) continue;
-        const int k = (p - 2 * i) * 3 + (q - 2 * j);
-        if (p - 2 * i > 2 || q - 2 * j > 2) continue;
-        if (am[(i * NWIN + j) * BC + lane] == k) acc += fav::to_f(dyb[(int64_t(ho) * Wo + wo) * C]);
+      for (int j = 0; j < N; ++j) {
+        const unsigned k = (code >> (4 * j)) & 15u, kl = (cl >> (4 * j)) & 15u;
+        const unsigned kp = (cp >> (4 * j)) & 15u, klp = (clp >> (4 * j)) & 15u;
+        float s = 0.f;  // cell (2ho, 2wo): k = 0, 2, 6, 8
+        if (k == 0) s += d[j];
+        if (kl == 2) s += dl[j];
+        if (kp == 6) s += dp[j];
+        if (klp == 8) s += dlp[j];
+        a00[j] = s;
+        s = 0.f;  // (2ho, 2wo+1): k = 1, 7
+        if (k == 1) s += d[j];
+        if (kp == 7) s += dp[j];
+        a01[j] = s;
+        s = 0.f;  // (2ho+1, 2wo): k = 3, 5
+        if (k == 3) s += d[j];
+        if (kl == 5) s += dl[j];
+        a10[j] = s;
+        s = 0.f;  // (2ho+1, 2wo+1): k = 4
+        if (k == 4) s += d[j];
+        a11[j] = s;
+      }
+      T* out = dxn + (int64_t(2 * ho) * W + 2 * wo) * C;
+      const int64_t down = int64_t(W) * C;
+      if constexpr (VEC) {
+        *reinterpret_cast<uint4*>(out) = pack_round<T>(a00);
+        *reinterpret_cast<uint4*>(out + C) = pack_round<T>(a01);
+        *reinterpret_cast<uint4*>(out + down) = pack_round<T>(a10);
+        *reinterpret_cast<uint4*>(out + down + C) = pack_round<T>(a11);
+      } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          if (c0 + j >= C) break;
+          out[j] = fav::from_f<T>(a00[j]);
+          out[C + j] = fav::from_f<T>(a01[j]);
+          out[down + j] = fav::from_f<T>(a10[j]);
+          out[down + C + j] = fav::from_f<T>(a11[j]);
+        }
       }
     }
-    dxb[(int64_t(h) * W + w) * C] = fav::from_f<T>(acc);
+    cp_async_wait_all();
+    __syncthreads();
   }
 }
+
+// Resident blocks of one launch configuration on the whole card.
+template <typename T, bool VEC>
+int64_t wave(int threads, size_t smem) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(pool_s2_bwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         int(smem_bytes(2 * kMaxThreads, 1)));  // W * nv <= 2 * kMaxThreads
+    return n;
+  }();
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pool_s2_bwd_kernel<T, VEC>, threads, smem);
+  return int64_t(std::max(per_sm, 1)) * sms;
+}
+
+template <typename T, bool VEC>
+int launch(const void* x, const void* dy, void* dx, int64_t N_, int64_t H, int64_t W, int64_t C,
+           cudaStream_t s) {
+  const int64_t Ho = H / 2, Wo = W / 2;
+  if (N_ == 0 || Ho == 0 || C == 0) return 0;
+  // channel vectors a block: as many as kMaxThreads threads hold, split evenly
+  const int64_t n_cv = (C + kVec<T> - 1) / kVec<T>, nv_max = kMaxThreads / Wo;
+  const int64_t groups = (n_cv + nv_max - 1) / nv_max;
+  const int nv = int((n_cv + groups - 1) / groups);
+  const int threads = nv * int(Wo);
+  const size_t smem = smem_bytes(int(W), nv);
+  const int64_t tiles = N_ * groups;
+  const int64_t per_wave = wave<T, VEC>(threads, smem);
+  // the split into runs of window rows that minimises waves x steps a block
+  int64_t runs = 1, rows = Ho, best = INT64_MAX;
+  for (int64_t r = 1; r <= std::max<int64_t>(1, Ho / kMinRows); ++r) {
+    const int64_t rr = (Ho + r - 1) / r, n_runs = (Ho + rr - 1) / rr;
+    const int64_t cost = (tiles * n_runs + per_wave - 1) / per_wave * (rr + (n_runs > 1));
+    if (cost < best) best = cost, runs = n_runs, rows = rr;
+  }
+  pool_s2_bwd_kernel<T, VEC><<<unsigned(tiles * runs), threads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), int(H), int(W),
+      int(C), nv, int(groups), int(rows), int(runs));
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* dy, void* dx, int64_t N_, int64_t H, int64_t W,
+               int64_t C, cudaStream_t s) {
+  const bool vec = C % kVec<T> == 0 && fav::aligned16(x) && fav::aligned16(dy) && fav::aligned16(dx);
+  return vec ? launch<T, true>(x, dy, dx, N_, H, W, C, s) : launch<T, false>(x, dy, dx, N_, H, W, C, s);
+}
+
+}  // namespace b6
 
 }  // namespace
 
@@ -163,20 +343,9 @@ FAV_API int fav_pool_s2_fwd(const void* x, void* y, int64_t N, int64_t H, int64_
 
 FAV_API int fav_pool_s2_bwd(const void* x, const void* dy, void* dx, int64_t N, int64_t H,
                             int64_t W, int64_t C, int dtype, void* stream) {
-  if ((H % 2) || (W % 2)) return int(cudaErrorInvalidValue);
-  const int64_t blocks = N * ((H + BT - 1) / BT) * ((W + BT - 1) / BT) * ((C + BC - 1) / BC);
-  const dim3 threads(BC, BROWS);
+  if ((H % 2) || (W % 2) || W / 2 > b6::kMaxThreads) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fav::kBF16) {
-    pool_s2_bwd_kernel<__nv_bfloat16><<<unsigned(blocks), threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
-        static_cast<__nv_bfloat16*>(dx), int(H), int(W), int(C));
-  } else if (dtype == fav::kF32) {
-    pool_s2_bwd_kernel<float><<<unsigned(blocks), threads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(dx),
-        int(H), int(W), int(C));
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
-  return int(cudaGetLastError());
+  if (dtype == fav::kBF16) return b6::launch_bwd<__nv_bfloat16>(x, dy, dx, N, H, W, C, s);
+  if (dtype == fav::kF32) return b6::launch_bwd<float>(x, dy, dx, N, H, W, C, s);
+  return int(cudaErrorInvalidValue);
 }

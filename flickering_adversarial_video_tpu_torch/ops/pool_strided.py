@@ -20,7 +20,8 @@ MaxPool3d_3a and the spatial half of MaxPool3d_4a.
   window holding a NaN, where the Pallas kernel routes nothing; the port
   follows select-and-scatter.  Bound by bytes.  A cell's up to four window
   contributions are summed in f32 in ascending tap order and rounded once,
-  in the kernel and in its plain version.
+  in the kernel and in its plain version, so the two are bit-equal.  The
+  kernel marches a block down H over a frame's full width (W <= 1024).
 * B9 ``pool133_s2_pair_fwd`` / ``pool133_s2_pair_bwd`` replace the Pallas pair
   ``strided_spatial_pool_pair`` (``ops/pallas_pool.py:474``; ``_pair_fwd_kernel``
   :397, ``_pair_bwd_kernel`` :429): the forward also stores each window's
@@ -71,6 +72,8 @@ def pool133_s2_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     b, t, h, w, c = x.shape
     if dy.shape != (b, t, h // 2, w // 2, c):
         raise ValueError(f"dy {tuple(dy.shape)} does not match x {tuple(x.shape)}")
+    if w > 1024:
+        raise ValueError(f"the B6 kernel takes a width up to 1024; got {w}")
     code = kernels.check(x, dy)
     dx = torch.empty_like(x, dtype=dy.dtype)
     kernels.launch(

@@ -60,7 +60,7 @@ class TestKernelsOnCard:
             pool_strided.pool133_s2_fwd(p).cpu().float().numpy(),
             pool_strided.pool133_s2_fwd_plain(p).cpu().float().numpy(),
         )
-        # B6 on a tie grid whose H, W are not multiples of its 8x8 tile
+        # B6 on a tie grid: 5 window rows of 7 windows
         q = torch.randint(0, 3, (2, 3, 10, 14, 40), generator=gen).to("cuda", dtype)
         dq = torch.randint(-8, 9, (2, 3, 5, 7, 40), generator=gen).to("cuda", dtype)
         np.testing.assert_array_equal(
@@ -107,6 +107,36 @@ class TestKernelsOnCard:
             np.testing.assert_array_equal(
                 pool_s1.pool333_bwd(x, dy).float().cpu().numpy(),
                 pool_s1.pool333_bwd_plain(x, dy).float().cpu().numpy(),
+            )
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [
+        (1, 3, 2, 2, 8),      # one window: the pads in both axes
+        (2, 3, 6, 10, 40),    # 3 window rows, 5 columns
+        (2, 1, 4, 6, 13),     # C takes the scalar tail
+        (1, 4, 28, 28, 480),  # 4a's plane: two channel groups of 30 vectors (bf16)
+        (1, 3, 40, 112, 64),  # 2a's width; runs of window rows at B*T = 3
+    ])
+    def test_pool_s2_backward_b6_bit_equal(self, dtype, shape):
+        """B6 is bit-equal to its plain version: random values, an integer
+        tie grid, and a tie grid with NaNs and a -inf block."""
+        gen = torch.Generator().manual_seed(7)
+        b, t, h, w, c = shape
+        pooled = (b, t, h // 2, w // 2, c)
+        nan = torch.randint(0, 3, shape, generator=gen).float()
+        spots = torch.randint(0, nan.numel(), (max(1, nan.numel() // 64),), generator=gen)
+        nan.view(-1)[spots] = float("nan")
+        nan[:, :, h // 2:, w // 2:] = float("-inf")
+        for x, dy in (
+            (torch.randn(shape, generator=gen), torch.randn(pooled, generator=gen)),
+            (torch.randint(0, 3, shape, generator=gen).float(),
+             torch.randint(-8, 9, pooled, generator=gen).float()),
+            (nan, torch.randint(1, 9, pooled, generator=gen).float()),
+        ):
+            x, dy = x.to("cuda", dtype), dy.to("cuda", dtype)
+            np.testing.assert_array_equal(
+                pool_strided.pool133_s2_bwd(x, dy).float().cpu().numpy(),
+                pool_strided.pool133_s2_bwd_plain(x, dy).float().cpu().numpy(),
             )
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -220,6 +220,30 @@ class TestPoolStridedB5:
         assert pool_strided.pool133_s2_bwd.launches == 0
         np.testing.assert_array_equal(got.numpy(), from_view(want, b))
 
+    @pytest.mark.parametrize("geom", [
+        (1, 3, 2, 2, 13),   # one window: the pad row and column in it; C=13, a partial vector
+        (2, 3, 6, 10, 40),  # H' = 3 window rows, no multiple of B6's runs
+        (2, 1, 10, 6, 13),  # H' = 5, W' = 3
+        (1, 2, 2, 10, 40),  # one window row over a 5-window width
+    ])
+    def test_b6_geometries_match_select_and_scatter(self, rng, geom):
+        """B6's plain version, its wrapper on a CPU tensor and the autograd op
+        against the JAX package's select-and-scatter VJP of the view pool, at
+        the edges of the CUDA kernel's tiling (full-width rows, runs of
+        window rows, 16-byte channel vectors with a scalar tail)."""
+        b = geom[0]
+        x = _tie_grid(rng, geom)
+        yshape = (geom[0], geom[1], geom[2] // 2, geom[3] // 2, geom[4])
+        dy = rng.integers(-8, 9, size=yshape).astype(np.float32)
+        _, vjp = jax.vjp(lambda q: jst.strided_pool_view(q, True), jnp.asarray(to_view(x)))
+        want = from_view(vjp(jnp.asarray(to_view(dy)))[0], b)
+        np.testing.assert_array_equal(pool_strided.pool133_s2_bwd_plain(_t(x), _t(dy)).numpy(), want)
+        np.testing.assert_array_equal(pool_strided.pool133_s2_bwd(_t(x), _t(dy)).numpy(), want)
+        xt = _t(x).requires_grad_(True)
+        pool_strided.max_pool_133_s2(xt).backward(_t(dy))
+        np.testing.assert_array_equal(xt.grad.numpy(), want)
+        assert pool_strided.pool133_s2_bwd.launches == 0
+
     def test_odd_extent_rejected(self):
         with pytest.raises(ValueError):
             pool_strided.pool133_s2_fwd(torch.zeros(1, 2, 5, 4, 3))
