@@ -24,7 +24,11 @@ which fails the run:
    step's other strided pools (MaxPool3d_3a, the spatial half of 4a), the
    single-video clip's three and three edge geometries (one window with the
    pads in both axes, 3 window rows, the scalar channel tail), on random,
-   integer-tie and NaN/-inf grids); B7 in bf16 and f32 with an engineered
+   integer-tie and NaN/-inf grids; B3, bit-equal, at the step's nine branch
+   pools, the single-video clip's three and four edge geometries (H, W of 1
+   and across its 14-cell tile, T = 1 and 2, C = 13) on the same three
+   grids; B2, bit-equal, at every distinct combine shape of the step); B7 in
+   bf16 and f32 with an engineered
    boundary hit, bit-equal; B8 forward bit-equal; B8
    backward to f32 sum order, exactly 0 where everything clips, bit-equal to
    itself on a second run, and all of B8 also at [1,90,224,224,3], a geometry
@@ -49,9 +53,9 @@ which fails the run:
    tolerance;
 5. timings with CUDA events (kernels, their plain versions, one library call
    where one computes the same function, the bound at the shapes; B1 also at
-   the single-video clip's shape beside F.conv3d; B4 at all nine branch-pool
-   shapes and B6 at the three strided pools, each summed as one B=8 step
-   beside its bound), the step
+   the single-video clip's shape beside F.conv3d; B3 and B4 at all nine
+   branch-pool shapes, B2 at its 19 launches and B6 at the three strided
+   pools, each summed as one B=8 step beside its bound), the step
    time of both configurations and with the pair at 2a and at 2a+3a, peak
    memory, the card's name and power limit;
 6. where the step's device time goes, by torch.profiler over 2 train steps:
@@ -134,6 +138,28 @@ SV_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0)))
 SV_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 3, 0, 0, 0, 0, 0, 0)))
 SV_PAIR_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 2, 2, 0, 0, 0, 1, 1)))
 SV_PAIR_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 2, 0, 0, 0, 0, 1, 0)))
+# the input of each Mixed block's branch_3 pool in a train step: B3's and
+# B4's nine launches (4c, 4d and 4e share a shape, as 5b and 5c do)
+POOL_STEP = {"Mixed_3b": (B, T // 2, 28, 28, 192), "Mixed_3c": (B, T // 2, 28, 28, 256),
+             "Mixed_4b": (B, T // 4, 14, 14, 480), "Mixed_4c": (B, T // 4, 14, 14, 512),
+             "Mixed_4d": (B, T // 4, 14, 14, 512), "Mixed_4e": (B, T // 4, 14, 14, 512),
+             "Mixed_4f": (B, T // 4, 14, 14, 528), "Mixed_5b": (B, T // 8, 7, 7, 832),
+             "Mixed_5c": (B, T // 8, 7, 7, 832)}
+# B2's 19 launches a train step: the input gradient of Conv3d_2c and of the
+# two 3x3x3 convs of each Mixed block, as (name, [B,T,H,W], Cin); 3 taps,
+# t_plo 1 (Mixed_4c/4d's Branch_2 and 4e/4f's share a shape)
+COMBINE_STEP = [("Conv3d_2c", (B, T // 2, 56, 56), 64)] + [
+    (f"Mixed_{block} Branch_{branch}", dims, cin)
+    for block, dims, cins in (("3b", (B, T // 2, 28, 28), (96, 16)),
+                              ("3c", (B, T // 2, 28, 28), (128, 32)),
+                              ("4b", (B, T // 4, 14, 14), (96, 16)),
+                              ("4c", (B, T // 4, 14, 14), (112, 24)),
+                              ("4d", (B, T // 4, 14, 14), (128, 24)),
+                              ("4e", (B, T // 4, 14, 14), (144, 32)),
+                              ("4f", (B, T // 4, 14, 14), (160, 32)),
+                              ("5b", (B, T // 8, 7, 7), (160, 32)),
+                              ("5c", (B, T // 8, 7, 7), (192, 48)))
+    for branch, cin in zip((1, 2), cins)]
 RUNNER_STEPS, RESUME_STEPS, FUSED_STEPS = 12, 16, 4
 SHARDS, PER_SHARD = 2, 8
 SV_FRAMES, SV_MAX_NUM_STEP = 90, 1   # hard cap 40 * MAX_NUM_STEP steps a clip
@@ -418,6 +444,62 @@ def main() -> None:
                 if not torch.equal(got, want):
                     fail(f"B6 is not bit-equal to its plain version at {shape6} {dtype} ({grid})")
                 del x6, dy6, got, want
+
+    def nan_grid(shape):
+        """An integer-tie grid with NaNs (one value in 1000) and a -inf block."""
+        x = drandint(0, 3, shape, torch.float32)
+        spots = torch.randint(0, x.numel(), (max(1, x.numel() // 1000),), generator=dgen,
+                              device=dev)
+        x.view(-1)[spots] = float("nan")
+        x[:, :, shape[2] // 2:, shape[3] // 2:] = float("-inf")
+        return x
+
+    def same(got, want):
+        """Bit-equal, NaN where NaN."""
+        nan = want.isnan()
+        return torch.equal(got.isnan(), nan) and torch.equal(got.masked_fill(nan, 0),
+                                                             want.masked_fill(nan, 0))
+
+    # B3 at the nine branch pools of the step, the single-video clip's three
+    # and edge geometries (H, W of 1 and across the 14-cell tile; T = 1, 2;
+    # C = 13, the scalar tail), bit-equal on random, integer-tie and NaN/-inf
+    # grids
+    b3_shapes = {**POOL_STEP, **{f"T'={tq}": (1, tq, *POOL_STEP[k][2:])
+                                 for tq, k in ((SV_FRAMES // 2, "Mixed_3b"), (23, "Mixed_4b"),
+                                               (12, "Mixed_5b"))},
+                 "edge 1": (2, 1, 15, 29, 13), "edge 2": (1, 2, 29, 15, 16),
+                 "edge 3": (3, 2, 1, 1, 8), "edge 4": (1, 1, 29, 1, 40)}
+    for block, shape3 in b3_shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for grid in ("random", "integer ties", "NaN/-inf"):
+                x3 = (drandn(*shape3) if grid == "random" else
+                      drandint(0, 3, shape3, torch.float32) if grid == "integer ties" else
+                      nan_grid(shape3)).to(dtype)
+                got = pool_s1.pool333_fwd(x3)
+                torch.cuda.synchronize()
+                ok = same(got, pool_s1.pool333_fwd_plain(x3))
+                print(f"[check] B3 {block} {list(shape3)} {str(dtype)[6:]:8s} {grid}: "
+                      f"{'bit-equal' if ok else 'DIFFERS'} (tolerance 0)", flush=True)
+                if not ok:
+                    fail(f"B3 is not bit-equal to its plain version at {shape3} {dtype} ({grid})")
+                del x3, got
+
+    # B2 at every distinct combine shape of the step, bit-equal
+    seen = set()
+    for block, dims, cin in COMBINE_STEP:
+        if (dims, cin) in seen:
+            continue
+        seen.add((dims, cin))
+        for dtype in (torch.bfloat16, torch.float32):
+            part2 = drandn(*dims, 3 * cin, dtype=dtype)
+            got = stem_combine.temporal_combine(part2, cin, 1)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, stem_combine.temporal_combine_plain(part2, cin, 1))
+            print(f"[check] B2 {block} {list(part2.shape)} {str(dtype)[6:]:8s}: "
+                  f"{'bit-equal' if ok else 'DIFFERS'} (tolerance 0)", flush=True)
+            if not ok:
+                fail(f"B2 is not bit-equal to its plain version at {block} {dtype}")
+            del part2, got
 
     # B1 at the edges of its tiling: W' = 112 (a ragged second 64-position
     # tile), 56 (one tile), 100 with an odd H' (a half-used row pair), 128
@@ -854,23 +936,34 @@ def main() -> None:
               f"plain {plain_ms:.3f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}", flush=True)
 
-    # B4 at the nine branch-pool shapes of the step: one B=8 step's B4 time
-    step4 = {"Mixed_3b": shapes["B4"], **{k: v for k, v in b4_shapes.items() if "odd" not in k},
-             "Mixed_4c": (B, T // 4, th // 8, tw // 8, 512), "Mixed_5b": shape5c,
-             "Mixed_5c": shape5c}
-    step4["Mixed_4d"] = step4["Mixed_4e"] = step4["Mixed_4c"]
-    sum4, bound4 = 0.0, 0.0
-    for block, shape4 in sorted(step4.items()):
-        x4 = drandn(*shape4, dtype=torch.bfloat16)
-        dy4 = drandn(*shape4, dtype=torch.bfloat16)
-        ms4 = cuda_ms(torch, lambda: pool_s1.pool333_bwd(x4, dy4))
-        b4 = 3 * x4.numel() * isz / PEAK_BYTES * 1e3
-        sum4, bound4 = sum4 + ms4, bound4 + b4
-        print(f"[time] B4 {block} {list(shape4)}: {ms4:.4f} ms (bound {b4:.4f} ms, bytes)",
-              flush=True)
-        del x4, dy4
-    print(f"[time] B4 a B=8 step (the nine branch pools, one launch each): {sum4:.4f} ms "
-          f"(bound {bound4:.4f} ms, bytes; {bound4 / sum4:.1%} of it)", flush=True)
+    # B3 and B4 at the nine branch-pool shapes of the step: one B=8 step's time
+    for kernel, n_bytes in (("B3", 2), ("B4", 3)):
+        sum4, bound4 = 0.0, 0.0
+        for block, shape4 in POOL_STEP.items():
+            x4 = drandn(*shape4, dtype=torch.bfloat16)
+            dy4 = drandn(*shape4, dtype=torch.bfloat16)
+            ms4 = cuda_ms(torch, (lambda: pool_s1.pool333_fwd(x4)) if kernel == "B3" else
+                          (lambda: pool_s1.pool333_bwd(x4, dy4)))
+            b4 = n_bytes * x4.numel() * isz / PEAK_BYTES * 1e3
+            sum4, bound4 = sum4 + ms4, bound4 + b4
+            print(f"[time] {kernel} {block} {list(shape4)}: {ms4:.4f} ms (bound {b4:.4f} ms, "
+                  f"bytes; {b4 / ms4:.1%} of it)", flush=True)
+            del x4, dy4
+        print(f"[time] {kernel} a B=8 step (the nine branch pools, one launch each): {sum4:.4f} "
+              f"ms (bound {bound4:.4f} ms, bytes; {bound4 / sum4:.1%} of it)", flush=True)
+
+    # B2 at its 19 launches of the step: one B=8 step's time
+    sum2, bound2 = 0.0, 0.0
+    for block, dims, cin in COMBINE_STEP:
+        part2 = drandn(*dims, 3 * cin, dtype=torch.bfloat16)
+        ms2 = cuda_ms(torch, lambda: stem_combine.temporal_combine(part2, cin, 1))
+        b2 = part2.numel() * 4 // 3 * isz / PEAK_BYTES * 1e3
+        sum2, bound2 = sum2 + ms2, bound2 + b2
+        print(f"[time] B2 {block} {list(part2.shape)}: {ms2:.4f} ms (bound {b2:.4f} ms, bytes; "
+              f"{b2 / ms2:.1%} of it)", flush=True)
+        del part2
+    print(f"[time] B2 a B=8 step (the {len(COMBINE_STEP)} combines, one launch each): "
+          f"{sum2:.4f} ms (bound {bound2:.4f} ms, bytes; {bound2 / sum2:.1%} of it)", flush=True)
     lib4 = next(row["library_ms"] for row in table if row["name"].split()[0] == "B4")
     print(f"[time] B4's library yardstick at {list(shapes['B4'])}: "
           f"aten.max_pool3d_with_indices_backward in channels_last_3d {lib4:.4f} "

@@ -11,6 +11,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #define FAV_API extern "C" __attribute__((visibility("default")))
 
 namespace fav {
@@ -149,8 +151,43 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed cp.async groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// max of two packed bf16 pairs, NaN if either is NaN, in one instruction
+__device__ __forceinline__ uint32_t max_nan_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// max(max(a, b), d) of three 16-byte channel vectors, channel by channel,
+// NaN-propagating: packed pairs for bf16, no unpacking
+template <typename T>
+__device__ __forceinline__ uint4 max3(const uint4& a, const uint4& b, const uint4& d) {
+  const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w},
+                 dv[4] = {d.x, d.y, d.z, d.w};
+  uint32_t m[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4)
+      m[i] = __float_as_uint(fmax_nan(fmax_nan(__uint_as_float(av[i]), __uint_as_float(bv[i])),
+                                      __uint_as_float(dv[i])));
+    else
+      m[i] = max_nan_bf16x2(max_nan_bf16x2(av[i], bv[i]), dv[i]);
+  }
+  return make_uint4(m[0], m[1], m[2], m[3]);
 }
 
 // One channel vector at element offset `off` (channel c0 of a position):
@@ -167,6 +204,33 @@ __device__ __forceinline__ uint4 load_vec(const T* __restrict__ src, int64_t off
     for (int j = 0; j < kVec<T>; ++j) f[j] = c0 + j < C ? fav::to_f(src[off + j]) : fill;
     return pack_exact<T>(f);
   }
+}
+
+// The channel vector v (values of T) at element offset `off`: one 16-byte
+// store when VEC, else channel by channel up to C.
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_vec(T* __restrict__ dst, int64_t off, int c0, int C,
+                                          const uint4& v) {
+  if constexpr (VEC) {
+    *reinterpret_cast<uint4*>(dst + off) = v;
+  } else {
+    float f[kVec<T>];
+    unpack<T>(v, f);
+#pragma unroll
+    for (int j = 0; j < kVec<T>; ++j)
+      if (c0 + j < C) dst[off + j] = fav::from_f<T>(f[j]);
+  }
+}
+
+// Blocks of `kernel` that the card holds at once (one wave), by the
+// occupancy calculator for this block size and dynamic shared memory.
+template <typename K>
+inline int64_t wave_blocks(K kernel, int threads, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  return int64_t(std::max(sms, 1)) * std::max(per_sm, 1);
 }
 
 }  // namespace fav

@@ -24,107 +24,183 @@
 // that is a pad.  The residual is x only.
 //
 // Bound on the H100: bytes (forward: read x, write y; backward: read x and
-// dy, write dx).  The forward stages x tiles with a halo in shared memory
-// (below).  The backward's design follows its own section.
-
-#include <algorithm>
+// dy, write dx).  Both kernels march a tile of 16-byte channel vectors along
+// T; the designs follow their sections.
 
 #include "common.cuh"
 
 namespace {
 
-// The forward tiles the volume: a block owns TT x TH x TW cells
-// of one batch element and CT channels (threadIdx.x = channel, so every
-// global access is a coalesced run of channels) and stages the x it needs,
-// with a halo, in shared memory in x's own dtype (-inf outside the volume).
-constexpr int TT = 2, TH = 4, TW = 8, CT = 32, ROWS = 8;
+// ---- B3: the forward -------------------------------------------------------
+//
+// The TPU kernel's separable maxima (`_fwd_kernel` :140): m_w = max of 3
+// along W, m_hw = max of 3 m_w along H, y = max of 3 m_hw along T.  A block
+// owns a TS x TS tile of (h, w) cells of one batch element, a group of NV
+// consecutive channel vectors (16 bytes each: 8 bf16 or 4 f32 channels, so a
+// position's group is one contiguous NV*16-byte run) and a run of frames
+// [t0, t1), and marches along T, one x plane an iteration.  Positions of the
+// halo outside the volume are clamped to its edge, as the TPU kernel's halo
+// specs clamp (:142-147): a clamped position repeats one that is already in
+// every window it joins, and max(x, x) = x, NaN included, so no load is
+// predicated and no pad is written.  Iteration p:
+//   (a) waits for x plane p, and starts plane p + kStages - 1 into the slot
+//       of plane p - 1 (a kStages-slot cp.async ring);
+//   (b) m_w of plane p at rows -1..TS, columns 0..TS-1, into shared memory;
+//   (c) each cell's owner: m_hw of plane p, and y(p-1) = max(m_hw(p-2),
+//       m_hw(p-1), m_hw(p)) from its registers, one 16-byte store.
+// A thread owns one vector of one halo position, vector fastest.  Two
+// barriers a plane and 8 max instructions a stage (4 on packed bf16 pairs).
+// A max with NaN propagation is associative, so this order gives the 27-tap
+// maximum of the plain version bit for bit.  Each x plane is read once a
+// block (1.31x through the halo at TS = 14), each y plane written once.
+// One vector a block took 0.162 ms at [8,32,28,28,192] bf16, groups of 2
+// and 4 vectors 0.069 and 0.065 (device time, scripts/torch_pool_s1_bench.py,
+// H100 80GB HBM3 at 700 W): single 16-byte loads at a position's stride
+// used half of each 32-byte sector.
+namespace b3 {
 
-struct Tile {
-  int t0, h0, w0, c;
-  int64_t b;
-  bool c_ok;
-};
+using namespace fav;  // the 16-byte channel vectors of common.cuh
 
-__device__ __forceinline__ Tile tile_of(int T_, int H, int W, int C) {
-  const int n_ct = (C + CT - 1) / CT, n_tw = (W + TW - 1) / TW, n_th = (H + TH - 1) / TH;
-  const int n_tt = (T_ + TT - 1) / TT;
-  int64_t blk = blockIdx.x;
-  Tile tl;
-  tl.c = int(blk % n_ct) * CT + threadIdx.x;
-  blk /= n_ct;
-  tl.w0 = int(blk % n_tw) * TW;
-  blk /= n_tw;
-  tl.h0 = int(blk % n_th) * TH;
-  blk /= n_th;
-  tl.t0 = int(blk % n_tt) * TT;
-  tl.b = blk / n_tt;
-  tl.c_ok = tl.c < C;
-  return tl;
-}
+constexpr int kStages = 4;  // ring slots: the plane in use and 3 in flight
 
-__device__ __forceinline__ int64_t offset(const Tile& tl, int t, int h, int w, int T_, int H,
-                                          int W, int C) {
-  return (((tl.b * T_ + t) * H + h) * int64_t(W) + w) * C + tl.c;
-}
+template <int TS, int NV>
+constexpr int threads() { return ((TS + 2) * (TS + 2) * NV + 31) / 32 * 32; }
+constexpr int kMaxThreads = threads<14, 4>();
 
-// xs[(a*SH + p)*SW + q][lane] = x at cell (t0-HALO+a, h0-HALO+p, w0-HALO+q)
-template <int HALO, typename T>
-__device__ __forceinline__ void stage(T* xs, const T* __restrict__ x, const Tile& tl, int T_,
-                                      int H, int W, int C) {
-  constexpr int ST = TT + 2 * HALO, SH = TH + 2 * HALO, SW = TW + 2 * HALO;
-  constexpr int N = ST * SH * SW;
-  static_assert(N % ROWS == 0, "staging rows must divide the tile");
-  const T neg = fav::from_f<T>(-INFINITY);
-#pragma unroll 6
-  for (int pos = threadIdx.y; pos < N; pos += ROWS) {
-    const int q = pos % SW, p = (pos / SW) % SH, a = pos / (SW * SH);
-    const int t = tl.t0 - HALO + a, h = tl.h0 - HALO + p, w = tl.w0 - HALO + q;
-    T v = neg;
-    if (tl.c_ok && t >= 0 && t < T_ && h >= 0 && h < H && w >= 0 && w < W)
-      v = x[offset(tl, t, h, w, T_, H, W, C)];
-    xs[pos * CT + threadIdx.x] = v;
-  }
-}
+template <int TS, int NV>
+constexpr size_t smem_bytes() { return size_t(kStages * (TS + 2) + TS) * (TS + 2) * NV * 16; }
 
-template <typename T>
-constexpr size_t fwd_smem() {
-  return size_t(TT + 2) * (TH + 2) * (TW + 2) * CT * sizeof(T);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(CT * ROWS)
-pool_s1_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int T_, int H, int W, int C) {
+template <typename T, int TS, int NV, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+pool_s1_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int T_, int H, int W, int C,
+                   int frames) {
+  constexpr int N = kVec<T>, XS = TS + 2, XP = XS * XS;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  constexpr int SH = TH + 2, SW = TW + 2;
-  const Tile tl = tile_of(T_, H, W, C);
-  stage<1>(xs, x, tl, T_, H, W, C);
-  __syncthreads();
-  if (!tl.c_ok) return;
-  for (int pos = threadIdx.y; pos < TT * TH * TW; pos += ROWS) {
-    const int q = pos % TW, p = (pos / TW) % TH, a = pos / (TW * TH);
-    const int t = tl.t0 + a, h = tl.h0 + p, w = tl.w0 + q;
-    if (t >= T_ || h >= H || w >= W) continue;
-    float m = -INFINITY;
-#pragma unroll
-    for (int k = 0; k < 27; ++k)
-      m = fav::fmax_nan(m, fav::to_f(xs[(((a + k / 9) * SH + p + (k / 3) % 3) * SW + q + k % 3) *
-                                            CT + threadIdx.x]));
-    y[offset(tl, t, h, w, T_, H, W, C)] = fav::from_f<T>(m);
+  uint4* xs = reinterpret_cast<uint4*>(smem);  // [kStages][XS*XS][NV]: rows, cols -1..TS
+  uint4* mws = xs + kStages * XP * NV;         // [XS][TS][NV]: rows -1..TS, cols 0..TS-1
+
+  const int n_vec = (C + N - 1) / N, n_cg = (n_vec + NV - 1) / NV;
+  const int n_tw = (W + TS - 1) / TS, n_th = (H + TS - 1) / TS;
+  const int n_tc = (T_ + frames - 1) / frames;
+  int64_t blk = blockIdx.x;
+  const int cg = int(blk % n_cg);
+  blk /= n_cg;
+  const int w0 = int(blk % n_tw) * TS;
+  blk /= n_tw;
+  const int h0 = int(blk % n_th) * TS;
+  blk /= n_th;
+  const int t0 = int(blk % n_tc) * frames, t1 = min(t0 + frames, T_);
+  const int64_t b = blk / n_tc;
+
+  const int tid = threadIdx.x, q = tid / NV;  // q: the position, tid % NV: the vector
+  const int vi = cg * NV + tid % NV, c0 = vi * N;
+  const bool vec_ok = vi < n_vec;
+  const int64_t plane = int64_t(H) * W * C;
+  const int64_t base = b * T_ * plane + c0;
+  // the halo position this thread stages, clamped into the volume
+  const int hs = min(max(h0 - 1 + q / XS, 0), H - 1), ws = min(max(w0 - 1 + q % XS, 0), W - 1);
+  const int64_t src = (int64_t(hs) * W + ws) * C;
+  // the cell it owns (q < TS*TS), and its m_w: row q / TS - 1, column q % TS
+  const int r = q / TS, c = q % TS;
+  const bool owner = q < TS * TS && h0 + r < H && w0 + c < W && vec_ok;
+  const int64_t dst = (int64_t(h0 + r) * W + w0 + c) * C;
+
+  const int pbeg = t0 - 1, pend = t1;  // planes t0-1 .. t1, clamped into [0, T)
+  auto stage = [&](int p) {
+    if (p <= pend && q < XP && vec_ok) {
+      const int64_t off = base + min(max(p, 0), T_ - 1) * plane + src;
+      uint4* d = xs + (p - pbeg) % kStages * XP * NV + tid;
+      if constexpr (VEC)
+        cp_async16(d, x + off);
+      else
+        *d = load_vec<T, VEC>(x, off, c0, C, 0.f);
+    }
+    cp_async_commit();  // one group a plane, empty past the run
+  };
+
+  for (int i = 0; i < kStages - 1; ++i) stage(pbeg + i);
+  uint4 mh0 = make_uint4(0, 0, 0, 0), mh1 = mh0;  // m_hw(p-2), m_hw(p-1)
+  for (int p = pbeg; p <= pend; ++p) {
+    // (a)
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    stage(p + kStages - 1);
+    // (b)
+    if (q < XS * TS) {
+      const uint4* row = xs + ((p - pbeg) % kStages * XP + r * XS + c) * NV + tid % NV;
+      mws[tid] = max3<T>(row[0], row[NV], row[2 * NV]);
+    }
+    __syncthreads();
+    // (c)
+    if (q < TS * TS) {
+      const uint4 mh2 = max3<T>(mws[tid], mws[tid + TS * NV], mws[tid + 2 * TS * NV]);
+      if (p > t0 && owner)
+        store_vec<T, VEC>(y, base + int64_t(p - 1) * plane + dst, c0, C, max3<T>(mh0, mh1, mh2));
+      mh0 = mh1, mh1 = mh2;
+    }
   }
 }
 
-int64_t n_tiles(int64_t B, int64_t T, int64_t H, int64_t W, int64_t C) {
-  return B * ((T + TT - 1) / TT) * ((H + TH - 1) / TH) * ((W + TW - 1) / TW) * ((C + CT - 1) / CT);
+// Frames a run.  Blocks run in waves of `wave`; a block's time is about its
+// planes (frames + 2), so pick the runs with the least waves x planes (the
+// fewest runs on a tie).
+inline int run_frames(int64_t tiles, int64_t T_, int64_t wave) {
+  int64_t best = T_, cost = -1;
+  for (int64_t runs = 1; runs <= T_; ++runs) {
+    const int64_t frames = (T_ + runs - 1) / runs;
+    if ((T_ + frames - 1) / frames != runs) continue;  // the same as fewer runs
+    const int64_t c = (tiles * runs + wave - 1) / wave * (frames + 2);
+    if (cost < 0 || c < cost) best = frames, cost = c;
+  }
+  return int(best);
+}
+
+template <typename T, int TS, int NV, bool VEC>
+int launch(const void* x, void* y, int64_t B, int64_t T_, int64_t H, int64_t W, int64_t C,
+           cudaStream_t s) {
+  const int64_t n_cg = ((C + kVec<T> - 1) / kVec<T> + NV - 1) / NV;
+  const int64_t tiles = B * ((H + TS - 1) / TS) * ((W + TS - 1) / TS) * n_cg;
+  if (tiles == 0 || T_ == 0) return 0;
+  constexpr size_t smem = smem_bytes<TS, NV>();
+  static const int64_t wave = [] {
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(pool_s1_fwd_kernel<T, TS, NV, VEC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    return wave_blocks(pool_s1_fwd_kernel<T, TS, NV, VEC>, threads<TS, NV>(), smem);
+  }();
+  const int frames = run_frames(tiles, T_, wave);
+  const int64_t runs = (T_ + frames - 1) / frames;
+  pool_s1_fwd_kernel<T, TS, NV, VEC><<<unsigned(tiles * runs), threads<TS, NV>(), smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), int(T_), int(H), int(W), int(C), frames);
+  return int(cudaGetLastError());
+}
+
+// TS = 14: Mixed_3b/3c's 28x28 in 4 tiles and Mixed_4x's 14x14 in one;
+// TS = 7: Mixed_5x's 7x7 in one.  NV = 4 (1024 threads, one block an SM by
+// registers) where the vectors fill whole groups of 4, else NV = 2 (512
+// threads, two blocks an SM): Mixed_4f's 66 vectors in groups of 4 made 136
+// blocks on 132 SMs, a second wave almost empty (0.033 against 0.025 ms).
+// A register cap for two 1024-thread blocks an SM (32, with spills) took
+// the nine pools of a B=8 step from 0.273 to 0.411 ms.
+template <typename T, int TS, bool VEC>
+int launch_tile(const void* x, void* y, int64_t B, int64_t T_, int64_t H, int64_t W, int64_t C,
+                cudaStream_t s) {
+  if ((C + kVec<T> - 1) / kVec<T> % 4 == 0) return launch<T, TS, 4, VEC>(x, y, B, T_, H, W, C, s);
+  return launch<T, TS, 2, VEC>(x, y, B, T_, H, W, C, s);
 }
 
 template <typename T>
 int launch_fwd(const void* x, void* y, int64_t B, int64_t T_, int64_t H, int64_t W, int64_t C,
                cudaStream_t s) {
-  pool_s1_fwd_kernel<T><<<unsigned(n_tiles(B, T_, H, W, C)), dim3(CT, ROWS), fwd_smem<T>(), s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), int(T_), int(H), int(W), int(C));
-  return int(cudaGetLastError());
+  const bool vec = C % kVec<T> == 0 && fav::aligned16(x) && fav::aligned16(y);
+  if (H <= 7 && W <= 7)
+    return vec ? launch_tile<T, 7, true>(x, y, B, T_, H, W, C, s)
+               : launch_tile<T, 7, false>(x, y, B, T_, H, W, C, s);
+  return vec ? launch_tile<T, 14, true>(x, y, B, T_, H, W, C, s)
+             : launch_tile<T, 14, false>(x, y, B, T_, H, W, C, s);
 }
+
+}  // namespace b3
 
 // ---- B4: the backward ------------------------------------------------------
 //
@@ -261,7 +337,7 @@ pool_s1_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restr
       else
         dst[i] = load_vec<T, VEC>(x, off, c0, C, -INFINITY);
     }
-    if constexpr (VEC) asm volatile("cp.async.commit_group;\n" ::);
+    if constexpr (VEC) cp_async_commit();
   };
 
   auto write_dx = [&](int s) {  // the W stage of plane s
@@ -401,8 +477,8 @@ int launch_bwd(const void* x, const void* dy, void* dx, int64_t B, int64_t T_, i
 FAV_API int fav_pool_s1_fwd(const void* x, void* y, int64_t B, int64_t T, int64_t H, int64_t W,
                             int64_t C, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fav::kBF16) return launch_fwd<__nv_bfloat16>(x, y, B, T, H, W, C, s);
-  if (dtype == fav::kF32) return launch_fwd<float>(x, y, B, T, H, W, C, s);
+  if (dtype == fav::kBF16) return b3::launch_fwd<__nv_bfloat16>(x, y, B, T, H, W, C, s);
+  if (dtype == fav::kF32) return b3::launch_fwd<float>(x, y, B, T, H, W, C, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -1,20 +1,24 @@
-"""Time the port's stride-1 3x3x3 pool kernels B4 (backward) and B3 (forward)
-alone on one NVIDIA GPU.
+"""Time the port's stride-1 3x3x3 pool kernels B3 (forward) and B4
+(backward) alone on one NVIDIA GPU.
 
     python3 scripts/torch_pool_s1_bench.py [--iters N]
 
 Builds the port's CUDA kernels (``flickering_adversarial_video_tpu_torch/csrc``)
 and, at the nine branch-pool shapes of a B=8, T=64, 224x224 I3D train step
 (Mixed_3b .. Mixed_5c) and the three of the single-video clip (B=1, T=90),
-holds B4 against its plain PyTorch version in bf16 and f32 (tolerance 0) and
-prints its time by CUDA events beside its bound (bytes: x and dy read, dx
-written, at the card's memory rate).  Then at [8,32,28,28,192] bf16: B3 and
-its bound, ``F.max_pool3d``, and the ATen backward
-``max_pool3d_with_indices_backward`` fed the forward's int64 indices (a
-different function: it needs those indices, and its NaN rule differs), each
-kernel's device time under torch.profiler, and the sum of B4's nine shapes
-(one B=8 step).  Ends with the card's name and power limit.  Exits non-zero
-without CUDA.
+holds B3 and B4 against their plain PyTorch versions in bf16 and f32
+(tolerance 0; B3 also on an integer-tie grid and on a grid with NaNs and a
+-inf block, NaN positions equal) and prints each kernel's time by CUDA
+events and its device time under torch.profiler (the events time the
+host's dispatch, not the kernel, where a launch takes a few microseconds)
+beside its bound (bytes at the card's memory rate: B3 reads x and
+writes y, B4 reads x and dy and writes dx) and, for B3, ``F.max_pool3d`` on
+the same values in channels_last_3d.  Sums the nine shapes of each (one B=8
+step).  Then at [8,32,28,28,192] bf16: each kernel's device time under
+torch.profiler and the ATen backward ``max_pool3d_with_indices_backward``
+fed the forward's int64 indices (a different function: it needs those
+indices, and its NaN rule differs).  Ends with the card's name and power
+limit.  Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -84,7 +88,29 @@ def main() -> None:
                  if symbol in e.key)
         return us / 1e3 / iters if us else float("nan")
 
+    def grid(shape, kind):
+        if kind == "random":
+            return torch.randn(shape, generator=gen, device=dev)
+        x = torch.randint(0, 3, shape, generator=gen, device=dev).float()
+        if kind == "NaN/-inf":
+            spots = torch.randint(0, x.numel(), (max(1, x.numel() // 1000),), generator=gen, device=dev)
+            x.view(-1)[spots] = float("nan")
+            x[:, :, shape[2] // 2:, shape[3] // 2:] = float("-inf")
+        return x
+
+    def same(got, want):  # bit-equal, NaN where NaN
+        nan = want.isnan()
+        return torch.equal(got.isnan(), nan) and torch.equal(got.masked_fill(nan, 0),
+                                                             want.masked_fill(nan, 0))
+
     def check(shape, dtype):
+        for kind in ("random", "integer ties", "NaN/-inf"):
+            x = grid(shape, kind).to(dtype)
+            ok = same(pool_s1.pool333_fwd(x), pool_s1.pool333_fwd_plain(x))
+            print(f"[check] B3 {list(shape)} {str(dtype)[6:]:8s} {kind}: "
+                  f"{'bit-equal' if ok else 'DIFFERS'} (tolerance 0)", flush=True)
+            if not ok:
+                sys.exit(f"B3 differs from its plain version at {shape} {dtype} ({kind})")
         x = torch.randn(shape, generator=gen, device=dev).to(dtype)
         dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
         got = pool_s1.pool333_bwd(x, dy)
@@ -96,18 +122,29 @@ def main() -> None:
             sys.exit(f"B4 differs from its plain version at {shape} {dtype}")
         return x, dy
 
-    step_ms, step_bound = 0.0, 0.0
+    step = {"B3": [0.0, 0.0, 0.0], "B4": [0.0, 0.0, 0.0]}  # events, device, bound
     for name, shape in list(STEP_SHAPES.items()) + [(f"single-video T'={s[1]}", s) for s in SV_SHAPES]:
         check(shape, torch.float32)
         x, dy = check(shape, torch.bfloat16)
-        ms = cuda_ms(lambda: pool_s1.pool333_bwd(x, dy), args.iters)
-        bound = 3 * x.numel() * 2 / PEAK_BYTES * 1e3
-        if name in STEP_SHAPES:
-            step_ms, step_bound = step_ms + ms, step_bound + bound
-        print(f"[time] B4 {name} {list(shape)} bf16: {ms:.4f} ms (bound {bound:.4f} ms, bytes; "
-              f"{bound / ms:.1%} of it)", flush=True)
-    print(f"[time] B4 a B=8 step (the nine shapes): {step_ms:.4f} ms (bound {step_bound:.4f} ms; "
-          f"{step_bound / step_ms:.1%} of it)", flush=True)
+        xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view of NDHWC memory: channels_last_3d
+        lib3 = cuda_ms(lambda: F.max_pool3d(xc, 3, 1, 1), args.iters)
+        for kernel, fn, n_bytes, symbol in (
+            ("B3", lambda: pool_s1.pool333_fwd(x), 2, "pool_s1_fwd_kernel"),
+            ("B4", lambda: pool_s1.pool333_bwd(x, dy), 3, "pool_s1_bwd_kernel"),
+        ):
+            ms, dev_ms = cuda_ms(fn, args.iters), device_ms(fn, symbol, args.iters)
+            bound = n_bytes * x.numel() * 2 / PEAK_BYTES * 1e3
+            if name in STEP_SHAPES:
+                for i, v in enumerate((ms, dev_ms, bound)):
+                    step[kernel][i] += v
+            lib = f", F.max_pool3d (channels_last_3d) {lib3:.4f} ms" if kernel == "B3" else ""
+            print(f"[time] {kernel} {name} {list(shape)} bf16: {ms:.4f} ms by CUDA events, "
+                  f"{dev_ms:.4f} ms device time under torch.profiler (bound {bound:.4f} ms, "
+                  f"bytes; {bound / dev_ms:.1%} of it){lib}", flush=True)
+    for kernel, (ms, dev_ms, bound) in step.items():
+        print(f"[time] {kernel} a B=8 step (the nine shapes): {ms:.4f} ms by CUDA events, "
+              f"{dev_ms:.4f} ms device time (bound {bound:.4f} ms; {bound / dev_ms:.1%} of it)",
+              flush=True)
 
     shape = STEP_SHAPES["Mixed_3b"]
     x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)

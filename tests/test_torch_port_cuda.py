@@ -111,6 +111,60 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shape", [
+        (8, 32, 28, 28, 192), (8, 32, 28, 28, 256),  # Mixed_3b, 3c: 4 tiles of 14x14
+        (8, 16, 14, 14, 480), (8, 16, 14, 14, 512),  # Mixed_4b, 4c (= 4d, 4e)
+        (8, 16, 14, 14, 528), (8, 8, 7, 7, 832),     # Mixed_4f; 5b (= 5c): the 7x7 tile
+        (1, 45, 28, 28, 192), (1, 23, 14, 14, 480),  # the single-video clip: runs of frames
+        (1, 12, 7, 7, 832),
+        (2, 1, 15, 29, 13),   # T = 1; across the 14-cell tile; the scalar tail
+        (1, 2, 29, 15, 16),   # T = 2; H across two tile boundaries
+        (3, 2, 1, 1, 8),      # one cell a plane
+        (1, 1, 29, 1, 40),    # W = 1
+    ])
+    def test_pool_s1_forward_b3_bit_equal(self, dtype, shape):
+        """B3 is bit-equal to its plain version: random values, an integer
+        tie grid, and a tie grid with NaNs and a -inf block (NaN positions
+        equal)."""
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        b, t, h, w, c = shape
+        nan = torch.randint(0, 3, shape, generator=gen, device="cuda").float()
+        spots = torch.randint(0, nan.numel(), (max(1, nan.numel() // 64),), generator=gen,
+                              device="cuda")
+        nan.view(-1)[spots] = float("nan")
+        nan[:, :, h // 2:, w // 2:] = float("-inf")
+        for x in (torch.randn(shape, generator=gen, device="cuda"),
+                  torch.randint(0, 3, shape, generator=gen, device="cuda").float(), nan):
+            x = x.to(dtype)
+            got, want = pool_s1.pool333_fwd(x), pool_s1.pool333_fwd_plain(x)
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(got.masked_fill(want.isnan(), 0), want.masked_fill(want.isnan(), 0))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("dims,cin,taps", [
+        ((8, 32, 56, 56), 64, 3),                                           # Conv3d_2c
+        ((8, 32, 28, 28), 96, 3), ((8, 32, 28, 28), 16, 3),                 # Mixed_3b
+        ((8, 32, 28, 28), 128, 3), ((8, 32, 28, 28), 32, 3),                # Mixed_3c
+        ((8, 16, 14, 14), 96, 3), ((8, 16, 14, 14), 16, 3),                 # Mixed_4b
+        ((8, 16, 14, 14), 112, 3), ((8, 16, 14, 14), 24, 3),                # Mixed_4c (24: 4d)
+        ((8, 16, 14, 14), 128, 3), ((8, 16, 14, 14), 144, 3),               # Mixed_4d, 4e
+        ((8, 16, 14, 14), 32, 3), ((8, 16, 14, 14), 160, 3),                # 4e/4f, 4f
+        ((8, 8, 7, 7), 160, 3), ((8, 8, 7, 7), 32, 3),                      # Mixed_5b
+        ((8, 8, 7, 7), 192, 3), ((8, 8, 7, 7), 48, 3),                      # Mixed_5c
+        ((8, 32, 112, 112), 24, 4),                                         # the stem's dgrad
+        ((1, 45, 56, 56), 64, 3), ((1, 45, 28, 28), 128, 3),                # the single-video
+        ((1, 23, 14, 14), 112, 3), ((1, 12, 7, 7), 160, 3),                 # clip
+        ((1, 45, 112, 112), 24, 4),
+        ((2, 2, 3, 5), 13, 3), ((1, 1, 4, 4), 24, 4),                       # tail; T < KT
+    ])
+    def test_temporal_combine_b2_bit_equal(self, dtype, dims, cin, taps):
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        part = torch.randn(*dims, taps * cin, generator=gen, device="cuda").to(dtype)
+        for t_plo in range(taps):
+            assert torch.equal(stem_combine.temporal_combine(part, cin, t_plo),
+                               stem_combine.temporal_combine_plain(part, cin, t_plo))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [
         (1, 3, 2, 2, 8),      # one window: the pads in both axes
         (2, 3, 6, 10, 40),    # 3 window rows, 5 columns
         (2, 1, 4, 6, 13),     # C takes the scalar tail

@@ -98,22 +98,51 @@ class TestStemConvB1:
         _close(xt.grad.numpy(), from_view(dxv, b))
 
 
+def _combine_against_pallas(part, cin, t_plo):
+    """B2's wrapper (on the CPU: its plain version) against the Pallas kernel
+    in interpret mode on the same part (a jnp array, f32 or bf16)."""
+    b = part.shape[0]
+    want = catbwd_lane_combine_pallas(
+        jnp.asarray(to_view(np.asarray(part))), b, cin, t_plo, interpret=True
+    )
+    tdt = torch.float32 if part.dtype == jnp.float32 else torch.bfloat16
+    got = stem_combine.temporal_combine(_t(np.asarray(part, np.float32)).to(tdt), cin, t_plo)
+    assert got.dtype == tdt and stem_combine.temporal_combine.launches == 0
+    np.testing.assert_array_equal(got.float().numpy(), from_view(np.asarray(want, np.float32), b))
+    return got
+
+
 class TestTemporalCombineB2:
     @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-    @pytest.mark.parametrize("n_taps,t_plo", [(3, 1), (4, 1)])
+    @pytest.mark.parametrize("n_taps,t_plo", [(3, 1), (4, 1), (3, 0), (3, 2), (4, 0), (4, 2)])
     def test_bit_equal_with_pallas_interpret(self, rng, dtype, n_taps, t_plo):
         b, t, h, w, cin = 2, 8, 8, 6, 8
         part = jnp.asarray(rng.normal(size=(b, t, h, w, n_taps * cin)), dtype)
-        want = catbwd_lane_combine_pallas(
-            jnp.asarray(to_view(np.asarray(part))), b, cin, t_plo, interpret=True
-        )
-        tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
-        tpart = _t(np.asarray(part, np.float32)).to(tdt)
-        got = stem_combine.temporal_combine(tpart, cin, t_plo)
-        assert got.dtype == tdt and stem_combine.temporal_combine.launches == 0
-        np.testing.assert_array_equal(
-            got.float().numpy(), from_view(np.asarray(want, np.float32), b)
-        )
+        _combine_against_pallas(part, cin, t_plo)
+
+    @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+    @pytest.mark.parametrize("n_taps,t_plo", [(3, 0), (3, 2), (4, 1)])
+    @pytest.mark.parametrize("t,cin", [(1, 13), (2, 24), (2, 13), (1, 24)])
+    def test_short_clips_and_channel_tails(self, rng, dtype, n_taps, t_plo, t, cin):
+        """T < KT (a tap reaches past both edges) and Cin = 13 (the CUDA
+        kernel's scalar tail) or 24 (three 16-byte bf16 vectors)."""
+        part = jnp.asarray(rng.normal(size=(2, t, 3, 5, n_taps * cin)), dtype)
+        _combine_against_pallas(part, cin, t_plo)
+
+    def test_bf16_rounds_once_per_add(self, rng):
+        """Taps s, s*2^-8, s*2^-8 (s a signed power of two, constant along T):
+        two bf16 adds give s (s + s*2^-8 is a tie, rounded to even), one
+        rounding of the f32 sum gives s*(1 + 2^-7).  So this grid tells the
+        per-add rounding of the JAX chain, which the kernel keeps, from an
+        f32 sum rounded once."""
+        b, t, h, w, cin = 2, 6, 4, 4, 8
+        s = 2.0 ** rng.integers(-4, 5, size=(b, 1, h, w, cin)) * rng.choice([-1.0, 1.0], (b, 1, h, w, cin))
+        part = np.concatenate([np.broadcast_to(s * f, (b, t, h, w, cin)) for f in (1, 2.0**-8, 2.0**-8)], -1)
+        got = _combine_against_pallas(jnp.asarray(part, jnp.bfloat16), cin, 1).float().numpy()
+        once = stem_combine.temporal_combine(_t(part).float(), cin, 1).bfloat16().float().numpy()
+        interior = slice(1, t - 1)  # all three taps in range
+        np.testing.assert_array_equal(got[:, interior], np.broadcast_to(s, got[:, interior].shape))
+        assert (got[:, interior] != once[:, interior]).all()
 
 
 class TestConvUnit:
@@ -173,6 +202,32 @@ class TestPoolS1B3B4:
         (want,) = vjp(jnp.asarray(dy))
         got = pool_s1.pool333_bwd_plain(_t(x), _t(dy))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    @pytest.mark.parametrize("grid", ["ties", "NaN/-inf"])
+    @pytest.mark.parametrize("geom", [
+        (2, 1, 15, 29, 13),  # T = 1; H, W across the CUDA kernel's 14-cell tile; C's scalar tail
+        (1, 2, 29, 15, 16),  # T = 2; H across two tile edges
+        (2, 2, 1, 29, 16),   # H = 1
+        (1, 2, 15, 1, 13),   # W = 1
+    ])
+    def test_forward_edges_match_pallas_interpret(self, rng, geom, grid):
+        """B3's plain version against the Pallas forward at the edges of the
+        CUDA kernel's tiling, on an integer-tie grid and on one with NaNs (2%)
+        and a -inf block.  The Pallas blocking takes H in blocks of 2..28 rows
+        and C in tiles of 16, so x is embedded in a volume padded with -inf
+        (the SAME pad itself) to an even H and whole tiles of C, and the
+        result cropped."""
+        b, t, h, w, c = geom
+        x = _tie_grid(rng, geom)
+        if grid == "NaN/-inf":
+            x.reshape(-1)[rng.integers(0, x.size, size=max(1, x.size // 50))] = np.nan
+            x[:, :, h // 2:, w // 2:] = -np.inf
+        xp = np.full((b, t, h + h % 2, w, -(-c // 16) * 16), -np.inf, np.float32)
+        xp[:, :, :h, :, :c] = x
+        want = from_view(s1_pool333_view_pallas(jnp.asarray(to_view(xp)), b, True), b)
+        got = pool_s1.pool333_fwd(_t(x))
+        assert pool_s1.pool333_fwd.launches == 0
+        np.testing.assert_array_equal(got.numpy(), want[:, :, :h, :, :c])  # NaN where NaN
 
     def test_autograd_op(self, rng):
         x = _tie_grid(rng, (2, 4, 6, 6, 8))
