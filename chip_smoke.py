@@ -20,11 +20,14 @@ which fails the run:
    and B4 also at Mixed_5c's branch pool, where the tiles are partial; B4,
    bit-equal, also at Mixed_3c's, 4b's and 4f's and at two odd geometries
    (partial tiles in every dimension; C = 40 and C = 13); B4 and B6 also on
-   integer tie grids, where they must be exact; B6, bit-equal, also at the
-   step's other strided pools (MaxPool3d_3a, the spatial half of 4a), the
-   single-video clip's three and three edge geometries (one window with the
-   pads in both axes, 3 window rows, the scalar channel tail), on random,
-   integer-tie and NaN/-inf grids; B3, bit-equal, at the step's nine branch
+   integer tie grids, where they must be exact; B5, B9 forward and B6,
+   bit-equal, also at the step's other strided pools (MaxPool3d_3a, the
+   spatial half of 4a), the single-video clip's three and six edge
+   geometries (one window with the pads in both axes, 3 window rows, the
+   scalar channel tail, W' = 1, H' = 17 in runs of window rows, C = 40 in
+   groups of channel vectors), on random, integer-tie and NaN/-inf grids
+   (B9 forward's y equal to B5's, its index equal, its null-index path
+   writing y alone); B3, bit-equal, at the step's nine branch
    pools, the single-video clip's three and four edge geometries (H, W of 1
    and across its 14-cell tile, T = 1 and 2, C = 13) on the same three
    grids; B2, bit-equal, at every distinct combine shape of the step); B7 in
@@ -54,8 +57,8 @@ which fails the run:
 5. timings with CUDA events (kernels, their plain versions, one library call
    where one computes the same function, the bound at the shapes; B1 also at
    the single-video clip's shape beside F.conv3d; B3 and B4 at all nine
-   branch-pool shapes, B2 at its 19 launches and B6 at the three strided
-   pools, each summed as one B=8 step beside its bound), the step
+   branch-pool shapes, B2 at its 19 launches and B5 and B6 at the three
+   strided pools, each summed as one B=8 step beside its bound), the step
    time of both configurations and with the pair at 2a and at 2a+3a, peak
    memory, the card's name and power limit;
 6. where the step's device time goes, by torch.profiler over 2 train steps:
@@ -409,17 +412,28 @@ def main() -> None:
             fail(f"{name} is not exact on the integer tie grid")
         del ties, dyi
 
-    # B6 at the step's three strided pools (MaxPool3d_2a, 3a, the spatial half
-    # of 4a: C = 480 is no multiple of a 64-channel group), the single-video
-    # clip's three (B*T' = 45: runs of window rows) and three edge geometries
+    def same(got, want):
+        """Bit-equal, NaN where NaN."""
+        nan = want.isnan()
+        return torch.equal(got.isnan(), nan) and torch.equal(got.masked_fill(nan, 0),
+                                                             want.masked_fill(nan, 0))
+
+    # B5, B9 forward and B6 at the step's three strided pools (MaxPool3d_2a,
+    # 3a, the spatial half of 4a: C = 480 is no multiple of a 64-channel
+    # group; 3a and 4a take two groups of channel vectors), the single-video
+    # clip's three (B*T' = 45: runs of window rows) and six edge geometries
     # (one window with the pads in both axes; 3 window rows; the scalar
-    # channel tail): bit-equal on random, integer-tie and NaN/-inf grids
+    # channel tail; W' = 1; H' = 17 in runs of 5; C = 40 over 112 window
+    # columns, split into groups): bit-equal on random, integer-tie and
+    # NaN/-inf grids (NaN where NaN); B9 forward's y equals B5's, its index
+    # the plain version's, and without an index it writes y alone
     b6_shapes = {"2a": shapes["B6"], "3a": (B, T // 2, th // 2, tw // 2, 192),
                  "4a spatial": (B, T // 2, th // 4, tw // 4, 480)}
     for key, shape6 in list(b6_shapes.items()):
         b6_shapes[f"{key} [1,{SV_FRAMES // 2},..]"] = (1, SV_FRAMES // 2, *shape6[2:])
     b6_shapes.update({"one window": (1, 3, 2, 2, 8), "3 rows": (2, 3, 6, 10, 40),
-                      "C=13": (2, 1, 4, 6, 13)})
+                      "C=13": (2, 1, 4, 6, 13), "W'=1": (2, 3, 10, 2, 8),
+                      "H'=17": (1, 1, 34, 8, 8), "C=40 groups": (1, 3, 8, 224, 40)})
     for block, shape6 in b6_shapes.items():
         pooled6 = (*shape6[:2], shape6[2] // 2, shape6[3] // 2, shape6[4])
         for dtype in (torch.bfloat16, torch.float32):
@@ -435,15 +449,29 @@ def main() -> None:
                     x6.view(-1)[spots] = float("nan")
                     x6[:, :, shape6[2] // 2:, shape6[3] // 2:] = float("-inf")
                 x6, dy6 = x6.to(dtype), dy6.to(dtype)
+                y5 = pool_strided.pool133_s2_fwd(x6)
+                y9, idx9 = pool_strided.pool133_s2_pair_fwd(x6)
+                canary = torch.full((y9.numel(),), 171, dtype=torch.uint8, device=dev)
+                y0, no_idx = pool_strided.pool133_s2_pair_fwd(x6, want_idx=False)
                 got = pool_strided.pool133_s2_bwd(x6, dy6)
                 torch.cuda.synchronize()
+                want_y, want_idx = pool_strided.pool133_s2_pair_fwd_plain(x6)
+                ok5 = same(y5, pool_strided.pool133_s2_fwd_plain(x6))
+                ok9 = (same(y9, want_y) and torch.equal(idx9, want_idx) and same(y9, y5)
+                       and no_idx is None and same(y0, y9) and bool((canary == 171).all()))
                 want = pool_strided.pool133_s2_bwd_plain(x6, dy6)
                 err, _ = compare(got, want)
-                print(f"[check] B6 {block} {list(shape6)} {str(dtype)[6:]:8s} {grid}: max_abs_err "
-                      f"{err:.3e} (tolerance 0)", flush=True)
+                print(f"[check] B5/B9f/B6 {block} {list(shape6)} {str(dtype)[6:]:8s} {grid}: B5 "
+                      f"{'bit-equal' if ok5 else 'DIFFERS'}; B9 forward y, index, y against B5, "
+                      f"null index {'equal' if ok9 else 'DIFFER'}; B6 max_abs_err {err:.3e} "
+                      f"(tolerance 0)", flush=True)
+                if not ok5:
+                    fail(f"B5 is not bit-equal to its plain version at {shape6} {dtype} ({grid})")
+                if not ok9:
+                    fail(f"B9 forward disagrees with its plain version at {shape6} {dtype} ({grid})")
                 if not torch.equal(got, want):
                     fail(f"B6 is not bit-equal to its plain version at {shape6} {dtype} ({grid})")
-                del x6, dy6, got, want
+                del x6, dy6, got, want, y5, y9, idx9, canary, y0, want_y, want_idx
 
     def nan_grid(shape):
         """An integer-tie grid with NaNs (one value in 1000) and a -inf block."""
@@ -453,12 +481,6 @@ def main() -> None:
         x.view(-1)[spots] = float("nan")
         x[:, :, shape[2] // 2:, shape[3] // 2:] = float("-inf")
         return x
-
-    def same(got, want):
-        """Bit-equal, NaN where NaN."""
-        nan = want.isnan()
-        return torch.equal(got.isnan(), nan) and torch.equal(got.masked_fill(nan, 0),
-                                                             want.masked_fill(nan, 0))
 
     # B3 at the nine branch pools of the step, the single-video clip's three
     # and edge geometries (H, W of 1 and across the 14-cell tile; T = 1, 2;
@@ -671,7 +693,7 @@ def main() -> None:
     inputs["runs"]["B9b"] = (lambda: pool_strided.pool133_s2_pair_bwd(idx5, dy5),
                              lambda: pool_strided.pool133_s2_pair_bwd_plain(idx5, dy5))
 
-    # B1..B5 at the single-video attack's shapes (B6's are above): B=1,
+    # B1..B4 at the single-video attack's shapes (B5's and B6's are above): B=1,
     # T=90 gives T' = 45 -> 23 -> 12 down the trunk, so B*T' is odd
     tp = SV_FRAMES // 2
     sv_part = {45: (1, 45, th // 2, tw // 2, 3 * 64),     # Conv3d_2c backward
@@ -701,10 +723,7 @@ def main() -> None:
                  lambda: pool_s1.pool333_fwd_plain(xs), dtype)
             hold(f"B4 T'={pshape[1]}", lambda: pool_s1.pool333_bwd(xs, dys),
                  lambda: pool_s1.pool333_bwd_plain(xs, dys), dtype)
-        x5s = drandn(1, tp, th, tw, 64, dtype=dtype)
-        hold("B5 [1,45,..]", lambda: pool_strided.pool133_s2_fwd(x5s),
-             lambda: pool_strided.pool133_s2_fwd_plain(x5s), dtype)
-        del x1s, pks, x5s, xs, dys, part_s, part4s
+        del x1s, pks, xs, dys, part_s, part4s
 
     # ---- 3. the full-width attack step through the engine -----------------------
     model = InceptionI3D(CLASSES, torch.bfloat16, device=dev)
@@ -970,18 +989,24 @@ def main() -> None:
           f"ms; it needs the forward's int64 indices (a read of 8 bytes an output) and routes "
           f"by another NaN rule", flush=True)
 
-    # B6 at the three strided pools of the step: one B=8 step's B6 time
-    sum6, bound6 = 0.0, 0.0
+    # B5 and B6 at the three strided pools of the step: one B=8 step's time
+    sum5, bound5, sum6, bound6 = 0.0, 0.0, 0.0, 0.0
     for block in ("2a", "3a", "4a spatial"):
         shape6 = b6_shapes[block]
         x6 = drandn(*shape6, dtype=torch.bfloat16)
         dy6 = drandn(*shape6[:2], shape6[2] // 2, shape6[3] // 2, shape6[4], dtype=torch.bfloat16)
+        ms5 = cuda_ms(torch, lambda: pool_strided.pool133_s2_fwd(x6))
+        b5 = (x6.numel() + dy6.numel()) * isz / PEAK_BYTES * 1e3
+        sum5, bound5 = sum5 + ms5, bound5 + b5
         ms6 = cuda_ms(torch, lambda: pool_strided.pool133_s2_bwd(x6, dy6))
         b6 = (2 * x6.numel() + dy6.numel()) * isz / PEAK_BYTES * 1e3
         sum6, bound6 = sum6 + ms6, bound6 + b6
-        print(f"[time] B6 MaxPool3d_{block} {list(shape6)}: {ms6:.4f} ms (bound {b6:.4f} ms, "
+        print(f"[time] B5 MaxPool3d_{block} {list(shape6)}: {ms5:.4f} ms (bound {b5:.4f} ms, "
+              f"bytes; {b5 / ms5:.1%} of it); B6 {ms6:.4f} ms (bound {b6:.4f} ms, "
               f"bytes; {b6 / ms6:.1%} of it)", flush=True)
         del x6, dy6
+    print(f"[time] B5 a B=8 step (the three strided pools, one launch each): {sum5:.4f} ms "
+          f"(bound {bound5:.4f} ms, bytes; {bound5 / sum5:.1%} of it)", flush=True)
     lib6 = next(row["library_ms"] for row in table if row["name"].split()[0] == "B6")
     print(f"[time] B6 a B=8 step (the three strided pools, one launch each): {sum6:.4f} ms "
           f"(bound {bound6:.4f} ms, bytes; {bound6 / sum6:.1%} of it); its library yardstick at "

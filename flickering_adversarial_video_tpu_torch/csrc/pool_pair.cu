@@ -16,9 +16,11 @@
 // The TPU kernel stored idx as bf16 because Mosaic lacks sub-word compares;
 // here it is one byte.  A null idx pointer (a forward that needs no gradient)
 // writes values only.  Bound on the H100: bytes (read x, write y = x/4 and one
-// byte an output).  Design: one thread per output, channels fastest, so a
-// warp's 9 loads are coalesced rows and the overlapping row and column come
-// from L1; the candidates stay in registers for the index scan.
+// byte an output).  Design: B5's H-marching full-width strip
+// (csrc/pool_s2_strip.cuh): two x rows a step staged by cp.async, separable
+// maxima on 16-byte channel vectors; then each of the thread's 8 (bf16) or 4
+// (f32) channels compares its 9 staged taps in f32 with y, and the thread
+// stores their index bytes as one 8- or 4-byte store.  W <= 1024.
 //
 // Backward:
 //   dx[n,h,w,c] = sum over the <=4 windows (a,b) that hold the cell of
@@ -32,44 +34,38 @@
 // cell are summed in f32 in ascending k and rounded once; the TPU kernel adds
 // in the cotangent dtype (:454-457).  Exact on f32 integer grids.
 
-#include "common.cuh"
+#include "pool_s2_strip.cuh"
 
 namespace {
 
+template <typename T, bool VEC, bool IDX>
+__global__ void __launch_bounds__(fav::strip::kMaxThreads)
+pool_pair_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, unsigned char* __restrict__ idx,
+                     int H, int W, int C, int nv, int groups, int rows, int runs) {
+  fav::strip::fwd<T, VEC, IDX>(x, y, idx, H, W, C, nv, groups, rows, runs);
+}
+
+template <typename T, bool VEC, bool IDX>
+int launch_fwd(const void* x, void* y, void* idx, int64_t N, int64_t H, int64_t W, int64_t C,
+               cudaStream_t s) {
+  if (N == 0 || H == 0 || C == 0) return 0;
+  const auto p = fav::strip::fwd_plan<pool_pair_fwd_kernel<T, VEC, IDX>, T>(N, H, W, C);
+  pool_pair_fwd_kernel<T, VEC, IDX><<<unsigned(p.blocks), p.threads, p.smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<unsigned char*>(idx), int(H),
+      int(W), int(C), p.nv, int(p.groups), int(p.rows), int(p.runs));
+  return int(cudaGetLastError());
+}
+
 template <typename T>
-__global__ void __launch_bounds__(fav::kThreads)
-pool_pair_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
-                     unsigned char* __restrict__ idx, int64_t n_out, int H, int W, int C) {
-  const int Ho = H / 2, Wo = W / 2;
-  for (int64_t i = fav::global_tid(); i < n_out; i += fav::grid_stride()) {
-    const int c = int(i % C);
-    int64_t r = i / C;
-    const int b = int(r % Wo);
-    r /= Wo;
-    const int a = int(r % Ho);
-    const int64_t nt = r / Ho;
-    const T* base = x + nt * H * int64_t(W) * C + c;
-    float cand[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const int h = 2 * a + k / 3, w = 2 * b + k % 3;
-      cand[k] = (h < H && w < W) ? fav::to_f(base[(int64_t(h) * W + w) * C]) : -INFINITY;
-    }
-    float m = cand[0];
-#pragma unroll
-    for (int k = 1; k < 9; ++k) {
-      if (cand[k] > m || cand[k] != cand[k]) m = cand[k];  // NaN sticks
-    }
-    y[i] = fav::from_f<T>(m);
-    if (idx != nullptr) {
-      int arg = 9;
-#pragma unroll
-      for (int k = 8; k >= 0; --k) {  // descending: the smallest matching k wins
-        if (cand[k] == m) arg = k;
-      }
-      idx[i] = static_cast<unsigned char>(arg);
-    }
-  }
+int launch_fwd(const void* x, void* y, void* idx, int64_t N, int64_t H, int64_t W, int64_t C,
+               cudaStream_t s) {
+  const bool vec = C % fav::kVec<T> == 0 && fav::aligned16(x) && fav::aligned16(y) &&
+                   (idx == nullptr || fav::aligned16(idx));
+  if (idx == nullptr)
+    return vec ? launch_fwd<T, true, false>(x, y, idx, N, H, W, C, s)
+               : launch_fwd<T, false, false>(x, y, idx, N, H, W, C, s);
+  return vec ? launch_fwd<T, true, true>(x, y, idx, N, H, W, C, s)
+             : launch_fwd<T, false, true>(x, y, idx, N, H, W, C, s);
 }
 
 template <typename T>
@@ -117,21 +113,11 @@ pool_pair_bwd_kernel(const unsigned char* __restrict__ idx, const T* __restrict_
 
 FAV_API int fav_pool_pair_fwd(const void* x, void* y, void* idx, int64_t N, int64_t H, int64_t W,
                               int64_t C, int dtype, void* stream) {
-  if ((H % 2) || (W % 2)) return int(cudaErrorInvalidValue);
-  const int64_t n = N * (H / 2) * (W / 2) * C;
+  if ((H % 2) || (W % 2) || W / 2 > fav::strip::kMaxThreads) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  unsigned char* ix = static_cast<unsigned char*>(idx);
-  if (dtype == fav::kBF16) {
-    pool_pair_fwd_kernel<__nv_bfloat16><<<fav::grid_for(n), fav::kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), ix, n, int(H),
-        int(W), int(C));
-  } else if (dtype == fav::kF32) {
-    pool_pair_fwd_kernel<float><<<fav::grid_for(n), fav::kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), ix, n, int(H), int(W), int(C));
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
-  return int(cudaGetLastError());
+  if (dtype == fav::kBF16) return launch_fwd<__nv_bfloat16>(x, y, idx, N, H, W, C, s);
+  if (dtype == fav::kF32) return launch_fwd<float>(x, y, idx, N, H, W, C, s);
+  return int(cudaErrorInvalidValue);
 }
 
 // idx, dy [N,Ho,Wo,C] -> dx [N,2Ho,2Wo,C]

@@ -14,9 +14,11 @@
 //   y[n,ho,wo,c] = max_{r in 2ho..2ho+2, s in 2wo..2wo+2, in range} x[n,r,s,c]
 //   (NaN if any of them is NaN, as jnp.maximum)
 //
-// Bound on the H100: bytes (read x once, write y = x/4).  Design: one thread
-// per output, channels fastest; the 9 loads of a warp are coalesced rows and
-// the overlapping row/column is shared through L1.
+// Bound on the H100: bytes (read x once, write y = x/4).  Design: the
+// H-marching full-width strip of csrc/pool_s2_strip.cuh (B9's forward runs
+// the same body): a block stages two x rows a step into a cp.async ring,
+// takes three-row then three-column maxima of 16-byte channel vectors with
+// max.NaN and stores one vector of y a thread and step.  W <= 1024.
 //
 // B6: the same pool's first-match backward, one pass.  Replaces the Pallas
 // kernel ops/pool_s2_view_pallas.py:246 s2_pool_view_bwd_pallas (`_bwd_kernel`
@@ -28,40 +30,38 @@
 // A cell, in up to 2x2 windows, sums their contributions in f32 in ascending
 // tap order and rounds once (the TPU kernel adds in the cotangent dtype):
 // bit-equal to the plain version, within bf16 rounding of the TPU kernel.
-// Bound by bytes (read x and dy, write dx).  Design: its own section below.
+// Bound by bytes (read x and dy, write dx).  Design: its own section below,
+// on the strip's launch geometry.
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "pool_s2_strip.cuh"
 
 namespace {
 
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(fav::strip::kMaxThreads)
+pool_s2_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, int C, int nv,
+                   int groups, int rows, int runs) {
+  fav::strip::fwd<T, VEC, false>(x, y, nullptr, H, W, C, nv, groups, rows, runs);
+}
+
+template <typename T, bool VEC>
+int launch_fwd(const void* x, void* y, int64_t N, int64_t H, int64_t W, int64_t C,
+               cudaStream_t s) {
+  if (N == 0 || H == 0 || C == 0) return 0;
+  const auto p = fav::strip::fwd_plan<pool_s2_fwd_kernel<T, VEC>, T>(N, H, W, C);
+  pool_s2_fwd_kernel<T, VEC><<<unsigned(p.blocks), p.threads, p.smem, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), int(H), int(W), int(C), p.nv,
+      int(p.groups), int(p.rows), int(p.runs));
+  return int(cudaGetLastError());
+}
+
 template <typename T>
-__global__ void __launch_bounds__(fav::kThreads)
-pool_s2_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n_out, int H, int W,
-                   int C) {
-  const int Ho = H / 2, Wo = W / 2;
-  for (int64_t i = fav::global_tid(); i < n_out; i += fav::grid_stride()) {
-    const int c = int(i % C);
-    int64_t r = i / C;
-    const int wo = int(r % Wo);
-    r /= Wo;
-    const int ho = int(r % Ho);
-    const int64_t nt = r / Ho;
-    const T* base = x + nt * H * int64_t(W) * C + c;
-    float m = -INFINITY;
-#pragma unroll
-    for (int dr = 0; dr < 3; ++dr) {
-      const int rr = 2 * ho + dr;
-      if (rr >= H) continue;  // the (0,1) pad
-#pragma unroll
-      for (int ds = 0; ds < 3; ++ds) {
-        const int ss = 2 * wo + ds;
-        if (ss < W) m = fav::fmax_nan(m, fav::to_f(base[(int64_t(rr) * W + ss) * C]));
-      }
-    }
-    y[i] = fav::from_f<T>(m);
-  }
+int launch_fwd(const void* x, void* y, int64_t N, int64_t H, int64_t W, int64_t C,
+               cudaStream_t s) {
+  const bool vec = C % fav::kVec<T> == 0 && fav::aligned16(x) && fav::aligned16(y);
+  return vec ? launch_fwd<T, true>(x, y, N, H, W, C, s) : launch_fwd<T, false>(x, y, N, H, W, C, s);
 }
 
 // ---- B6: the backward -------------------------------------------------------
@@ -93,9 +93,9 @@ namespace b6 {
 
 using namespace fav;  // the 16-byte channel vectors of common.cuh
 
+using strip::kMaxThreads;
+
 constexpr int kSlots = 3;
-constexpr int kMaxThreads = 512;    // wo x cv; full width needs W/2 <= kMaxThreads
-constexpr int kMinRows = 4;         // the fewest window rows of a run
 
 // code 15, no window, in every channel
 template <typename T>
@@ -270,45 +270,23 @@ pool_s2_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restr
   }
 }
 
-// Resident blocks of one launch configuration on the whole card.
-template <typename T, bool VEC>
-int64_t wave(int threads, size_t smem) {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(pool_s2_bwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         int(smem_bytes(2 * kMaxThreads, 1)));  // W * nv <= 2 * kMaxThreads
-    return n;
-  }();
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pool_s2_bwd_kernel<T, VEC>, threads, smem);
-  return int64_t(std::max(per_sm, 1)) * sms;
-}
-
 template <typename T, bool VEC>
 int launch(const void* x, const void* dy, void* dx, int64_t N_, int64_t H, int64_t W, int64_t C,
            cudaStream_t s) {
   const int64_t Ho = H / 2, Wo = W / 2;
   if (N_ == 0 || Ho == 0 || C == 0) return 0;
-  // channel vectors a block: as many as kMaxThreads threads hold, split evenly
-  const int64_t n_cv = (C + kVec<T> - 1) / kVec<T>, nv_max = kMaxThreads / Wo;
-  const int64_t groups = (n_cv + nv_max - 1) / nv_max;
-  const int nv = int((n_cv + groups - 1) / groups);
-  const int threads = nv * int(Wo);
-  const size_t smem = smem_bytes(int(W), nv);
-  const int64_t tiles = N_ * groups;
-  const int64_t per_wave = wave<T, VEC>(threads, smem);
-  // the split into runs of window rows that minimises waves x steps a block
-  int64_t runs = 1, rows = Ho, best = INT64_MAX;
-  for (int64_t r = 1; r <= std::max<int64_t>(1, Ho / kMinRows); ++r) {
-    const int64_t rr = (Ho + r - 1) / r, n_runs = (Ho + rr - 1) / rr;
-    const int64_t cost = (tiles * n_runs + per_wave - 1) / per_wave * (rr + (n_runs > 1));
-    if (cost < best) best = cost, runs = n_runs, rows = rr;
-  }
+  const strip::Groups gr = strip::channel_groups(C, kVec<T>, Wo);
+  const int threads = gr.nv * int(Wo);
+  const size_t smem = smem_bytes(int(W), gr.nv);
+  const int64_t tiles = N_ * gr.groups;
+  const int64_t per_wave =
+      strip::wave<pool_s2_bwd_kernel<T, VEC>>(threads, smem, smem_bytes(2 * kMaxThreads, 1));
+  // a later run starts one window row early: one step more
+  int64_t rows, runs;
+  strip::choose_runs(tiles, Ho, per_wave, 2, &rows, &runs);
   pool_s2_bwd_kernel<T, VEC><<<unsigned(tiles * runs), threads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), int(H), int(W),
-      int(C), nv, int(groups), int(rows), int(runs));
+      int(C), gr.nv, int(gr.groups), int(rows), int(runs));
   return int(cudaGetLastError());
 }
 
@@ -325,20 +303,11 @@ int launch_bwd(const void* x, const void* dy, void* dx, int64_t N_, int64_t H, i
 
 FAV_API int fav_pool_s2_fwd(const void* x, void* y, int64_t N, int64_t H, int64_t W, int64_t C,
                             int dtype, void* stream) {
-  if ((H % 2) || (W % 2)) return int(cudaErrorInvalidValue);
-  const int64_t n = N * (H / 2) * (W / 2) * C;
+  if ((H % 2) || (W % 2) || W / 2 > fav::strip::kMaxThreads) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == fav::kBF16) {
-    pool_s2_fwd_kernel<__nv_bfloat16><<<fav::grid_for(n), fav::kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), n, int(H), int(W),
-        int(C));
-  } else if (dtype == fav::kF32) {
-    pool_s2_fwd_kernel<float><<<fav::grid_for(n), fav::kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<float*>(y), n, int(H), int(W), int(C));
-  } else {
-    return int(cudaErrorInvalidValue);
-  }
-  return int(cudaGetLastError());
+  if (dtype == fav::kBF16) return launch_fwd<__nv_bfloat16>(x, y, N, H, W, C, s);
+  if (dtype == fav::kF32) return launch_fwd<float>(x, y, N, H, W, C, s);
+  return int(cudaErrorInvalidValue);
 }
 
 FAV_API int fav_pool_s2_bwd(const void* x, const void* dy, void* dx, int64_t N, int64_t H,

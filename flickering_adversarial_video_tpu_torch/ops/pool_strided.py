@@ -6,11 +6,12 @@ MaxPool3d_3a and the spatial half of MaxPool3d_4a.
 
 * B5 ``pool133_s2_fwd`` replaces the Pallas ``_strided_fwd_kernel``
   (``ops/pallas_pool.py:206``) as ``strided_pool_view`` launches it (:754);
-  CUDA source ``csrc/pool_strided.cu``.  Bound by bytes on the H100.  The
-  same function in the TPU's other layouts, which the port's b-major NDHWC
-  makes one: ``strided_spatial_pool_conv`` (``ops/pallas_pool.py:263``, the
-  same kernel body) and ``spatial_pool_132`` (:742, kernel :50); their
-  backward is XLA's select-and-scatter, which is B6's rule.
+  CUDA source ``csrc/pool_strided.cu``, its body shared with B9's forward in
+  ``csrc/pool_s2_strip.cuh``.  Bound by bytes on the H100.  The same function
+  in the TPU's other layouts, which the port's b-major NDHWC makes one:
+  ``strided_spatial_pool_conv`` (``ops/pallas_pool.py:263``, the same kernel
+  body) and ``spatial_pool_132`` (:742, kernel :50); their backward is XLA's
+  select-and-scatter, which is B6's rule.
 * B6 ``pool133_s2_bwd`` is the backward: a window's cotangent goes where
   the XLA select-and-scatter (GE) the JAX package runs here (:796-827) sends
   it, its first maximal element in H-then-W raster order on NaN-free data.
@@ -20,8 +21,7 @@ MaxPool3d_3a and the spatial half of MaxPool3d_4a.
   window holding a NaN, where the Pallas kernel routes nothing; the port
   follows select-and-scatter.  Bound by bytes.  A cell's up to four window
   contributions are summed in f32 in ascending tap order and rounded once,
-  in the kernel and in its plain version, so the two are bit-equal.  The
-  kernel marches a block down H over a frame's full width (W <= 1024).
+  in the kernel and in its plain version, so the two are bit-equal.
 * B9 ``pool133_s2_pair_fwd`` / ``pool133_s2_pair_bwd`` replace the Pallas pair
   ``strided_spatial_pool_pair`` (``ops/pallas_pool.py:474``; ``_pair_fwd_kernel``
   :397, ``_pair_bwd_kernel`` :429): the forward also stores each window's
@@ -29,8 +29,12 @@ MaxPool3d_3a and the spatial half of MaxPool3d_4a.
   the value, i.e. NaN), and the backward routes dy by that index alone, so
   the autograd op ``max_pool_133_s2_pair`` saves the index and never x.  CUDA
   source ``csrc/pool_pair.cu``; both bound by bytes.  The same f32 sum, one
-  rounding, as B6 (the TPU kernel adds in the cotangent dtype).  No geometry
-  limit beyond even H and W.
+  rounding, as B6 (the TPU kernel adds in the cotangent dtype).
+
+B5, B6 and B9's forward march a block down H over a frame's full width, a
+thread a window column and 16-byte channel vector, so they take a width up
+to 1024 (the wrappers raise above it; B1 limits the clip to 256).  B9's
+backward, a gather without x, has no limit beyond even H and W.
 """
 
 from __future__ import annotations
@@ -65,6 +69,14 @@ def pool133_s2_bwd_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return pool133_s2_pair_bwd_plain(idx, dy)
 
 
+MAX_WIDTH = 1024  # the strip kernels' full-width rows: W/2 threads a channel vector
+
+
+def _check_width(w: int, kernel: str) -> None:
+    if w > MAX_WIDTH:
+        raise ValueError(f"the {kernel} kernel takes a width up to {MAX_WIDTH}; got {w}")
+
+
 def pool133_s2_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """B6: dx of the pool from x and dy."""
     if not x.is_cuda:
@@ -72,8 +84,7 @@ def pool133_s2_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     b, t, h, w, c = x.shape
     if dy.shape != (b, t, h // 2, w // 2, c):
         raise ValueError(f"dy {tuple(dy.shape)} does not match x {tuple(x.shape)}")
-    if w > 1024:
-        raise ValueError(f"the B6 kernel takes a width up to 1024; got {w}")
+    _check_width(w, "B6")
     code = kernels.check(x, dy)
     dx = torch.empty_like(x, dtype=dy.dtype)
     kernels.launch(
@@ -91,6 +102,7 @@ def pool133_s2_fwd(x: torch.Tensor) -> torch.Tensor:
     """B5: y[b,t,ho,wo,c] = max of rows 2ho..2ho+2, cols 2wo..2wo+2 in range."""
     if x.dim() != 5 or x.shape[2] % 2 or x.shape[3] % 2:
         raise ValueError(f"expected NDHWC with even H, W; got {tuple(x.shape)}")
+    _check_width(x.shape[3], "B5")
     if not x.is_cuda:
         return pool133_s2_fwd_plain(x)
     b, t, h, w, c = x.shape
@@ -171,6 +183,7 @@ def pool133_s2_pair_fwd(
     kernel then writes values only)."""
     if x.dim() != 5 or x.shape[2] % 2 or x.shape[3] % 2:
         raise ValueError(f"expected NDHWC with even H, W; got {tuple(x.shape)}")
+    _check_width(x.shape[3], "B9 forward")
     if not x.is_cuda:
         return pool133_s2_pair_fwd_plain(x, want_idx)
     b, t, h, w, c = x.shape

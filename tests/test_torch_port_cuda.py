@@ -194,6 +194,53 @@ class TestKernelsOnCard:
             )
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [
+        (1, 3, 2, 2, 8),       # one window: the pads in both axes
+        (2, 3, 6, 10, 40),     # 3 window rows, 5 columns
+        (2, 1, 4, 6, 13),      # C takes the scalar tail
+        (2, 3, 10, 2, 8),      # W' = 1
+        (1, 1, 34, 8, 8),      # H' = 17 in runs of 5 window rows
+        (1, 3, 8, 224, 40),    # C = 40 over 112 window columns: 2 (bf16) or 3 (f32) groups
+        (1, 4, 28, 28, 480),   # 4a's plane: two channel groups of 30 vectors (bf16)
+        (1, 2, 56, 56, 192),   # 3a's plane: two channel groups of 12 vectors (bf16)
+        (1, 3, 40, 112, 64),   # 2a's width; runs of window rows at B*T = 3
+    ])
+    def test_pool_s2_forward_b5_b9_bit_equal(self, dtype, shape):
+        """B5 and B9's forward are bit-equal to their plain versions (NaN
+        where NaN) on random values, an integer tie grid and a tie grid with
+        NaNs and a -inf block: B9's y equals B5's, its index the plain
+        version's, and without an index it writes y alone."""
+        gen = torch.Generator().manual_seed(8)
+        b, t, h, w, c = shape
+        nan = torch.randint(0, 3, shape, generator=gen).float()
+        spots = torch.randint(0, nan.numel(), (max(1, nan.numel() // 64),), generator=gen)
+        nan.view(-1)[spots] = float("nan")
+        nan[:, :, h // 2:, w // 2:] = float("-inf")
+        for x in (torch.randn(shape, generator=gen), torch.randint(0, 3, shape, generator=gen).float(),
+                  nan):
+            x = x.to(dtype)
+            want_y, want_idx = pool_strided.pool133_s2_pair_fwd_plain(x)
+            y5 = pool_strided.pool133_s2_fwd(x.cuda())
+            y9, idx = pool_strided.pool133_s2_pair_fwd(x.cuda())
+            y0, none = pool_strided.pool133_s2_pair_fwd(x.cuda(), want_idx=False)
+            assert none is None
+            np.testing.assert_array_equal(
+                pool_strided.pool133_s2_fwd_plain(x).float().numpy(), want_y.float().numpy())
+            for y in (y5, y9, y0):
+                np.testing.assert_array_equal(y.float().cpu().numpy(), want_y.float().numpy())
+            np.testing.assert_array_equal(idx.cpu().numpy(), want_idx.numpy())
+
+    def test_pool_s2_forward_width_limit(self):
+        """The strip kernels take a width up to 1024 and raise above it."""
+        x = torch.zeros(1, 1, 2, 1026, 8, device="cuda")
+        with pytest.raises(ValueError, match="width up to 1024"):
+            pool_strided.pool133_s2_fwd(x)
+        with pytest.raises(ValueError, match="width up to 1024"):
+            pool_strided.pool133_s2_pair_fwd(x)
+        y = pool_strided.pool133_s2_fwd(x[:, :, :, :1024].contiguous())
+        assert y.shape == (1, 1, 1, 512, 8) and torch.equal(y, torch.zeros_like(y))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_nan_rule(self, dtype):
         """A NaN and a -inf block: each kernel equals its plain version, NaN
         positions, values and routed gradients (B4 and B6 route by equality

@@ -245,7 +245,45 @@ class TestPoolS1B3B4:
         np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
 
 
+# the edge geometries of the strip kernels of B5, B6 and B9's forward: one
+# window with the pads in both axes; 3 window rows; the scalar channel tail;
+# W' = 1; H' = 17 (runs of window rows); C = 40 over 112 window columns
+# (split into groups of channel vectors)
+STRIP_EDGE_GEOMS = [(1, 3, 2, 2, 8), (2, 3, 6, 10, 40), (2, 1, 4, 6, 13), (2, 3, 10, 2, 8),
+                    (1, 1, 34, 8, 8), (1, 3, 8, 224, 40)]
+
+
+def _spotted_nan_grid(rng, shape):
+    """A tie grid with NaNs (one value in 50) and -inf over the lower-right
+    quarter of every frame."""
+    x = _tie_grid(rng, shape)
+    x.reshape(-1)[rng.integers(0, x.size, max(1, x.size // 50))] = np.nan
+    x[:, :, shape[2] // 2:, shape[3] // 2:] = -np.inf
+    return x
+
+
 class TestPoolStridedB5:
+    @pytest.mark.parametrize("grid", ["ties", "NaN/-inf"])
+    @pytest.mark.parametrize("geom", STRIP_EDGE_GEOMS)
+    def test_b5_edges_match_pallas_interpret(self, rng, geom, grid):
+        """B5's plain version and its wrapper on a CPU tensor against the
+        Pallas forward of ``strided_pool_view`` in interpret mode, at the
+        edge geometries the card tests hold the CUDA kernel at: values and
+        NaN positions equal."""
+        b = geom[0]
+        x = _tie_grid(rng, geom) if grid == "ties" else _spotted_nan_grid(rng, geom)
+        want = from_view(jst.strided_pool_view(jnp.asarray(to_view(x)), True), b)
+        np.testing.assert_array_equal(pool_strided.pool133_s2_fwd_plain(_t(x)).numpy(), want)
+        np.testing.assert_array_equal(pool_strided.pool133_s2_fwd(_t(x)).numpy(), want)
+        assert pool_strided.pool133_s2_fwd.launches == 0
+
+    def test_width_limit(self):
+        """The strip kernels take a width up to 1024: B5's wrapper raises
+        above it, on any device, with B6's message."""
+        with pytest.raises(ValueError, match="the B5 kernel takes a width up to 1024; got 1026"):
+            pool_strided.pool133_s2_fwd(torch.zeros(1, 1, 2, 1026, 1))
+        assert pool_strided.pool133_s2_fwd(torch.zeros(1, 1, 2, 1024, 1)).shape == (1, 1, 1, 512, 1)
+
     @pytest.mark.parametrize("geom", [(2, 4, 8, 8, 16), (2, 2, 14, 6, 8), (1, 3, 4, 4, 4)])
     def test_values_and_select_and_scatter_ties(self, rng, geom):
         b = geom[0]

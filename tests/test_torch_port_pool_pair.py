@@ -91,6 +91,34 @@ class TestPairB9:
             pool_strided.pool133_s2_bwd(_t(x), _t(dyi)).numpy(),
         )
 
+    @pytest.mark.parametrize("grid", ["random", "ties", "NaN/-inf"])
+    @pytest.mark.parametrize("shape", [
+        (1, 3, 2, 2, 8),     # one window: the pads in both axes
+        (2, 3, 6, 10, 40),   # 3 window rows
+        (2, 1, 4, 6, 13),    # the scalar channel tail
+        (2, 3, 10, 2, 8),    # W' = 1
+        (1, 1, 34, 8, 8),    # H' = 17: runs of window rows
+        (1, 3, 8, 224, 40),  # C = 40 over 112 window columns: groups of channel vectors
+    ])
+    def test_strip_edges_equal_pallas_interpret(self, rng, shape, grid):
+        """The forward's plain version (the CUDA kernel's reference on the
+        card) against the Pallas pair in interpret mode at the edge
+        geometries of the strip kernel: values and NaN positions equal, the
+        index equal everywhere (9 where the value is NaN)."""
+        x = _grid(rng, shape, grid != "random")
+        if grid == "NaN/-inf":
+            x.reshape(-1)[rng.integers(0, x.size, max(1, x.size // 50))] = np.nan
+            x[:, :, shape[2] // 2:, shape[3] // 2:] = -np.inf
+        want_y, want_idx = jpp._pair_fwd_impl(jnp.asarray(x), True)
+        want_idx = _unview_idx(want_idx, shape[0], shape[4])
+        for y, idx in (pool_strided.pool133_s2_pair_fwd_plain(_t(x)),
+                       pool_strided.pool133_s2_pair_fwd(_t(x))):
+            np.testing.assert_array_equal(y.numpy(), np.asarray(want_y))
+            np.testing.assert_array_equal(idx.numpy(), want_idx)
+        assert pool_strided.pool133_s2_pair_fwd.launches == 0
+        if grid == "NaN/-inf":
+            assert (np.isnan(np.asarray(want_y)) == (want_idx == 9)).all()
+
     def test_first_match_wins_and_edges(self):
         """A constant grid ties every candidate: k = 0 everywhere.  On a grid
         rising along W then H the last in-range tap wins: 8 inside, 7 / 5 / 4
@@ -148,6 +176,9 @@ class TestPairB9:
     def test_operand_checks(self):
         with pytest.raises(ValueError):
             pool_strided.pool133_s2_pair_fwd(torch.zeros(1, 2, 5, 4, 3))
+        # the strip kernel's width limit, with B6's message
+        with pytest.raises(ValueError, match="the B9 forward kernel takes a width up to 1024"):
+            pool_strided.pool133_s2_pair_fwd(torch.zeros(1, 1, 2, 1026, 1))
         with pytest.raises(ValueError):
             pool_strided.pool133_s2_pair_bwd(torch.zeros(1, 2, 2, 2, 3), torch.zeros(1, 2, 2, 2, 3))
         with pytest.raises(ValueError):
