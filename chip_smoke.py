@@ -27,7 +27,8 @@ which fails the run:
    scalar channel tail, W' = 1, H' = 17 in runs of window rows, C = 40 in
    groups of channel vectors), on random, integer-tie and NaN/-inf grids
    (B9 forward's y equal to B5's, its index equal, its null-index path
-   writing y alone); B3, bit-equal, at the step's nine branch
+   writing y alone; B9 backward equal to its plain version on that index
+   and, where no window holds a NaN, to B6); B3, bit-equal, at the step's nine branch
    pools, the single-video clip's three and four edge geometries (H, W of 1
    and across its 14-cell tile, T = 1 and 2, C = 13) on the same three
    grids; B2, bit-equal, at every distinct combine shape of the step); B7 in
@@ -45,12 +46,20 @@ which fails the run:
    112, 56, 100, 128; an odd H'; T' = 1); and B1, B3..B6 on a grid holding a
    NaN and a -inf block, where NaN positions and the other values (and the
    routed gradients) must equal the plain versions;
-3. the attack step: launch counts of every kernel (reset just before, read
-   just after) must equal the per-step counts (train step: B1 1, B2 19, B3 9,
-   B4 9, B5 3, B6 3, B7 1; eval step: B1 2, B3 18, B5 6, B7 2), losses finite,
-   delta moved; then the same step with MaxPool3d_2a on the index pair (B5 2,
-   B6 2, B9 forward 1, B9 backward 1; eval: B5 4, B9 forward 2 with no
-   index), first loss and first d(delta) beside the default engine's;
+3. the attack step, a CUDA graph replayed a step (the eval step eager),
+   from a new engine, its first call's warm-up and capture included, under
+   torch.profiler: launch counts of every kernel (reset just before, read
+   just after), as the wrappers count them (a capture's once, added a
+   replay) and as the device ran them (by kernel name in the trace: the
+   warm-up's steps and the replays), must equal the per-step counts (train
+   step: B1 1, B2 19, B3 9, B4 9, B5 3, B6 3, B7 1; eval step: B1 2, B3 18,
+   B5 6, B7 2), losses finite, delta moved; then the same step with
+   MaxPool3d_2a on the index pair (B5 2, B6 2, B9 forward 1, B9 backward 1;
+   eval: B5 4, B9 forward 2 with no index), first loss and first d(delta)
+   beside the default engine's; then 3 graphed steps against 3 eager steps
+   from init_state, bit for bit (delta, mu, nu, every metric), and the
+   graphed run's launch counts, at B=8 default, with the pair, with
+   USE_PALLAS_FUSED and at B=1, T=90 on a float32 clip (B2 20, no B7);
 4. the same engine at a small geometry in f32, in both configurations,
    against the plain versions on the CPU: loss and delta trajectory to
    tolerance;
@@ -59,19 +68,24 @@ which fails the run:
    the single-video clip's shape beside F.conv3d; B3 and B4 at all nine
    branch-pool shapes, B2 at its 19 launches and B5 and B6 at the three
    strided pools, each summed as one B=8 step beside its bound), the step
-   time of both configurations and with the pair at 2a and at 2a+3a, peak
-   memory, the card's name and power limit;
-6. where the step's device time goes, by torch.profiler over 2 train steps:
-   by group, each of the port's kernels a step with its share (B1's among
-   them), the slowest kernels;
+   time eager and graphed (in turns; and 10 replays a call) at B=8 and at
+   B=1, T=90 on a float32 clip, graphed with USE_PALLAS_FUSED and with the
+   pair at 2a and at 2a+3a, the eager peak memory and each graph's pool and
+   capture time, the card's name and power limit;
+6. where the step's device time goes, by torch.profiler over 2 train steps,
+   graphed and eager, at B=8 and at B=1, T=90: by group, each of the port's
+   kernels a step with its share (B1's among them), the slowest kernels, and
+   the kernel time a step of the two beside each other;
 7. the runner, default configuration (host-packed input; B7 then B1): 2
    shards x 8 records written with the port's own TFRecordWriter, labelled
    with the seeded model's clean prediction; ``configs/run_config.yml``
    loaded unchanged, only paths, BATCH_SIZE, NUM_OF_*_TF_RECORDS and
    MAX_NUM_STEP overridden; 12 steps, then a resume to 16; exact launch
    counts, finite losses, res.pkl and checkpoints on disk, steps/s by the
-   loop's own timer; then the 12 steps again under torch.profiler for the
-   device's busy share, over the whole run and over the steps alone (by the
+   loop's own timer, with and without the first step (which captures the
+   step graph); the 12 steps with the train step eager (the control); then
+   the 12 steps again under torch.profiler for the device's launch counts
+   and busy share, over the whole run and over the steps alone (by the
    loop's spans, its evals taken out);
 8. the runner with USE_PALLAS_FUSED: True (unpacked uint8; B8 forward and
    backward, the stem with an input gradient), 4 steps on the same shards;
@@ -88,13 +102,14 @@ which fails the run:
    histories of total_steps + 1 entries; exact launch counts per step and per
    clean forward (float path: B1 1, B2 20, B3 9, B4 9, B5 3, B6 3, or B5 2,
    B6 2, B9 1 + 1 with the pair; no B7, no B8); the two configurations' first
-   losses agree; steps/s by the loop's timer beside the chained step;
+   losses agree; steps/s by the loop's timer beside phase 5's graphed step;
 10. the class-gen runner on phase 7's shards: one epoch (2 batches), then a
    resume into a second; epoch-end checkpoints, res.pkl keys, launch counts
    as the default universal configuration's; one ``InferenceModel`` call,
    clean and adversarial, against ``engine.forward``.
 
-Prints the kernel table as one JSON line, then as the last line
+Prints the kernel table as one JSON line (a kernel's launches: those that ran
+on the device in phase 3's traced run of its path), then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
 """
@@ -113,6 +128,7 @@ import sys
 import tempfile
 import time
 from collections import defaultdict
+from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -123,6 +139,12 @@ PROFILE_STEPS = 2
 # kernel names of cuDNN / cuBLAS / CUTLASS convolutions and matrix products
 CONV_MARKS = ("conv", "cudnn", "xmma", "gemm", "sm90", "cutlass", "dgrad", "wgrad", "implicit")
 NAMES = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8f", "B8b", "B9f", "B9b")
+# the C launcher each wrapper calls (ops/kernels.py KERNEL_SYMBOLS names the
+# kernels each starts)
+LAUNCHERS = dict(zip(NAMES, (
+    "fav_stem_conv_bn_relu", "fav_temporal_combine", "fav_pool_s1_fwd", "fav_pool_s1_bwd",
+    "fav_pool_s2_fwd", "fav_pool_s2_bwd", "fav_emit_adv_mask", "fav_fused_apply_fwd",
+    "fav_fused_apply_bwd", "fav_pool_pair_fwd", "fav_pool_pair_bwd")))
 # launches per step; the default configuration (packed input head) ...
 TRAIN_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 3, 3, 1, 0, 0, 0, 0)))
 EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 2, 0, 0, 0, 0)))
@@ -217,14 +239,16 @@ def loop_share(prof, eval_span: str, spans):
     the final one, less the evals between.  A kernel belongs to the steps when
     its launch call lies in that time (a step's kernels may still run while
     the host has gone on, so the launch decides and not the execution); copies
-    are left out.  None when the trace holds no evals or no launch records."""
+    are left out.  A graph replay's kernels belong to its cudaGraphLaunch.
+    None when the trace holds no evals or no launch records."""
     from torch.autograd import DeviceType
 
     events = prof.events()
     evals = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.name == eval_span and e.device_type == DeviceType.CPU)
     launched = {e.id: e.time_range.start for e in events
-                if e.device_type == DeviceType.CPU and e.name.startswith(("cudaLaunch", "cuLaunch"))}
+                if e.device_type == DeviceType.CPU and e.name.startswith(
+                    ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch"))}
     if len(evals) < 2 or not launched:
         return None
     lo, hi, inner = evals[0][1], evals[-1][0], evals[1:-1]
@@ -242,8 +266,35 @@ def loop_share(prof, eval_span: str, spans):
     return kernel_us / 1e3, wall_us / 1e3, unmatched
 
 
+def graph_stats(engine) -> str:
+    """The engine's step graphs: clip shape, pool GB, warm-up and capture s."""
+    return "; ".join(f"graph of clip {list(key[0])}: pool {st['pool_bytes'] / 1e9:.3f} GB, "
+                     f"warm-up and capture {st['capture_s']:.2f} s"
+                     for key, st in engine.graph_stats().items())
+
+
 def read_counts(ops) -> dict:
     return {name.split()[0]: n for name, n in ops.launch_counts().items()}
+
+
+def device_launches(prof, kernels) -> dict:
+    """Each wrapper's kernel launches that ran on the device in a
+    torch.profiler trace, by kernel name: a graph replay's kernels are events
+    like an eager launch's.  A launch of B8's backward starts two kernels and
+    is counted by its final one."""
+    rows = kernel_rows(prof)
+    out = {}
+    for name, launcher in LAUNCHERS.items():
+        marks = kernels.KERNEL_SYMBOLS[launcher]
+        if name == "B8b":
+            marks = ("fused_apply_bwd_final_kernel",)
+        out[name] = int(sum(n for _, n, key in rows if any(m in key for m in marks)))
+    return out
+
+
+def scaled(counts: dict, k: int, plus: dict = None) -> dict:
+    """k * counts (+ plus), by kernel."""
+    return {name: k * counts[name] + (plus[name] if plus else 0) for name in NAMES}
 
 
 def main() -> None:
@@ -260,7 +311,8 @@ def main() -> None:
             TFRecordWriter, make_uint8_example, pack_video_np)
         from flickering_adversarial_video_tpu_torch.engine import (
             AttackConfig, AttackEngine, RuntimeFlags)
-        from flickering_adversarial_video_tpu_torch.engine import loops
+        from flickering_adversarial_video_tpu_torch.engine import attack_step, loops
+        from flickering_adversarial_video_tpu_torch.engine.step_graph import WARMUP_STEPS
         from flickering_adversarial_video_tpu_torch.data.npy import save_npy_clip
         from flickering_adversarial_video_tpu_torch.engine.checkpoint import AttackCheckpointer
         from flickering_adversarial_video_tpu_torch.engine.inference import InferenceModel
@@ -272,6 +324,7 @@ def main() -> None:
             class_gen, common, single_video, universal)
         from flickering_adversarial_video_tpu_torch.utils.config import load_config
         from flickering_adversarial_video_tpu_torch.viz.results import load_result
+        from torch.profiler import ProfilerActivity, profile
     except ImportError as e:
         fail(f"the port is not importable next to this script ({e})")
     if not torch.cuda.is_available():
@@ -454,6 +507,7 @@ def main() -> None:
                 canary = torch.full((y9.numel(),), 171, dtype=torch.uint8, device=dev)
                 y0, no_idx = pool_strided.pool133_s2_pair_fwd(x6, want_idx=False)
                 got = pool_strided.pool133_s2_bwd(x6, dy6)
+                dx9 = pool_strided.pool133_s2_pair_bwd(idx9, dy6)
                 torch.cuda.synchronize()
                 want_y, want_idx = pool_strided.pool133_s2_pair_fwd_plain(x6)
                 ok5 = same(y5, pool_strided.pool133_s2_fwd_plain(x6))
@@ -461,17 +515,25 @@ def main() -> None:
                        and no_idx is None and same(y0, y9) and bool((canary == 171).all()))
                 want = pool_strided.pool133_s2_bwd_plain(x6, dy6)
                 err, _ = compare(got, want)
-                print(f"[check] B5/B9f/B6 {block} {list(shape6)} {str(dtype)[6:]:8s} {grid}: B5 "
+                # B9's backward against its plain version on the same index,
+                # and against B6 where no window holds a NaN (B6 routes one by
+                # select-and-scatter, B9 not at all)
+                ok9b = (same(dx9, pool_strided.pool133_s2_pair_bwd_plain(want_idx, dy6))
+                        and (grid == "NaN/-inf" or torch.equal(dx9, got)))
+                print(f"[check] B5/B9/B6 {block} {list(shape6)} {str(dtype)[6:]:8s} {grid}: B5 "
                       f"{'bit-equal' if ok5 else 'DIFFERS'}; B9 forward y, index, y against B5, "
-                      f"null index {'equal' if ok9 else 'DIFFER'}; B6 max_abs_err {err:.3e} "
-                      f"(tolerance 0)", flush=True)
+                      f"null index {'equal' if ok9 else 'DIFFER'}; B6 max_abs_err {err:.3e}; B9 "
+                      f"backward {'bit-equal' if ok9b else 'DIFFERS'} (tolerance 0)", flush=True)
                 if not ok5:
                     fail(f"B5 is not bit-equal to its plain version at {shape6} {dtype} ({grid})")
                 if not ok9:
                     fail(f"B9 forward disagrees with its plain version at {shape6} {dtype} ({grid})")
                 if not torch.equal(got, want):
                     fail(f"B6 is not bit-equal to its plain version at {shape6} {dtype} ({grid})")
-                del x6, dy6, got, want, y5, y9, idx9, canary, y0, want_y, want_idx
+                if not ok9b:
+                    fail(f"B9 backward disagrees with its plain version or B6 at {shape6} {dtype} "
+                         f"({grid})")
+                del x6, dy6, got, want, y5, y9, idx9, canary, y0, want_y, want_idx, dx9
 
     def nan_grid(shape):
         """An integer-tie grid with NaNs (one value in 1000) and a -inf block."""
@@ -735,23 +797,39 @@ def main() -> None:
         "labels": torch.from_numpy(rng.integers(0, CLASSES, (B,))).to(dev),
     }
     flags = RuntimeFlags()
-    engine.train_steps(engine.init_state(), batch, flags, 1)  # warm-up (cuDNN plans)
-    torch.cuda.synchronize()
+
+    def traced(run):
+        """`run()` with every launch count set to 0 just before and read just
+        after, under torch.profiler: (its result, the wrappers' counts, the
+        launches of each wrapper's kernels that ran on the device)."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        return out, read_counts(ops), device_launches(prof, kernels)
+
+    def main_path():
+        state = engine.train_steps(engine.init_state(), batch, flags, STEPS)
+        state, metrics = engine.train_step(state, batch, flags)
+        return state, metrics, engine.eval_step(state.delta, batch, flags)
+
+    # the main path from a new engine, the first call's warm-up and capture
+    # included: the wrappers count a capture's launches once and each replay
+    # adds them (the step's counts); the device also ran the warm-up's steps
     torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    state = engine.train_steps(engine.init_state(), batch, flags, STEPS)
-    state, metrics = engine.train_step(state, batch, flags)
-    ev = engine.eval_step(state.delta, batch, flags)
-    torch.cuda.synchronize()
+    (state, metrics, ev), counts, main_device = traced(main_path)
     main_s = time.perf_counter() - t0
-    counts = read_counts(ops)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_train = STEPS + 1
-    want = {k: n_train * TRAIN_COUNTS[k] + EVAL_COUNTS[k] for k in TRAIN_COUNTS}
-    print(f"[slice] {n_train} train steps + 1 eval step in {main_s:.2f} s; launches {counts} "
-          f"(expected {want}); peak memory {peak_gb:.2f} GB", flush=True)
-    if counts != want:
+    want = scaled(TRAIN_COUNTS, n_train, EVAL_COUNTS)
+    want_device = scaled(TRAIN_COUNTS, WARMUP_STEPS + n_train, EVAL_COUNTS)
+    print(f"[slice] {n_train} train steps + 1 eval step in {main_s:.2f} s (traced; the step "
+          f"graph's {WARMUP_STEPS} warm-up steps and capture included); launches counted by the "
+          f"wrappers {counts} (expected {want}); launches on the device by torch.profiler "
+          f"{main_device} (expected {want_device}); peak memory {peak_gb:.2f} GB", flush=True)
+    if counts != want or main_device != want_device:
         fail("kernel launch counts of the main path differ from the per-step counts")
     loss = {k: float(metrics[k]) for k in ("total_loss", "adv_loss", "reg_loss")}
     print(f"[slice] step-{STEPS + 1} terms {loss}; delta range "
@@ -777,31 +855,82 @@ def main() -> None:
 
     pair_engine = with_pair(("MaxPool3d_2a_3x3",))
     first, first_m = engine.train_step(engine.init_state(), batch, flags)
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    pfirst, pfirst_m = pair_engine.train_step(pair_engine.init_state(), batch, flags)
-    torch.cuda.synchronize()
-    got_train = read_counts(ops)
-    ops.reset_launch_counts()
-    pev = pair_engine.eval_step(pfirst.delta, batch, flags)
-    torch.cuda.synchronize()
-    got_eval = read_counts(ops)
+    (pfirst, pfirst_m), got_train, dev_train = traced(
+        lambda: pair_engine.train_step(pair_engine.init_state(), batch, flags))
+    pev, got_eval, dev_eval = traced(lambda: pair_engine.eval_step(pfirst.delta, batch, flags))
+    want_dev_train = scaled(PAIR_TRAIN_COUNTS, WARMUP_STEPS + 1)
     l0, l1 = float(first_m["total_loss"]), float(pfirst_m["total_loss"])
     g0, g1 = (first.mu * 10).flatten().double(), (pfirst.mu * 10).flatten().double()
     cos = F.cosine_similarity(g0, g1, dim=0).item()
     print(f"[slice] pair at MaxPool3d_2a: train step launches {got_train} (expected "
-          f"{PAIR_TRAIN_COUNTS}); eval step launches {got_eval} (expected {PAIR_EVAL_COUNTS}); "
-          f"first total_loss {l1:.6f} against the default engine's {l0:.6f} (rel diff "
-          f"{abs(l1 - l0) / max(abs(l0), 1e-30):.2e}, tolerance 1e-3); first d(delta) max abs "
-          f"{g0.abs().max().item():.3e}, max abs difference {(g1 - g0).abs().max().item():.3e}, "
-          f"cosine {cos:.6f} (required >= 0.99)", flush=True)
-    if got_train != PAIR_TRAIN_COUNTS or got_eval != PAIR_EVAL_COUNTS:
+          f"{PAIR_TRAIN_COUNTS}), on the device with the capture's warm-up {dev_train} (expected "
+          f"{want_dev_train}); eval step launches {got_eval}, on the device {dev_eval} (expected "
+          f"{PAIR_EVAL_COUNTS}); first total_loss {l1:.6f} against the default engine's "
+          f"{l0:.6f} (rel diff {abs(l1 - l0) / max(abs(l0), 1e-30):.2e}, tolerance 1e-3); first "
+          f"d(delta) max abs {g0.abs().max().item():.3e}, max abs difference "
+          f"{(g1 - g0).abs().max().item():.3e}, cosine {cos:.6f} (required >= 0.99)", flush=True)
+    if (got_train != PAIR_TRAIN_COUNTS or dev_train != want_dev_train
+            or got_eval != PAIR_EVAL_COUNTS or dev_eval != PAIR_EVAL_COUNTS):
         fail("kernel launch counts of the pair configuration differ from the per-step counts")
     if not (abs(l1 - l0) <= 1e-3 * abs(l0) and cos >= 0.99):
         fail("the pair configuration's first step disagrees with the default engine's")
     if not torch.isfinite(pev["adv_probs"]).all():
         fail("the pair configuration's eval probabilities are not finite")
     del first, pfirst, pev, g0, g1
+
+    # the graphed step against the eager step (the engine's _train_step)
+    # from init_state, 3 steps each, at full width in the four configurations:
+    # delta, mu, nu and every metric bit for bit (NaN where NaN); the graphed
+    # run's launches, counted and on the device, exact
+    def bit_equal(a, b):
+        if not torch.is_tensor(a):
+            return a == b
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    def eager_step(eng, state_, batch_):
+        return eng._train_step(state_, *eng.prepare_batch(batch_), flags)
+
+    def three_steps(model_, batch_, cfg, frames, graphed):
+        e = AttackEngine(model_, FlickerSpec(frames=frames), cfg, track_probs=False)
+        s, ms = e.init_state(), []
+        for _ in range(3):
+            s, m = e.train_step(s, batch_, flags) if graphed else eager_step(e, s, batch_)
+            ms.append(m)
+        torch.cuda.synchronize()
+        return [s.delta.clone(), s.mu.clone(), s.nu.clone(), s.step] + [
+            m[k] for m in ms for k in sorted(m)]
+
+    sv_batch = {"video": torch.from_numpy(np.random.default_rng(SEED + 3).uniform(
+        -1, 1, (1, SV_FRAMES, SIZE, SIZE, 3)).astype(np.float32)).to(dev),
+        "labels": batch["labels"][:1]}
+    graph_device = {}
+    for tag, model_, batch_, cfg, frames, step_counts in (
+        (f"B={B} default", model, batch, AttackConfig(), T, TRAIN_COUNTS),
+        (f"B={B} pair at MaxPool3d_2a", pair_engine.model, batch, AttackConfig(), T,
+         PAIR_TRAIN_COUNTS),
+        (f"B={B} USE_PALLAS_FUSED", model, batch, AttackConfig(use_pallas_fused=True), T,
+         FUSED_TRAIN_COUNTS),
+        (f"B=1 T={SV_FRAMES} float32 clip", model, sv_batch, AttackConfig(), SV_FRAMES,
+         SV_STEP_COUNTS),
+    ):
+        t0 = time.perf_counter()
+        eager = three_steps(model_, batch_, cfg, frames, False)
+        graphed, got, got_dev = traced(lambda: three_steps(model_, batch_, cfg, frames, True))
+        graph_device[tag] = got_dev
+        ok = len(graphed) == len(eager) and all(map(bit_equal, graphed, eager))
+        counted = (got == scaled(step_counts, 3)
+                   and got_dev == scaled(step_counts, WARMUP_STEPS + 3))
+        print(f"[graph] {tag}: 3 graphed steps against 3 eager steps (delta, mu, nu, step and "
+              f"{len(graphed) - 4} metrics): {'bit-equal' if ok else 'DIFFER'}; graphed launches "
+              f"{got}, on the device (the capture's {WARMUP_STEPS} warm-up steps and 3 replays) "
+              f"{got_dev}: {'exact' if counted else 'NOT the per-step counts'}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        if not ok:
+            fail(f"the graphed step differs from the eager step ({tag})")
+        if not counted:
+            fail(f"the graphed step's launch counts differ from the per-step counts ({tag})")
+        del eager, graphed
+        torch.cuda.empty_cache()
 
     # ---- 4. small geometry, f32: kernels vs the plain versions on the CPU ----
     small = {"video": rng.integers(0, 256, (2, 8, 32, 32, 3), dtype=np.uint8),
@@ -833,9 +962,47 @@ def main() -> None:
             fail("the card disagrees with the CPU reference on the small slice")
 
     # ---- 5. timings ------------------------------------------------------------
-    step_ms = cuda_ms(torch, lambda: engine.train_steps(state, batch, flags, 1), iters=5, warmup=1)
-    print(f"[time] train step {step_ms:.2f} ms ({1000 / step_ms:.3f} steps/s) at "
-          f"B={B} T={T} {SIZE}x{SIZE} bf16", flush=True)
+    # the step graphed (one train_steps call a step: pack, copy into the
+    # graph's clip, replay; and n = 10 replays a call, the lax.scan
+    # counterpart) and eager, in turns
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms = [cuda_ms(torch, lambda: eager_step(engine, state, batch), iters=5, warmup=1)]
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    graph_ms = [cuda_ms(torch, lambda: engine.train_steps(state, batch, flags, 1), iters=5,
+                        warmup=1)]
+    eager_ms.append(cuda_ms(torch, lambda: eager_step(engine, state, batch), iters=5, warmup=1))
+    graph_ms.append(cuda_ms(torch, lambda: engine.train_steps(state, batch, flags, 1), iters=5,
+                            warmup=1))
+    chained_ms = cuda_ms(torch, lambda: engine.train_steps(state, batch, flags, 10), iters=2,
+                         warmup=1) / 10
+    step_ms, eager_step_ms = min(graph_ms), min(eager_ms)
+    print(f"[time] train step at B={B} T={T} {SIZE}x{SIZE} bf16: eager {eager_ms[0]:.2f}, "
+          f"{eager_ms[1]:.2f} ms; graphed {graph_ms[0]:.2f}, {graph_ms[1]:.2f} ms "
+          f"({1000 / step_ms:.3f} steps/s); graphed, 10 replays a call, {chained_ms:.2f} ms a step; "
+          f"eager peak memory {eager_peak:.2f} GB; {graph_stats(engine)}", flush=True)
+    # the same at B=1, T=90 on a float32 clip (the single-video path)
+    b1_engine = AttackEngine(model, FlickerSpec(frames=SV_FRAMES), track_probs=False)
+    b1_state = b1_engine.init_state()
+
+    def sv_step(n=1):
+        return lambda: b1_engine.train_steps(b1_state, sv_batch, flags, n)
+
+    def sv_eager():
+        return eager_step(b1_engine, b1_state, sv_batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    sv_eager_ms = [cuda_ms(torch, sv_eager, iters=10, warmup=2)]
+    sv_peak = torch.cuda.max_memory_allocated() / 1e9
+    sv_graph_ms = [cuda_ms(torch, sv_step(), iters=10, warmup=2)]
+    sv_eager_ms.append(cuda_ms(torch, sv_eager, iters=10, warmup=2))
+    sv_graph_ms.append(cuda_ms(torch, sv_step(), iters=10, warmup=2))
+    sv_chained = cuda_ms(torch, sv_step(10), iters=2, warmup=1) / 10
+    sv_ms, sv_eager_min = min(sv_graph_ms), min(sv_eager_ms)
+    print(f"[time] train step at B=1 T={SV_FRAMES} {SIZE}x{SIZE} bf16, float32 clip (the "
+          f"single-video path): eager {sv_eager_ms[0]:.2f}, {sv_eager_ms[1]:.2f} ms; graphed "
+          f"{sv_graph_ms[0]:.2f}, {sv_graph_ms[1]:.2f} ms ({1000 / sv_ms:.3f} steps/s); "
+          f"graphed, 10 replays a call, {sv_chained:.2f} ms a step; eager peak memory "
+          f"{sv_peak:.2f} GB; {graph_stats(b1_engine)}", flush=True)
     fused_engine = AttackEngine(model, FlickerSpec(frames=T), AttackConfig(use_pallas_fused=True),
                                 track_probs=False)
     torch.cuda.reset_peak_memory_stats()
@@ -932,6 +1099,12 @@ def main() -> None:
         "B9f": "flickering_adversarial_video_tpu_torch/csrc/pool_pair.cu",
         "B9b": "flickering_adversarial_video_tpu_torch/csrc/pool_pair.cu",
     }
+    # launches: on the device, by torch.profiler, in phase 3's run of the
+    # kernel's path (B8: USE_PALLAS_FUSED, B9: the pair; graphed, from a new
+    # engine: the capture's warm-up steps and the replays)
+    path_launches = {**main_device,
+                     **{k: graph_device[f"B={B} USE_PALLAS_FUSED"][k] for k in ("B8f", "B8b")},
+                     **{k: graph_device[f"B={B} pair at MaxPool3d_2a"][k] for k in ("B9f", "B9b")}}
     table = []
     for full_name, _ in ops.kernel_wrappers():
         name = full_name.split()[0]
@@ -944,7 +1117,7 @@ def main() -> None:
         bound_ms = max(t_bytes, t_ops)
         table.append({
             "name": full_name, "route": "cuda", "source": source[name],
-            "replaces": replaces[name], "launches": None,  # set after the runner phases
+            "replaces": replaces[name], "launches": path_launches[name],
             "max_abs_err": checks[(name, torch.bfloat16)][0],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1044,8 +1217,6 @@ def main() -> None:
     del part4s
 
     # ---- 6. where the step's device time goes ---------------------------------
-    from torch.profiler import ProfilerActivity, profile
-
     symbols = [s for names in kernels.KERNEL_SYMBOLS.values() for s in names]
 
     def breakdown(tag, step_fn, untraced_ms, top=12):
@@ -1058,7 +1229,7 @@ def main() -> None:
         busy = sum(r[0] for r in rows)
         if not busy > 0:
             print(f"[profile] {tag}: torch.profiler saw no device time: breakdown not measured")
-            return
+            return None
         groups = defaultdict(float)
         for ms, _, name in rows:
             if any(sym in name for sym in symbols):
@@ -1082,18 +1253,32 @@ def main() -> None:
                       f"  {ms / max(ours, 1e-12):6.1%} of the port's, {ms / busy:6.1%} of all")
         for ms, n, name in sorted(rows, reverse=True)[:top]:
             print(f"[profile]   slowest: {ms:8.3f} ms/step {n:5.1f} launches/step  {name[:90]}")
+        return busy
 
-    breakdown(f"B={B} T={T}", lambda: engine.train_steps(state, batch, flags, 1), step_ms)
+    busy_graphed = breakdown(f"B={B} T={T}, graphed",
+                             lambda: engine.train_steps(state, batch, flags, 1), step_ms)
+    busy_eager = breakdown(f"B={B} T={T}, eager", lambda: eager_step(engine, state, batch),
+                           eager_step_ms)
+    if busy_graphed and busy_eager:
+        print(f"[profile] kernel time a B={B} step: graphed {busy_graphed:.2f} ms, eager "
+              f"{busy_eager:.2f} ms ({busy_graphed / busy_eager - 1:+.1%})", flush=True)
     packed, is_packed, _ = engine.prepare_batch(batch)
     with torch.no_grad():
-        fwd_ms = cuda_ms(torch, lambda: engine._logits(state.delta, packed, is_packed, flags),
+        fwd_ms = cuda_ms(torch, lambda: engine._logits(state.delta, packed, is_packed,
+                                                        engine._adv_flag(flags)),
                          iters=5, warmup=1)
-    print(f"[profile] forward alone (no grad) {fwd_ms:.2f} ms; backward + Adam + metrics "
-          f"{step_ms - fwd_ms:.2f} ms of the {step_ms:.2f} ms step", flush=True)
+    print(f"[profile] forward alone (no grad, eager) {fwd_ms:.2f} ms; backward + Adam + metrics "
+          f"{eager_step_ms - fwd_ms:.2f} ms of the {eager_step_ms:.2f} ms eager step", flush=True)
+    sv_busy = breakdown(f"single-video B=1 T={SV_FRAMES}, graphed", sv_step(), sv_ms, top=8)
+    sv_busy_eager = breakdown(f"single-video B=1 T={SV_FRAMES}, eager", sv_eager, sv_eager_min,
+                              top=8)
+    if sv_busy and sv_busy_eager:
+        print(f"[profile] kernel time a B=1 T={SV_FRAMES} step: graphed {sv_busy:.2f} ms, "
+              f"eager {sv_busy_eager:.2f} ms ({sv_busy / sv_busy_eager - 1:+.1%})", flush=True)
 
 
     # ---- 7. the universal runner, default configuration ---------------------------
-    del inputs, engine, fused_engine, packed
+    del inputs, engine, fused_engine, packed, b1_engine, b1_state, sv_batch
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="fav_smoke_") as tmp:
         shard_dir = os.path.join(tmp, "shards")
@@ -1131,10 +1316,12 @@ def main() -> None:
         print(f"[runner] wrote {SHARDS} shards x {PER_SHARD} records of [{T},{SIZE},{SIZE},3] uint8 "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
-        def run_runner(tag, out_dir, max_steps, train_counts, eval_counts, profiled=False):
+        def run_runner(tag, out_dir, max_steps, train_counts, eval_counts, step_alone_ms,
+                       profiled=False):
             """universal.run with the counts reset just before and read just
             after; checks steps, finite losses, the final eval's count, the
-            files on disk and the exact launch counts."""
+            files on disk and the exact launch counts (traced: also those that
+            ran on the device, the one capture's warm-up steps among them)."""
             ac.PKL_RESULT_PATH = os.path.join(tmp, out_dir)
             said = io.StringIO()
             torch.cuda.synchronize()
@@ -1157,9 +1344,18 @@ def main() -> None:
             print(f"[runner] {tag}: steps {start}->{out['steps']} in {wall:.2f} s; evals at "
                   f"{hist['fool_rate_steps']}; final eval {out['final_eval']}; launches {got} "
                   f"(expected {want})", flush=True)
-            print(f"[time] runner {tag}: {out['steps_per_sec']:.3f} steps/s by the loop's timer "
-                  f"({1000 / max(out['steps_per_sec'], 1e-9):.1f} ms/step; the chained step "
-                  f"alone takes {step_ms if train_counts is TRAIN_COUNTS else fused_ms:.1f} ms)",
+            if prof is not None:
+                got_dev = device_launches(prof, kernels)
+                want_dev = scaled(train_counts, WARMUP_STEPS, want)
+                print(f"[runner] {tag}: launches on the device by torch.profiler {got_dev} "
+                      f"(expected {want_dev})", flush=True)
+                if got_dev != want_dev:
+                    fail(f"runner {tag}: the device's launch counts differ from the per-step counts")
+            rate, rate_after = out["steps_per_sec"], out["steps_per_sec_after_first"]
+            print(f"[time] runner {tag}: {rate:.3f} steps/s by the loop's timer "
+                  f"({1000 / max(rate, 1e-9):.1f} ms/step), {rate_after:.3f} after the first step "
+                  f"({1000 / max(rate_after, 1e-9):.1f} ms/step; on CUDA the first step of a batch "
+                  f"shape captures its graph); the step alone takes {step_alone_ms:.1f} ms",
                   flush=True)
             if out["steps"] != max_steps or out["state"].step != max_steps:
                 fail(f"runner {tag}: ended at step {out['steps']}, not {max_steps}")
@@ -1177,10 +1373,10 @@ def main() -> None:
                     or n_files > 5):
                 fail(f"runner {tag}: res.pkl or the checkpoint of step {max_steps} is missing, "
                      f"or more than 5 checkpoint files ({ckpts})")
-            return out, said, wall, got, prof
+            return out, said, wall, prof
 
-        out, said, _, counts, _ = run_runner(
-            "default", "default", RUNNER_STEPS, TRAIN_COUNTS, EVAL_COUNTS)
+        out, said, _, _ = run_runner(
+            "default", "default", RUNNER_STEPS, TRAIN_COUNTS, EVAL_COUNTS, step_ms)
         if "Begin new training" not in said or "host-prepacked" not in said:
             fail("runner default: not a fresh start on the host-prepacked pipeline")
         if out["final_eval"]["total_valid_videos"] != SHARDS * PER_SHARD:
@@ -1189,8 +1385,8 @@ def main() -> None:
         default_loss = out["history"]["total_loss"][0]
         delta12 = out["state"].delta.clone()
 
-        out, said, _, _, _ = run_runner("resumed", "default", RESUME_STEPS, TRAIN_COUNTS,
-                                        EVAL_COUNTS)
+        out, said, _, _ = run_runner("resumed", "default", RESUME_STEPS, TRAIN_COUNTS,
+                                     EVAL_COUNTS, step_ms)
         if f"Continue training from step {RUNNER_STEPS}" not in said:
             fail("runner resumed: the resume line is missing")
         if out["history"]["fool_rate_steps"][0] != RUNNER_STEPS:
@@ -1198,10 +1394,17 @@ def main() -> None:
         if torch.equal(out["state"].delta, delta12):
             fail("runner resumed: delta did not move after the resume")
 
+        # the same 12 steps with the train step eager on the card: the step
+        # graph's effect on the runner, on this machine
+        with mock.patch.object(attack_step, "StepGraphs", lambda *args: None):
+            run_runner("default, eager step (control)", "eager", RUNNER_STEPS, TRAIN_COUNTS,
+                       EVAL_COUNTS, eager_step_ms)
+
         # the same 12 steps once more under torch.profiler, which slows the
         # host: the steps/s above are the untraced run's, the shares this one's
-        out, _, wall, _, prof = run_runner(
-            "default, traced", "traced", RUNNER_STEPS, TRAIN_COUNTS, EVAL_COUNTS, profiled=True)
+        out, _, wall, prof = run_runner(
+            "default, traced", "traced", RUNNER_STEPS, TRAIN_COUNTS, EVAL_COUNTS, step_ms,
+            profiled=True)
         spans = (loops.STEP_SPAN, loops.EVAL_SPAN)
         busy_ms = sum(r[0] for r in kernel_rows(prof, spans=spans))
         share = loop_share(prof, loops.EVAL_SPAN, spans)
@@ -1223,8 +1426,9 @@ def main() -> None:
         # ---- 8. the runner with USE_PALLAS_FUSED: True -------------------------------
         ac.USE_PALLAS_FUSED = True
         ac.MAX_NUM_STEP = FUSED_STEPS
-        out, said, _, fused_counts, _ = run_runner(
-            "USE_PALLAS_FUSED", "fused", FUSED_STEPS, FUSED_TRAIN_COUNTS, FUSED_EVAL_COUNTS)
+        out, said, _, _ = run_runner(
+            "USE_PALLAS_FUSED", "fused", FUSED_STEPS, FUSED_TRAIN_COUNTS, FUSED_EVAL_COUNTS,
+            fused_ms)
         if "host-prepacked" in said:
             fail("runner USE_PALLAS_FUSED: the pipeline prepacked its input")
         fused_loss = out["history"]["total_loss"][0]
@@ -1278,7 +1482,6 @@ def main() -> None:
         # of noise, one darker and smoother), the third with a wrong class
         rng = np.random.default_rng(SEED + 9)
         infer = InferenceModel(sv_engine)
-        sv_clip = None
         for k in range(3):
             clip = rng.uniform(-1, 1, (1, SV_FRAMES, SIZE, SIZE, 3)).astype(np.float32)
             if k == 1:
@@ -1287,17 +1490,7 @@ def main() -> None:
             cls = top if k < 2 else (top + 1) % CLASSES
             save_npy_clip(os.path.join(
                 npy_dirs[k == 1], f"rgb_{k}@{sv_labels[cls].replace(' ', '_')}.npy"), clip)
-            if sv_clip is None:
-                sv_clip = {"video": torch.from_numpy(clip).to(dev),
-                           "labels": torch.tensor([top], device=dev)}
-        sv_ms = cuda_ms(torch, lambda: sv_engine.train_steps(sv_engine.init_state(), sv_clip, flags, 1),
-                        iters=10, warmup=2)
-        print(f"[time] chained train step at B=1 T={SV_FRAMES} {SIZE}x{SIZE} bf16, float32 clip "
-              f"(the single-video path): {sv_ms:.2f} ms ({1000 / sv_ms:.3f} steps/s)", flush=True)
-        breakdown(f"single-video B=1 T={SV_FRAMES}",
-                  lambda: sv_engine.train_steps(sv_engine.init_state(), sv_clip, flags, 1), sv_ms,
-                  top=8)
-        del sv_engine, infer, sv_clip
+        del sv_engine, infer
 
         def run_single(tag, out_dir, pair, step_counts, clean_counts):
             """single_video.run over both clip directories, with the counts
@@ -1364,10 +1557,10 @@ def main() -> None:
             print(f"[time] single-video {tag}: {rate:.3f} steps/s by the loop's timer "
                   f"({1000 / max(rate, 1e-9):.1f} ms/step; the chained step alone takes "
                   f"{sv_ms:.1f} ms)", flush=True)
-            return results, got
+            return results
 
-        sv_default, _ = run_single("default", "sv_default", False, SV_STEP_COUNTS, SV_CLEAN_COUNTS)
-        sv_pair, pair_counts = run_single(
+        sv_default = run_single("default", "sv_default", False, SV_STEP_COUNTS, SV_CLEAN_COUNTS)
+        sv_pair = run_single(
             "FLICKER_POOL_PALLAS_2A=2", "sv_pair", True, SV_PAIR_STEP_COUNTS, SV_PAIR_CLEAN_COUNTS)
         for a, b in zip(sv_default, sv_pair):
             la, lb = a["total_loss_l"][0], b["total_loss_l"][0]
@@ -1437,11 +1630,6 @@ def main() -> None:
             if probs.shape != (1, CLASSES) or not err <= 1e-6:
                 fail("InferenceModel disagrees with engine.forward")
         del eng, infer
-    for row in table:
-        name = row["name"].split()[0]
-        row["launches"] = (fused_counts if name.startswith("B8") else
-                           pair_counts if name.startswith("B9") else counts)[name]
-
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,7 +1,7 @@
 // The H-marching full-width strip of the (1,3,3)/(1,2,2) SAME max pool, pads
 // (0,1), on NDHWC [N = B*T, H, W, C] with even H and W: the launch geometry
-// that B5, B6 (csrc/pool_strided.cu) and B9 forward (csrc/pool_pair.cu) share,
-// and the forward body of B5 and B9.
+// that B5, B6 (csrc/pool_strided.cu) and B9 (csrc/pool_pair.cu) share, and
+// the forward body of B5 and B9.
 //
 // A block owns one frame n, one group of nv consecutive 16-byte channel
 // vectors (8 bf16 or 4 f32 channels) and a run of window rows [ho0, ho1) over
@@ -26,6 +26,10 @@
 // (bf16) or 4 (f32) index bytes at once.  One barrier a step; x is read once,
 // y (and the index) written once.
 #pragma once
+
+#include <mutex>
+#include <utility>
+#include <vector>
 
 #include "common.cuh"
 
@@ -65,18 +69,28 @@ inline void choose_runs(int64_t tiles, int64_t Ho, int64_t per_wave, int start, 
 
 // Resident blocks of `Kernel` on the whole card at this block size and
 // dynamic shared memory; the first call lets it use up to `smem_max` bytes.
+// Each (threads, smem) is asked of the occupancy calculator once, at its first
+// launch: a warm-up before a CUDA graph's capture, so that the launches the
+// capture records and their replays make no runtime call but the launch.
 template <auto Kernel>
 int64_t wave(int threads, size_t smem, size_t smem_max) {
-  static const int sms = [smem_max] {
-    int dev = 0, n = 0;
+  static std::mutex mu;
+  static int sms = 0;
+  static std::vector<std::pair<std::pair<int, size_t>, int>> per_sm;  // (threads, smem) -> blocks
+  const std::lock_guard<std::mutex> lock(mu);
+  if (sms == 0) {
+    int dev = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_max));
-    return n;
-  }();
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, threads, smem);
-  return int64_t(std::max(per_sm, 1)) * sms;
+  }
+  const std::pair<int, size_t> key{threads, smem};
+  for (const auto& [k, n] : per_sm)
+    if (k == key) return int64_t(n) * sms;
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, Kernel, threads, smem);
+  per_sm.emplace_back(key, std::max(n, 1));
+  return int64_t(std::max(n, 1)) * sms;
 }
 
 // ---- the forward ------------------------------------------------------------

@@ -431,32 +431,48 @@ stem_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ k,
 
 }  // namespace
 
+// The kernels' dynamic shared-memory limits and the card's SM count, set and
+// read once, at the first launch (a warm-up before a CUDA graph's capture):
+// the launches a capture records make no runtime call but the launch.
+struct StemSetup {
+  cudaError_t err;
+  int sms;
+};
+
+static const StemSetup& stem_setup() {
+  static const StemSetup setup = [] {
+    StemSetup s{cudaSuccess, 0};
+    int dev = 0;
+    s.err = cudaFuncSetAttribute(stem_conv_bf16_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BF16));
+    if (s.err == cudaSuccess)
+      s.err = cudaFuncSetAttribute(stem_conv_f32_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_F32));
+    if (s.err == cudaSuccess) s.err = cudaGetDevice(&dev);
+    if (s.err == cudaSuccess)
+      s.err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
+    return s;
+  }();
+  return setup;
+}
+
 FAV_API int fav_stem_conv_bn_relu(const void* x, const void* k, const void* mean,
                                   const void* mul, const void* bias, void* y, int64_t B,
                                   int64_t T, int64_t H, int64_t W, int dtype, void* stream) {
   if (W > MAX_W || W < 1) return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  const StemSetup& setup = stem_setup();
+  if (setup.err != cudaSuccess) return int(setup.err);
   if (dtype == fav::kBF16) {
     if (!fav::aligned16(x)) return int(cudaErrorMisalignedAddress);
-    err = cudaFuncSetAttribute(stem_conv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(SMEM_BF16));
-    if (err != cudaSuccess) return int(err);
-    int dev = 0, sms = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return int(err);
     const int64_t items = B * T * ((H + 1) / 2);
-    const unsigned blocks = unsigned(items < sms ? items : sms);
+    const unsigned blocks = unsigned(items < setup.sms ? items : setup.sms);
     stem_conv_bf16_kernel<<<blocks, THREADS_BF16, SMEM_BF16, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(k),
         static_cast<const float*>(mean), static_cast<const float*>(mul),
         static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), int(B), int(T), int(H),
         int(W));
   } else if (dtype == fav::kF32) {
-    err = cudaFuncSetAttribute(stem_conv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(SMEM_F32));
-    if (err != cudaSuccess) return int(err);
     stem_conv_f32_kernel<<<unsigned(B * T * H), THREADS_F32, SMEM_F32, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(k),
         static_cast<const float*>(mean), static_cast<const float*>(mul),

@@ -19,11 +19,19 @@ for the tanh world and the flickering delta.  One ``train_step``:
   regularizers and their weighted sum give the total;
 * the backward runs over delta only; Adam with the step's learning rate
   updates delta (written out to match ``optax.adam``: b1 0.9, b2 0.999,
-  eps 1e-8, bias-corrected, m_hat / (sqrt(v_hat) + eps));
+  eps 1e-8, m_hat / (sqrt(v_hat) + eps), the bias corrections computed on
+  the device in f32 from a device int32 step count, as optax computes them);
 * metrics are taken on the PRE-update delta, as the reference fetches them.
 
-Runtime flags are plain Python scalars per call.  Nothing synchronises with
-the device inside a step: metrics stay tensors.
+The runtime flags (``RuntimeFlags``, Python scalars per call) enter the
+train, eval and forward steps through one static f32 device buffer, written
+only when they change, so a step reads no host value.  On CUDA
+``train_step`` and ``train_steps`` replay the step as a CUDA graph
+(``engine/step_graph.py``, the counterpart of the JAX engine's jitted step
+and ``lax.scan``), and the state handed to them is donated: the returned
+state holds the graph's static tensors, which the next step overwrites.  On the CPU the same step runs eagerly (``_train_step``,
+also the reference the graph is held to on the card).  Nothing synchronises
+with the device inside a step: metrics stay tensors.
 """
 
 from __future__ import annotations
@@ -40,8 +48,11 @@ from ..attack import regularizers as reg_lib
 from ..ops.fused_apply import fused_normalize_perturb
 from ..ops.packed_apply import flicker_stem
 from ..ops.space_to_depth import pack_input
+from .step_graph import StepGraphs
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+# the order of the runtime flags in the engine's static scalar buffer
+SCALARS = ("adv_flag", "beta0", "beta1", "beta2", "beta3", "learning_rate")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +91,7 @@ class AttackState:
     delta: torch.Tensor    # [T,1,1,C] f32
     mu: torch.Tensor       # Adam first moment
     nu: torch.Tensor       # Adam second moment
-    step: int = 0
+    step: int = 0          # steps taken; the step itself counts on the device
 
     def state_dict(self) -> Dict:
         """Plain dict of CPU tensors and the step (what a checkpoint holds)."""
@@ -102,7 +113,8 @@ class AttackEngine:
     """Attack/eval steps for one (victim, spec, config) triple on the
     model's device.  ``model`` is the frozen victim: an :class:`InceptionI3D`
     (whose ``stem_params``/``trunk`` open the packed input head), or any
-    module mapping a clip [B,T,H,W,C] in [-1, 1] to logits (generic path)."""
+    module mapping a clip [B,T,H,W,C] in [-1, 1] to logits (generic path).
+    On CUDA the train step is a CUDA graph."""
 
     def __init__(
         self, model: torch.nn.Module, spec: pert_lib.FlickerSpec,
@@ -124,9 +136,13 @@ class AttackEngine:
         if config.frame_window is not None:
             start, end = config.frame_window
             self._mask = pert_lib.frame_mask(spec.frames, start, end, device=self.device)
-        # made once: the clean forward's zero delta, and flag tensors by value
+        # made once: the clean forward's zero delta and zero flag
         self._zero_delta = torch.zeros(spec.shape, device=self.device)
-        self._flags: Dict[float, torch.Tensor] = {}
+        self._zero_flag = torch.zeros((), device=self.device)
+        # the runtime flags (SCALARS) of every step, and their host values
+        self._scalars = torch.zeros(len(SCALARS), device=self.device)
+        self._scalar_values: Optional[Tuple[float, ...]] = None
+        self._graphs = StepGraphs(spec.shape, self.device) if self.device.type == "cuda" else None
 
     # ---------- state and batches ----------
 
@@ -161,11 +177,22 @@ class AttackEngine:
 
     # ---------- forward pieces ----------
 
-    def _flag(self, value: float) -> torch.Tensor:
-        flag = self._flags.get(value)
-        if flag is None:
-            flag = self._flags[value] = torch.full((), value, device=self.device)
-        return flag
+    def _step_scalars(self, flags: RuntimeFlags) -> torch.Tensor:
+        """The static device buffer of the runtime flags (SCALARS),
+        rewritten only when a value changes: through pinned memory and a copy
+        on the current stream on CUDA, ordered after the steps before."""
+        values = tuple(float(getattr(flags, k)) for k in SCALARS)
+        if values != self._scalar_values:
+            host = torch.tensor(values, dtype=torch.float32)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            self._scalars.copy_(host, non_blocking=True)
+            self._scalar_values = values
+        return self._scalars
+
+    def _adv_flag(self, flags: RuntimeFlags) -> torch.Tensor:
+        """`flags.adv_flag` as a 0-d view of the static scalar buffer."""
+        return self._step_scalars(flags)[SCALARS.index("adv_flag")]
 
     def _applied_delta(self, delta: torch.Tensor) -> torch.Tensor:
         clipped = pert_lib.clip_delta(self.spec, delta)
@@ -180,17 +207,18 @@ class AttackEngine:
             return video.float() / 128.0 - 1.0
         return video.float()
 
-    def _logits(self, delta: Optional[torch.Tensor], video, packed: bool, flags: RuntimeFlags,
-                train: bool = False):
+    def _logits(self, delta: Optional[torch.Tensor], video, packed: bool,
+                adv_flag: torch.Tensor, train: bool = False):
         """Logits of the (adversarial) clip.  delta=None is the clean forward.
         packed: clip/mask delta -> input head -> trunk (the clean forward
         goes through the same head with flag 0, delta 0).  Else the generic
-        path; `train` with use_pallas_fused takes kernel B8 on uint8."""
+        path; `train` with use_pallas_fused takes kernel B8 on uint8.
+        `adv_flag` is a 0-d device tensor."""
         if packed:
             if delta is None:
-                clipped, flag = self._zero_delta, self._flag(0.0)
+                clipped, flag = self._zero_delta, self._zero_flag
             else:
-                clipped, flag = self._applied_delta(delta), self._flag(flags.adv_flag)
+                clipped, flag = self._applied_delta(delta), adv_flag
             pk, mean, var, bias = self.model.stem_params()
             y = flicker_stem(
                 video, clipped, flag, pk, mean, var, bias,
@@ -198,20 +226,21 @@ class AttackEngine:
             )
             return self.model.trunk(y)
         if train and self.config.use_pallas_fused and video.dtype == torch.uint8:
-            adv = fused_normalize_perturb(
-                video, self._applied_delta(delta), self._flag(flags.adv_flag)
-            )
+            adv = fused_normalize_perturb(video, self._applied_delta(delta), adv_flag)
             return self._apply_model(adv)
         x = self._normalize(video)
         if delta is not None:
             x = pert_lib.apply_perturbation(
-                x, delta, self.spec, adv_flag=self._flag(flags.adv_flag), mask=self._mask
+                x, delta, self.spec, adv_flag=adv_flag, mask=self._mask
             )
         return self._apply_model(x)
 
-    def _loss_terms(self, delta, video, packed, labels, flags: RuntimeFlags):
+    def _loss_terms(self, delta, video, packed, labels, scalars: torch.Tensor):
+        """(total, terms) of the train step; the flags are the device
+        scalars `scalars` (SCALARS' order), never host values."""
         cfg = self.config
-        logits = self._logits(delta, video, packed, flags, train=True)
+        adv_flag, beta0, beta1, beta2, beta3, _ = scalars.unbind()
+        logits = self._logits(delta, video, packed, adv_flag, train=True)
         adv_total, aux = losses_lib.adversarial_loss(
             logits, labels, improve_loss=cfg.improve_loss, margin=cfg.margin,
             targeted=cfg.targeted, use_logits=cfg.use_logits,
@@ -221,14 +250,15 @@ class AttackEngine:
         lap_r = reg_lib.second_order_diff_reg(delta)
         l12_r = reg_lib.l12_regularizer(delta)
         if cfg.reg_weighting == "torch":
-            reg = flags.beta1 * norm_r + (1.0 - flags.beta1) * (diff_r + lap_r)
+            reg = beta1 * norm_r + (1.0 - beta1) * (diff_r + lap_r)
         else:
-            reg = flags.beta1 * norm_r + flags.beta2 * diff_r + flags.beta3 * lap_r
-        total = adv_total + flags.beta0 * reg
+            reg = beta1 * norm_r + beta2 * diff_r + beta3 * lap_r
+        weighted = beta0 * reg
+        total = adv_total + weighted
         terms = {
             "adv_loss": adv_total,
             "reg_loss": reg,
-            "weighted_reg": flags.beta0 * reg,
+            "weighted_reg": weighted,
             "l12": l12_r,
             "norm_reg": norm_r,
             "diff_norm_reg": diff_r,
@@ -241,54 +271,84 @@ class AttackEngine:
 
     # ---------- steps ----------
 
-    def _adam(self, state: AttackState, grad: torch.Tensor, lr: float) -> AttackState:
-        step = state.step + 1
-        mu = (1 - ADAM_B1) * grad + ADAM_B1 * state.mu
-        nu = (1 - ADAM_B2) * grad**2 + ADAM_B2 * state.nu
-        mu_hat = mu / (1 - ADAM_B1**step)
-        nu_hat = nu / (1 - ADAM_B2**step)
+    @staticmethod
+    def _adam(delta, mu, nu, step, grad, lr):
+        """optax.adam on device tensors: `step` (int32, 0-d) counts the steps
+        taken; its increment gives the bias corrections 1 - b**count in f32."""
+        count = step + 1
+        t = count.float()
+        mu = (1 - ADAM_B1) * grad + ADAM_B1 * mu
+        nu = (1 - ADAM_B2) * grad**2 + ADAM_B2 * nu
+        mu_hat = mu / (1 - torch.pow(ADAM_B1, t))
+        nu_hat = nu / (1 - torch.pow(ADAM_B2, t))
         update = -lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
-        return AttackState(state.delta + update, mu, nu, step)
+        return delta + update, mu, nu, count
 
-    def _train_step(self, state: AttackState, video, packed, labels, flags: RuntimeFlags):
-        delta = state.delta.detach().requires_grad_(True)
-        total, terms = self._loss_terms(delta, video, packed, labels, flags)
-        (grad,) = torch.autograd.grad(total, delta)
+    def _step(self, delta, mu, nu, step, video, packed, labels, scalars):
+        """One optimizer step on device tensors, the body the eager step runs
+        and the CUDA graph captures: ((delta, mu, nu, step) after it, the
+        metrics, all tensors)."""
+        d = delta.detach().requires_grad_(True)
+        total, terms = self._loss_terms(d, video, packed, labels, scalars)
+        (grad,) = torch.autograd.grad(total, d)
         with torch.no_grad():
-            new_state = self._adam(state, grad, flags.learning_rate)
-            pre = state.delta
+            new = self._adam(delta, mu, nu, step, grad, scalars[SCALARS.index("learning_rate")])
             probs = terms.pop("probs").detach()
             metrics = {
                 "total_loss": total.detach(),
-                "thickness": metrics_lib.thickness(pre),
-                "roughness": metrics_lib.roughness(pre),
-                "delta_max": pre.max(),
-                "delta_min": pre.min(),
+                "thickness": metrics_lib.thickness(delta),
+                "roughness": metrics_lib.roughness(delta),
+                "delta_max": delta.max(),
+                "delta_min": delta.min(),
                 "is_adversarial": metrics_lib.is_adversarial(
                     probs, labels, targeted=self.config.targeted,
                     target_class=self.config.target_class,
                 ),
-                "step": state.step,
                 **{k: v.detach() for k, v in terms.items()},
             }
             if self.track_probs:
                 metrics["probs"] = probs
-        return new_state, metrics
+        return new, metrics
+
+    def _train_step(self, state: AttackState, video, packed, labels, flags: RuntimeFlags):
+        """One eager step: the CPU's, and the reference a graphed step is
+        held to on the card."""
+        scalars = self._step_scalars(flags)
+        step = torch.full((), state.step, dtype=torch.int32, device=self.device)
+        (delta, mu, nu, _), metrics = self._step(
+            state.delta, state.mu, state.nu, step, video, packed, labels, scalars)
+        metrics["step"] = state.step
+        return AttackState(delta, mu, nu, state.step + 1), metrics
+
+    def _steps(self, state, batch, flags, n, with_metrics):
+        video, packed, labels = self.prepare_batch(batch)
+        if self._graphs is not None:
+            self._step_scalars(flags)
+            return self._graphs.run(
+                lambda *args: self._step(*args, self._scalars), state, video, packed, labels,
+                n, with_metrics)
+        metrics = None
+        for _ in range(n):
+            state, metrics = self._train_step(state, video, packed, labels, flags)
+        return state, metrics
 
     def train_step(
         self, state: AttackState, batch: Dict, flags: RuntimeFlags = RuntimeFlags()
     ) -> Tuple[AttackState, Dict[str, torch.Tensor]]:
-        video, packed, labels = self.prepare_batch(batch)
-        return self._train_step(state, video, packed, labels, flags)
+        """One optimizer step (a graph replay on CUDA, which donates `state`)."""
+        return self._steps(state, batch, flags, 1, True)
 
     def train_steps(
         self, state: AttackState, batch: Dict, flags: RuntimeFlags = RuntimeFlags(), n: int = 1
     ) -> AttackState:
-        """n optimizer steps on one batch (the batch is moved once)."""
-        video, packed, labels = self.prepare_batch(batch)
-        for _ in range(n):
-            state, _ = self._train_step(state, video, packed, labels, flags)
-        return state
+        """n optimizer steps on one batch (the batch is moved once; on CUDA n
+        replays of one graph, the counterpart of the JAX engine's lax.scan)."""
+        return self._steps(state, batch, flags, n, False)[0]
+
+    def graph_stats(self) -> Dict[tuple, Dict[str, float]]:
+        """Each train-step graph's pool bytes and capture seconds, by (clip
+        shape, clip dtype, packed?, labels shape); empty without graphs."""
+        return {} if self._graphs is None else self._graphs.stats()
 
     @torch.no_grad()
     def eval_step(
@@ -296,8 +356,9 @@ class AttackEngine:
     ) -> Dict[str, torch.Tensor]:
         video, packed, labels = self.prepare_batch(batch)
         delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
-        adv_probs = torch.softmax(self._logits(delta, video, packed, flags), dim=-1)
-        clean_probs = torch.softmax(self._logits(None, video, packed, flags), dim=-1)
+        flag = self._adv_flag(flags)
+        adv_probs = torch.softmax(self._logits(delta, video, packed, flag), dim=-1)
+        clean_probs = torch.softmax(self._logits(None, video, packed, flag), dim=-1)
         miss, valid = metrics_lib.fooling_counts(
             adv_probs, clean_probs, labels, targeted=self.config.targeted,
             target_class=self.config.target_class,
@@ -313,7 +374,8 @@ class AttackEngine:
         video, packed, _ = self.prepare_batch(batch)
         if adversarial:
             delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
-        logits = self._logits(delta if adversarial else None, video, packed, flags)
+        logits = self._logits(delta if adversarial else None, video, packed,
+                              self._adv_flag(flags))
         return torch.softmax(logits, dim=-1)
 
     @torch.no_grad()
@@ -326,5 +388,5 @@ class AttackEngine:
         x = self._normalize(torch.as_tensor(batch["video"], device=self.device))
         delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
         return pert_lib.apply_perturbation(
-            x, delta, self.spec, adv_flag=self._flag(flags.adv_flag), mask=self._mask
+            x, delta, self.spec, adv_flag=self._adv_flag(flags), mask=self._mask
         )

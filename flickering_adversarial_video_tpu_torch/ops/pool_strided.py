@@ -31,10 +31,9 @@ MaxPool3d_3a and the spatial half of MaxPool3d_4a.
   source ``csrc/pool_pair.cu``; both bound by bytes.  The same f32 sum, one
   rounding, as B6 (the TPU kernel adds in the cotangent dtype).
 
-B5, B6 and B9's forward march a block down H over a frame's full width, a
-thread a window column and 16-byte channel vector, so they take a width up
-to 1024 (the wrappers raise above it; B1 limits the clip to 256).  B9's
-backward, a gather without x, has no limit beyond even H and W.
+B5, B6 and B9 march a block down H over a frame's full width, a thread a
+window column and 16-byte channel vector, so they take a width up to 1024
+(the wrappers raise above it; B1 limits the clip to 256).
 """
 
 from __future__ import annotations
@@ -208,6 +207,7 @@ def pool133_s2_pair_bwd(idx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
             f"expected a uint8 index of dy's shape [B,T,H',W',C]; got {idx.dtype} "
             f"{tuple(idx.shape)} for dy {tuple(dy.shape)}"
         )
+    _check_width(2 * dy.shape[3], "B9 backward")
     if not dy.is_cuda:
         return pool133_s2_pair_bwd_plain(idx, dy)
     b, t, ho, wo, c = dy.shape

@@ -1,20 +1,23 @@
 """Check and time the port's strided (1,3,3)/(1,2,2) pool kernels on one
-NVIDIA GPU: the forward B5, the backward B6, the index pair's forward B9, and
-the two pool routes of MaxPool3d_2a and 3a.
+NVIDIA GPU: the forward B5, the backward B6, the index pair B9 (forward and
+backward), and the two pool routes of MaxPool3d_2a and 3a.
 
     python3 scripts/torch_pool_s2_bench.py [--iters N]
 
 Builds the port's CUDA kernels (``flickering_adversarial_video_tpu_torch/csrc``)
-and prints the ptxas register and spill lines of B5, B6 and B9 forward.
-Holds each against its plain PyTorch version (tolerance 0, bf16 and f32, on
+and prints the ptxas register and spill lines of B5, B6 and B9 forward and
+backward.  Holds each against its plain PyTorch version (tolerance 0, bf16 and f32, on
 random, integer-tie and NaN/-inf grids; NaN where NaN) at the three strided
 pools of a B=8, T=64, 224x224 I3D train step (MaxPool3d_2a, 3a and the
 spatial half of 4a), the three of the single-video clip (B=1, T=90) and six
 edge geometries: B5's y, B9 forward's y (equal to B5's) and index, its
-null-index path (values only), and B6's dx.  Prints each kernel's time by
-CUDA events at the step and single-video shapes beside its bound (bytes at
-the card's memory rate: B5 x read and y written, B9 forward also one index
-byte an output, B6 x and dy read and dx written), the step's three launches
+null-index path (values only), B6's dx, and B9 backward's dx (equal to the
+plain version's on the same index, and to B6's where x holds no NaN).
+Prints each kernel's time by CUDA events at the step and single-video shapes
+(B9 backward also at the edge shapes) beside its bound (bytes at the card's
+memory rate: B5 x read and y written, B9 forward also one index byte an
+output, B6 x and dy read and dx written, B9 backward the index and dy read and
+dx written), the step's three launches
 summed by CUDA events and under torch.profiler (device time; B5's also at
 the single-video three, whose launches of 20-40 us CUDA events over a loop
 time by the host's dispatch), and as
@@ -47,7 +50,7 @@ SV_SHAPES = ((1, 45, 112, 112, 64), (1, 45, 56, 56, 192), (1, 45, 28, 28, 480))
 # or 3 (f32) groups of channel vectors
 EDGE_SHAPES = ((1, 3, 2, 2, 8), (2, 3, 6, 10, 40), (2, 1, 4, 6, 13), (2, 3, 10, 2, 8),
                (1, 1, 34, 8, 8), (1, 3, 8, 224, 40))
-KERNELS = ("pool_s2_fwd", "pool_s2_bwd", "pool_pair_fwd")
+KERNELS = ("pool_s2_fwd", "pool_s2_bwd", "pool_pair_fwd", "pool_pair_bwd")
 
 
 def main() -> None:
@@ -125,30 +128,43 @@ def main() -> None:
         canary = torch.full((y9.numel(),), 171, dtype=torch.uint8, device=dev)
         y0, none = ps.pool133_s2_pair_fwd(x, want_idx=False)
         dx = ps.pool133_s2_bwd(x, dy)
+        dx9 = ps.pool133_s2_pair_bwd(idx, dy)
         torch.cuda.synchronize()
         want_y, want_idx = ps.pool133_s2_pair_fwd_plain(x)
         ok = {"B5": same(y5, ps.pool133_s2_fwd_plain(x)),
               "B9 forward": (same(y9, want_y) and torch.equal(idx, want_idx) and same(y9, y5)
                              and none is None and same(y0, y9)
                              and bool((canary == 171).all())),
-              "B6": torch.equal(dx, ps.pool133_s2_bwd_plain(x, dy))}
+              "B6": torch.equal(dx, ps.pool133_s2_bwd_plain(x, dy)),
+              # B6 and B9 route a window holding a NaN by different rules
+              "B9 backward": (same(dx9, ps.pool133_s2_pair_bwd_plain(want_idx, dy))
+                              and (grid == "NaN/-inf" or torch.equal(dx9, dx)))}
         keep = want_y.isfinite()
         err5 = (y5.float() - want_y.float())[keep].abs().max().item() if keep.any() else 0.0
         print(f"[check] {list(shape)} {str(dtype)[6:]:8s} {grid:8s}: B5 y "
               f"{'bit-equal' if ok['B5'] else 'DIFFERS'} (finite max_abs_err {err5:.3e}); B9 "
               f"forward y, index, y against B5, null index {'equal' if ok['B9 forward'] else 'DIFFER'}"
               f" (indices used {sorted(idx.unique().tolist())}); B6 dx "
-              f"{'bit-equal' if ok['B6'] else 'DIFFERS'} (tolerance 0)", flush=True)
+              f"{'bit-equal' if ok['B6'] else 'DIFFERS'}; B9 backward dx "
+              f"{'bit-equal' if ok['B9 backward'] else 'DIFFERS'} (tolerance 0)", flush=True)
         for name, good in ok.items():
             if not good:
                 sys.exit(f"{name} differs from its plain version at {shape} {dtype} ({grid})")
-        del y5, y9, idx, canary, y0, dx, want_y, want_idx
+        del y5, y9, idx, canary, y0, dx, dx9, want_y, want_idx
         return x, dy
 
     for shape in EDGE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for grid in ("random", "ties", "NaN/-inf"):
-                check(shape, dtype, grid)
+                x, dy = check(shape, dtype, grid)
+        # B9 backward at the edge shapes (bf16): launches of a few us, so
+        # CUDA events here time the launch more than the kernel
+        idx = ps.pool133_s2_pair_fwd(x)[1]
+        ms = cuda_ms(lambda: ps.pool133_s2_pair_bwd(idx, dy), args.iters)
+        bound = (dy.numel() * (1 + 4) * x.element_size() + dy.numel()) / PEAK_BYTES * 1e3
+        print(f"[time] B9 backward edge {list(shape)} bfloat16: {ms:.4f} ms (bound {bound:.6f} ms, "
+              f"bytes)", flush=True)
+        del x, dy, idx
 
     # events ms, bound ms, launches: a B=8 step's three, and B5's three at B=1, T=90
     step = {k: [0.0, 0.0, []] for k in ("B5", "B6", "B5 single-video")}
@@ -163,6 +179,8 @@ def main() -> None:
                 "B9 forward": (lambda x=x: ps.pool133_s2_pair_fwd(x),
                                (x.numel() + n_y) * isz + n_y),
                 "B6": (lambda x=x, dy=dy: ps.pool133_s2_bwd(x, dy), (x.numel() * 2 + n_y) * isz),
+                "B9 backward": (lambda i=ps.pool133_s2_pair_fwd(x)[1], dy=dy:
+                                ps.pool133_s2_pair_bwd(i, dy), (x.numel() + n_y) * isz + n_y),
             }
             for kname, (fn, nbytes) in runs.items():
                 ms = cuda_ms(fn, args.iters)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small shapes (the full-size comparison is chip_smoke.py's).  Skipped
-without a GPU.  This file imports no JAX, so it also runs where JAX is
-absent:
+at small shapes (the full-size comparison is chip_smoke.py's), and the
+graphed train step against the eager one.  Skipped without a GPU.  This
+file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
@@ -10,6 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from flickering_adversarial_video_tpu_torch import ops
+from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
+from flickering_adversarial_video_tpu_torch.convert import init_i3d_state
+from flickering_adversarial_video_tpu_torch.engine import AttackConfig, AttackEngine, RuntimeFlags
+from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
 from flickering_adversarial_video_tpu_torch.ops import fused_apply, packed_apply
 from flickering_adversarial_video_tpu_torch.ops import pool_s1, pool_strided, stem_combine, stem_conv
 
@@ -301,6 +306,49 @@ class TestKernelsOnCard:
         assert torch.equal(idx.cpu(), widx) and torch.equal(y.cpu().isnan(), wy.isnan())
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [
+        (8, 32, 112, 112, 64),  # MaxPool3d_2a of a B=8, T=64 step
+        (8, 32, 56, 56, 192),   # MaxPool3d_3a
+        (1, 45, 112, 112, 64),  # the single-video clip's 2a and 3a
+        (1, 45, 56, 56, 192),
+        (1, 3, 2, 2, 8),        # one window: the pads in both axes
+        (2, 3, 6, 10, 40),      # 3 window rows, 5 columns
+        (2, 1, 4, 6, 13),       # C takes the scalar tail
+        (2, 3, 10, 2, 8),       # W' = 1
+        (1, 1, 34, 8, 8),       # H' = 17 in runs of window rows
+        (1, 3, 8, 224, 40),     # C = 40 over 112 window columns: groups of channel vectors
+    ])
+    def test_pool_pair_backward_b9_bit_equal(self, dtype, shape):
+        """B9's backward is bit-equal to its plain version on the index of
+        B9's forward (random values, an integer tie grid, a tie grid with
+        NaNs and a -inf block; NaN where NaN), and to B6 on the same (x, dy)
+        where x holds no NaN (B6 routes a NaN window by select-and-scatter)."""
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        b, t, h, w, c = shape
+        pooled = (b, t, h // 2, w // 2, c)
+        nan = torch.randint(0, 3, shape, generator=gen, device="cuda").float()
+        spots = torch.randint(0, nan.numel(), (max(1, nan.numel() // 64),), generator=gen,
+                              device="cuda")
+        nan.view(-1)[spots] = float("nan")
+        nan[:, :, h // 2:, w // 2:] = float("-inf")
+        for x, dy, has_nan in (
+            (torch.randn(shape, generator=gen, device="cuda"),
+             torch.randn(pooled, generator=gen, device="cuda"), False),
+            (torch.randint(0, 3, shape, generator=gen, device="cuda").float(),
+             torch.randint(-8, 9, pooled, generator=gen, device="cuda").float(), False),
+            (nan, torch.randint(1, 9, pooled, generator=gen, device="cuda").float(), True),
+        ):
+            x, dy = x.to(dtype), dy.to(dtype)
+            idx = pool_strided.pool133_s2_pair_fwd(x)[1]
+            got = pool_strided.pool133_s2_pair_bwd(idx, dy)
+            want = pool_strided.pool133_s2_pair_bwd_plain(idx, dy)
+            assert torch.equal(got.isnan(), want.isnan())
+            assert torch.equal(got.nan_to_num(), want.nan_to_num())
+            if not has_nan:
+                assert torch.equal(got, pool_strided.pool133_s2_bwd(x, dy))
+            del x, dy, idx, got, want
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("shape", [(2, 4, 6, 8, 24), (1, 3, 5, 3, 24)])  # whole vectors / with a tail
     def test_emit_b7_bit_equal(self, dtype, shape):
         gen = torch.Generator().manual_seed(1)
@@ -338,6 +386,125 @@ class TestKernelsOnCard:
         d = delta.cuda().requires_grad_(True)
         fused_apply.fused_normalize_perturb(cu[0], d, cu[2]).backward(g.cuda())
         assert torch.equal(d.grad, got)
+
+
+# the graphed train step at a small I3D: B=2, T=8, 32x32, 11 classes, bf16
+G_CLASSES, G_FRAMES = 11, 8
+G_STEPS = ("packed", "fused", "float")  # input head B7 + B1 / kernel B8 / a float clip
+
+
+@pytest.mark.cuda
+class TestGraphedStep:
+    """The train step as a CUDA graph against the same step run eagerly
+    (``_train_step``), bit for bit: delta, mu, nu and every metric."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU and nvcc")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _engine(path, pair=()):
+        model = InceptionI3D(G_CLASSES, torch.bfloat16, device="cuda", pair_pools=pair)
+        model.load_state_dict(init_i3d_state(3, G_CLASSES))
+        cfg = AttackConfig(use_pallas_fused=path == "fused")
+        return AttackEngine(model, FlickerSpec(frames=G_FRAMES), cfg)
+
+    @staticmethod
+    def _eager(engine, state, batch, flags=RuntimeFlags()):
+        return engine._train_step(state, *engine.prepare_batch(batch), flags)
+
+    @staticmethod
+    def _batch(path, seed=0):
+        rng = np.random.default_rng(seed)
+        shape = (2, G_FRAMES, 32, 32, 3)
+        video = (rng.uniform(-1, 1, shape).astype(np.float32) if path == "float"
+                 else rng.integers(0, 256, shape, dtype=np.uint8))
+        return {"video": torch.from_numpy(video).cuda(),
+                "labels": torch.from_numpy(rng.integers(0, G_CLASSES, (2,))).cuda()}
+
+    @staticmethod
+    def _same_state(a, b):
+        assert a.step == b.step
+        for k in ("delta", "mu", "nu"):
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+    @staticmethod
+    def _same_metrics(a, b):
+        assert a.keys() == b.keys()
+        for k in a:
+            if torch.is_tensor(a[k]):
+                assert torch.equal(a[k].nan_to_num(), b[k].nan_to_num()) and torch.equal(
+                    a[k].isnan(), b[k].isnan()), k
+            else:
+                assert a[k] == b[k], k
+
+    @pytest.mark.parametrize("path", G_STEPS)
+    def test_graphed_steps_equal_eager_steps(self, path):
+        """train_steps(n=3) and three train_step calls, graphed, against three
+        eager steps; the returned state holds the graph's static tensors."""
+        engine = self._engine(path)
+        batch = self._batch(path)
+        chained = engine.train_steps(engine.init_state(), batch, RuntimeFlags(), 3)
+        chained = type(chained)(*(t.clone() for t in (chained.delta, chained.mu, chained.nu)),
+                                chained.step)
+        gs, es = engine.init_state(), engine.init_state()
+        for _ in range(3):
+            gs, gm = engine.train_step(gs, batch)
+            es, em = self._eager(engine, es, batch)
+            self._same_state(gs, es)
+            self._same_metrics(gm, em)
+        self._same_state(chained, es)
+        assert gs.delta is engine._graphs.delta  # donated: the static state
+        assert float(es.delta.abs().max()) > 0
+        assert len(engine.graph_stats()) == 1
+
+    def test_changed_flags_take_effect(self):
+        """A new learning rate, adv_flag or beta0 between replays reaches the
+        graph (the eager steps see the same flags): equal to eager, and not
+        equal to the steps with the first flags."""
+        engine = self._engine("packed")
+        batch = self._batch("packed")
+        plan = (RuntimeFlags(), RuntimeFlags(learning_rate=1e-2),
+                RuntimeFlags(adv_flag=0.0, beta0=0.3), RuntimeFlags())
+        gs, es, fixed = engine.init_state(), engine.init_state(), engine.init_state()
+        for flags in plan:
+            gs, gm = engine.train_step(gs, batch, flags)
+            es, em = self._eager(engine, es, batch, flags)
+            self._same_state(gs, es)
+            self._same_metrics(gm, em)
+            fixed, _ = self._eager(engine, fixed, batch)
+        assert not torch.equal(gs.delta, fixed.delta)
+
+    @pytest.mark.parametrize("pair", [(), ("MaxPool3d_2a_3x3",)])
+    def test_launch_counts_are_exact_after_replays(self, pair):
+        """After a capture and k replays the counts are k times an eager
+        step's, and a second batch shape (a short last batch) captures its
+        own graph without moving the counts of the first."""
+        engine = self._engine("packed", pair)
+        batch = self._batch("packed")
+        ops.reset_launch_counts()
+        self._eager(engine, engine.init_state(), batch)
+        one = ops.launch_counts()
+        assert all(one[name] > 0 for name in ("B1 stem_conv_bn_relu", "B2 temporal_combine"))
+        assert (one["B9b pool133_s2_pair_bwd"] > 0) == bool(pair)
+        ops.reset_launch_counts()
+        state = engine.init_state()
+        for k in (1, 3, 2):
+            state = engine.train_steps(state, batch, RuntimeFlags(), k)
+        state, _ = engine.train_step(state, batch)
+        assert ops.launch_counts() == {name: 7 * n for name, n in one.items()}
+        short = {k: v[:1] for k, v in batch.items()}
+        ops.reset_launch_counts()
+        state = engine.train_steps(state, short, RuntimeFlags(), 2)
+        graphed_short = ops.launch_counts()
+        assert len(engine.graph_stats()) == 2 and state.step == 9
+        ops.reset_launch_counts()
+        eager_state = self._eager(engine, engine.init_state(), short)[0]
+        self._eager(engine, eager_state, short)
+        assert ops.launch_counts() == graphed_short
 
 
 def _bn_t(gen, c):

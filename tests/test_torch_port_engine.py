@@ -24,10 +24,17 @@ from flickering_adversarial_video_tpu.models.i3d import InceptionI3D as JaxI3D
 from flickering_adversarial_video_tpu.models.i3d import build_stem_head, init_i3d_params
 from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
 from flickering_adversarial_video_tpu_torch.convert import from_flax_variables
-from flickering_adversarial_video_tpu_torch.engine import AttackConfig, AttackEngine, RuntimeFlags
+from flickering_adversarial_video_tpu_torch.engine import (
+    AttackConfig, AttackEngine, AttackState, RuntimeFlags)
+from flickering_adversarial_video_tpu_torch.engine.attack_step import SCALARS
+from flickering_adversarial_video_tpu_torch.engine.checkpoint import AttackCheckpointer
 from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
 
 K, FRAMES, SIZE, STEPS = 7, 8, 16, 3
+# Adam along (resume at step, learning_rate, beta0): steps 1 and 2 with the
+# learning rate and beta0 changed between them, then the state so far resumed
+# as if at step 999, so that the step taken is the 1000th
+ADAM_STEPS = ((None, 1e-3, 1.0), (None, 1e-2, 0.7), (999, 1e-3, 1.0))
 TERMS = ("total_loss", "adv_loss", "reg_loss", "weighted_reg", "l12", "norm_reg",
          "diff_norm_reg", "laplacian_norm_reg", "prob_to_min", "prob_to_max",
          "thickness", "roughness", "delta_max", "delta_min")
@@ -64,7 +71,25 @@ def jax_run(setup):
             state, mt = eng.train_step(state, batch, JaxFlags(), key)
             metrics.append({k: float(mt[k]) for k in TERMS})
         ev = eng.eval_step(state.delta, batch, JaxFlags(), key)
-        return metrics, np.asarray(state.delta), (int(ev["miss"]), int(ev["valid"]))
+        delta = np.asarray(state.delta)
+        # optax's Adam state along ADAM_STEPS (the same compiled step: the
+        # flags are traced values)
+        adam, state = [], eng.init_state()
+        for resume_at, lr, beta0 in ADAM_STEPS:
+            if resume_at is not None:  # the state so far, its step counts set to resume_at
+                def n():  # a buffer each: the step donates its state
+                    return jnp.asarray(resume_at, jnp.int32)
+
+                inner = state.opt_state.inner_state
+                opt = state.opt_state._replace(
+                    count=n(), inner_state=(inner[0]._replace(count=n()), *inner[1:]))
+                state = state.replace(opt_state=opt, step=n())
+            state, _ = eng.train_step(state, batch, JaxFlags(learning_rate=lr, beta0=beta0), key)
+            inner = state.opt_state.inner_state[0]
+            adam.append({"delta": np.asarray(state.delta), "mu": np.asarray(inner.mu),
+                         "nu": np.asarray(inner.nu), "step": int(state.step),
+                         "count": int(inner.count)})
+        return metrics, delta, (int(ev["miss"]), int(ev["valid"])), adam
 
 
 @pytest.fixture(scope="module")
@@ -105,6 +130,72 @@ def test_packed_batch_and_chained_steps_agree(setup, port_run):
                                                  "labels": labels}, RuntimeFlags(), STEPS)
     assert chained.step == STEPS
     np.testing.assert_array_equal(chained.delta.numpy(), port_run[1])
+
+
+@pytest.fixture(scope="module")
+def port_adam_run(setup):
+    """The port's Adam state along ADAM_STEPS, and the engine's scalar buffer
+    (its address and values) after each step."""
+    _, video, labels, model = setup
+    eng = AttackEngine(model, FlickerSpec(frames=FRAMES))
+    batch = {"video_packed": pack_video_np(video), "labels": labels}
+    state, out = eng.init_state(), []
+    for resume_at, lr, beta0 in ADAM_STEPS:
+        if resume_at is not None:
+            state = AttackState(state.delta, state.mu, state.nu, resume_at)
+        state, _ = eng.train_step(state, batch, RuntimeFlags(learning_rate=lr, beta0=beta0))
+        out.append({"delta": state.delta.numpy(), "mu": state.mu.numpy(), "nu": state.nu.numpy(),
+                    "step": state.step, "scalars": (eng._scalars.data_ptr(),
+                                                     eng._scalars.tolist())})
+    return out
+
+
+@pytest.mark.parametrize("at", ["step 1", "step 2, new lr and beta0", "resumed step 1000"])
+def test_device_scalar_adam_matches_optax(jax_run, port_adam_run, at):
+    """delta, mu, nu after each step of ADAM_STEPS against the JAX engine's
+    optax state.  The bias corrections are f32 on the device in both (1 ulp
+    apart at a few counts).  mu and nu follow the gradients, which agree to
+    f32 reassociation (about 1e-5 of the largest component): 1e-4 of the
+    largest component; delta 1e-6 absolute against steps of lr (1e-3, then
+    1e-2), as the trajectory test holds it.  The learning rate and beta0 of
+    step 2 reach the step through the engine's one static scalar buffer,
+    whose address does not change."""
+    i = ["step 1", "step 2, new lr and beta0", "resumed step 1000"].index(at)
+    want, got = jax_run[3][i], port_adam_run[i]
+    assert got["step"] == want["step"] == want["count"] == (1, 2, 1000)[i]
+    for k in ("mu", "nu"):
+        scale = np.abs(want[k]).max()
+        assert scale > 0
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4 * scale, err_msg=k)
+    np.testing.assert_allclose(got["delta"], want["delta"], rtol=0, atol=1e-6)
+    _, lr, beta0 = ADAM_STEPS[i]
+    assert np.abs(want["delta"]).max() >= 0.9 * lr  # it moved by about a step of lr
+    flags = dict(RuntimeFlags().__dict__, learning_rate=lr, beta0=beta0)
+    assert got["scalars"][1] == pytest.approx([flags[k] for k in SCALARS], rel=1e-7)
+    assert got["scalars"][0] == port_adam_run[0]["scalars"][0]
+
+
+def test_checkpoint_round_trip_keeps_the_step_count(setup, port_adam_run, tmp_path):
+    """A checkpoint of the resumed step-1000 state restores delta, mu, nu
+    and the step count; the next step from it equals the next step from the
+    state itself (bias corrections of count 1001)."""
+    _, video, labels, model = setup
+    eng = AttackEngine(model, FlickerSpec(frames=FRAMES))
+    last = port_adam_run[-1]
+    state = AttackState(*(torch.from_numpy(last[k]) for k in ("delta", "mu", "nu")), last["step"])
+    ckpt = AttackCheckpointer(str(tmp_path))
+    ckpt.save(state)
+    assert ckpt.steps() == [1000]
+    back = ckpt.restore(eng.init_state())
+    assert back.step == 1000 and isinstance(back.step, int)
+    for k in ("delta", "mu", "nu"):
+        assert torch.equal(getattr(back, k), getattr(state, k))
+    batch = {"video_packed": pack_video_np(video), "labels": labels}
+    a, ma = eng.train_step(state, batch)
+    b, mb = eng.train_step(back, batch)
+    assert a.step == b.step == 1001 and ma["step"] == mb["step"] == 1000
+    for k in ("delta", "mu", "nu"):
+        assert torch.equal(getattr(a, k), getattr(b, k))
 
 
 def test_runtime_flags_and_frame_window(setup):

@@ -26,6 +26,15 @@ from flickering_adversarial_video_tpu_torch.ops import pool_s1, pool_strided
 
 # H != W, C not a multiple of 32, B*T odd, single plane
 PAIR_GEOMS = [(2, 3, 8, 8, 4), (1, 3, 12, 16, 5), (1, 1, 16, 8, 2), (2, 2, 14, 6, 33)]
+# the edge geometries of the strip kernels (B5, B6, B9)
+STRIP_EDGES = [
+    (1, 3, 2, 2, 8),     # one window: the pads in both axes; H' = W' = 1
+    (2, 3, 6, 10, 40),   # 3 window rows
+    (2, 1, 4, 6, 13),    # the scalar channel tail: C = 13
+    (2, 3, 10, 2, 8),    # W' = 1
+    (1, 1, 34, 8, 8),    # H' = 17: runs of window rows
+    (1, 3, 8, 224, 40),  # C = 40 over 112 window columns: groups of channel vectors
+]
 
 
 def _t(a):
@@ -92,14 +101,7 @@ class TestPairB9:
         )
 
     @pytest.mark.parametrize("grid", ["random", "ties", "NaN/-inf"])
-    @pytest.mark.parametrize("shape", [
-        (1, 3, 2, 2, 8),     # one window: the pads in both axes
-        (2, 3, 6, 10, 40),   # 3 window rows
-        (2, 1, 4, 6, 13),    # the scalar channel tail
-        (2, 3, 10, 2, 8),    # W' = 1
-        (1, 1, 34, 8, 8),    # H' = 17: runs of window rows
-        (1, 3, 8, 224, 40),  # C = 40 over 112 window columns: groups of channel vectors
-    ])
+    @pytest.mark.parametrize("shape", STRIP_EDGES)
     def test_strip_edges_equal_pallas_interpret(self, rng, shape, grid):
         """The forward's plain version (the CUDA kernel's reference on the
         card) against the Pallas pair in interpret mode at the edge
@@ -118,6 +120,38 @@ class TestPairB9:
         assert pool_strided.pool133_s2_pair_fwd.launches == 0
         if grid == "NaN/-inf":
             assert (np.isnan(np.asarray(want_y)) == (want_idx == 9)).all()
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("grid", ["random", "ties", "NaN/-inf"])
+    @pytest.mark.parametrize("shape", STRIP_EDGES)
+    def test_backward_strip_edges_equal_pallas_interpret(self, rng, shape, grid, dtype):
+        """The backward's plain version (the CUDA kernel's reference on the
+        card) against the Pallas pair's backward in interpret mode at the
+        strip kernel's edge geometries, routed by the Pallas forward's own
+        index, tolerance 0.  In f32 both add a cell's terms in ascending k;
+        in bf16 the TPU kernel adds in bf16 and the port in f32, rounding
+        once, so dy there is integer-valued and every sum exact."""
+        x = _grid(rng, shape, grid != "random")
+        if grid == "NaN/-inf":
+            x.reshape(-1)[rng.integers(0, x.size, max(1, x.size // 50))] = np.nan
+            x[:, :, shape[2] // 2:, shape[3] // 2:] = -np.inf
+        if dtype == "float32" and grid == "random":
+            dy = rng.standard_normal(_pooled(shape)).astype(np.float32)
+        else:
+            dy = rng.integers(-8, 9, _pooled(shape)).astype(np.float32)
+        jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+        xj, dyj = jnp.asarray(x, jdt), jnp.asarray(dy, jdt)
+        _, idx_t = jpp._pair_fwd_impl(xj, True)
+        want = np.asarray(jpp._pair_vjp_bwd(True, None, idx_t, dyj)[0], np.float32)
+        tdt = getattr(torch, dtype)
+        idx = _t(_unview_idx(idx_t, shape[0], shape[4]))
+        dyt = _t(dy).to(tdt)
+        got = pool_strided.pool133_s2_pair_bwd(idx, dyt)
+        assert got.dtype == tdt and pool_strided.pool133_s2_pair_bwd.launches == 0
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        # the same index from the port's forward
+        np.testing.assert_array_equal(idx.numpy(), pool_strided.pool133_s2_pair_fwd(
+            _t(x).to(tdt))[1].numpy())
 
     def test_first_match_wins_and_edges(self):
         """A constant grid ties every candidate: k = 0 everywhere.  On a grid
@@ -179,6 +213,9 @@ class TestPairB9:
         # the strip kernel's width limit, with B6's message
         with pytest.raises(ValueError, match="the B9 forward kernel takes a width up to 1024"):
             pool_strided.pool133_s2_pair_fwd(torch.zeros(1, 1, 2, 1026, 1))
+        with pytest.raises(ValueError, match="the B9 backward kernel takes a width up to 1024"):
+            pool_strided.pool133_s2_pair_bwd(torch.zeros(1, 1, 1, 513, 1, dtype=torch.uint8),
+                                             torch.zeros(1, 1, 1, 513, 1))
         with pytest.raises(ValueError):
             pool_strided.pool133_s2_pair_bwd(torch.zeros(1, 2, 2, 2, 3), torch.zeros(1, 2, 2, 2, 3))
         with pytest.raises(ValueError):

@@ -506,6 +506,20 @@ class TestLoop:
                                    atol=1e-6, rtol=0)
         assert got["steps_per_sec"] > 0
 
+    def test_step_timer_leaves_out_the_first_interval(self, monkeypatch):
+        """The first step of a batch shape captures its CUDA graph: the
+        second rate leaves that interval out."""
+        clock = iter([0.0, 2.5, 3.0, 3.5, 4.0])
+        monkeypatch.setattr(tloops.time, "perf_counter", lambda: next(clock))
+        timer = tloops.StepTimer()
+        timer.tick()
+        assert timer.steps_per_sec == timer.steps_per_sec_after_first == 0.0
+        for _ in range(4):
+            timer.tick()
+        assert (timer.count, timer.first) == (4, 2.5)
+        assert timer.steps_per_sec == pytest.approx(1.0)
+        assert timer.steps_per_sec_after_first == pytest.approx(2.0)
+
     def test_flags_from_config(self, engines):
         _, _, ac = engines
         ac.LAMBDA, ac.BETA_1, ac.BETA_2, ac.LEARNING_RATE = 3.0, 0.25, 0.75, 0.01
