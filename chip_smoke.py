@@ -78,15 +78,24 @@ which fails the run:
    the kernel time a step of the two beside each other;
 7. the runner, default configuration (host-packed input; B7 then B1): 2
    shards x 8 records written with the port's own TFRecordWriter, labelled
-   with the seeded model's clean prediction; ``configs/run_config.yml``
-   loaded unchanged, only paths, BATCH_SIZE, NUM_OF_*_TF_RECORDS and
-   MAX_NUM_STEP overridden; 12 steps, then a resume to 16; exact launch
-   counts, finite losses, res.pkl and checkpoints on disk, steps/s by the
-   loop's own timer, with and without the first step (which captures the
-   step graph); the 12 steps with the train step eager (the control); then
-   the 12 steps again under torch.profiler for the device's launch counts
-   and busy share, over the whole run and over the steps alone (by the
-   loop's spans, its evals taken out);
+   with the seeded model's clean prediction; first the input pipeline alone:
+   every batch of the shards from the native reader (the runners' default)
+   against the Python reader (``use_native=False``), packed and unpacked,
+   bit for bit on the host and as the engine receives them on the card
+   (pinned batch buffers, non-blocking copies queued behind a busy stream,
+   10 batches), and each reader's host MB/s of parsed batches;
+   ``configs/run_config.yml`` loaded unchanged, only paths, BATCH_SIZE,
+   NUM_OF_*_TF_RECORDS and MAX_NUM_STEP overridden; 12 steps, then a resume
+   to 16; exact launch counts, finite losses, res.pkl and checkpoints on
+   disk, steps/s by the loop's own timer, with and without the first step
+   (which captures the step graph); the 12 steps with the train step eager
+   (the control); then the 12 steps under torch.profiler for the device's
+   launch counts and busy share, over the whole run and over the steps
+   alone (by the loop's spans, its evals taken out); then, in turns on this
+   machine, the Python reader as a control (untraced for steps/s, then
+   traced for the busy share; its first loss and evals equal the native
+   run's), the native reader without pinned batch buffers (steps/s) and the
+   native reader again (steps/s, busy share);
 8. the runner with USE_PALLAS_FUSED: True (unpacked uint8; B8 forward and
    backward, the stem with an input gradient), 4 steps on the same shards;
    its first loss against the default configuration's, and the two paths'
@@ -103,10 +112,25 @@ which fails the run:
    clean forward (float path: B1 1, B2 20, B3 9, B4 9, B5 3, B6 3, or B5 2,
    B6 2, B9 1 + 1 with the pair; no B7, no B8); the two configurations' first
    losses agree; steps/s by the loop's timer beside phase 5's graphed step;
-10. the class-gen runner on phase 7's shards: one epoch (2 batches), then a
-   resume into a second; epoch-end checkpoints, res.pkl keys, launch counts
-   as the default universal configuration's; one ``InferenceModel`` call,
-   clean and adversarial, against ``engine.forward``.
+10. the class-gen runner on phase 7's shards (read natively): one epoch (2
+   batches), then a resume into a second; epoch-end checkpoints, res.pkl
+   keys, launch counts as the default universal configuration's; one
+   ``InferenceModel`` call, clean and adversarial, against ``engine.forward``;
+11. the real-victim path at full width: ``init_i3d_state(1)`` (not seed 0,
+   so that a silent random init shows) turned into the DeepMind
+   checkpoint's names (``convert.i3d_var_map``), converted back bit-equal
+   (``convert.convert_i3d_var_map``) and saved as a ``.pt`` by
+   ``convert.cli``, which also dumps and verifies a golden file of it; the
+   universal runner for 4 steps with ``CKPT_PATH`` at that file: its
+   model's weights and clean logits bit-equal to a model given the state
+   directly, no random-init warning, exact launch counts; then
+   ``configs/run_config_rgb600.yml`` through the single-video runner, its
+   only section, overriding only CKPT_PATH, NPY_PATH, PKL_RESULT_PATH and
+   MAX_NUM_STEP: 1, on one float32 clip [1,90,224,224,3] named with its
+   clean prediction among the 600 classes, from a 600-way checkpoint with
+   bare names made the same way: a pkl on disk, finite losses, exact
+   launch counts.  The card has no TensorFlow, so the TF bundle reader
+   itself is held on the CPU only (tests/test_torch_port_convert.py).
 
 Prints the kernel table as one JSON line (a kernel's launches: those that ran
 on the device in phase 3's traced run of its path), then as the last line
@@ -187,6 +211,8 @@ COMBINE_STEP = [("Conv3d_2c", (B, T // 2, 56, 56), 64)] + [
     for branch, cin in zip((1, 2), cins)]
 RUNNER_STEPS, RESUME_STEPS, FUSED_STEPS = 12, 16, 4
 SHARDS, PER_SHARD = 2, 8
+PIPE_REPEAT = 5  # passes over the shards in phase 7's pinned-pipeline check
+VICTIM_STEPS = 4  # the universal runner on a checkpoint file (phase 11)
 SV_FRAMES, SV_MAX_NUM_STEP = 90, 1   # hard cap 40 * MAX_NUM_STEP steps a clip
 SV_RESULT_KEYS = {
     "correct_cls", "correct_cls_id", "correct_cls_prob", "softmax_init", "rgb_sample",
@@ -306,9 +332,12 @@ def main() -> None:
 
         from flickering_adversarial_video_tpu_torch import ops
         from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
-        from flickering_adversarial_video_tpu_torch.convert import init_i3d_state
+        from flickering_adversarial_video_tpu_torch.convert import (
+            cli as convert_cli, convert_i3d_var_map, golden, i3d_var_map, init_i3d_state)
         from flickering_adversarial_video_tpu_torch.data import (
-            TFRecordWriter, make_uint8_example, pack_video_np)
+            PrefetchIterator, TFRecordWriter, list_shards, make_uint8_example, pack_video_np,
+            tfrecord_batches)
+        from flickering_adversarial_video_tpu_torch.utils.labels import kinetics600_labels
         from flickering_adversarial_video_tpu_torch.engine import (
             AttackConfig, AttackEngine, RuntimeFlags)
         from flickering_adversarial_video_tpu_torch.engine import attack_step, loops
@@ -1316,6 +1345,60 @@ def main() -> None:
         print(f"[runner] wrote {SHARDS} shards x {PER_SHARD} records of [{T},{SIZE},{SIZE},3] uint8 "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
+        # the input pipeline alone: the native reader (the runners' default)
+        # against the Python reader, every batch, packed and unpacked, on the
+        # host and as the engine receives it: pinned buffers filled in place
+        # and copied without blocking on the producer thread, each copy queued
+        # behind a busy stream while the reader fills the next buffers
+        shards = list_shards(shard_dir)
+        for prepack in (True, False):
+            key = "video_packed" if prepack else "video"
+            kw = dict(frames=T, prepack=prepack)
+            want = list(tfrecord_batches(shards, B, use_native=False, **kw))
+            host = list(tfrecord_batches(shards, B, **kw))
+            produce = (loops._to_device(b, dev) for b in tfrecord_batches(
+                shards, B, repeat=PIPE_REPEAT, pin_memory=True, **kw))
+            got = []
+            for batch in PrefetchIterator(produce, depth=2):
+                torch.cuda._sleep(100_000_000)  # ~60 ms: longer than a batch's read
+                got.append(batch)
+            torch.cuda.synchronize()
+            if len(want) != SHARDS or len(host) != SHARDS or len(got) != SHARDS * PIPE_REPEAT:
+                fail(f"pipeline ({key}): {len(host)} native and {len(got)} pinned batches, "
+                     f"{len(want)} from the Python reader")
+            same_host = all(np.array_equal(h[key], w[key]) and np.array_equal(h["labels"], w["labels"])
+                            for h, w in zip(host, want))
+            same_dev = all(np.array_equal(g[key].cpu().numpy(), want[i % SHARDS][key])
+                           and np.array_equal(g["labels"].cpu().numpy(), want[i % SHARDS]["labels"])
+                           for i, g in enumerate(got))
+            print(f"[input] {key}: native batches bit-equal to the Python reader's on the host: "
+                  f"{same_host}; {len(got)} pinned batches on the card bit-equal: {same_dev}",
+                  flush=True)
+            if not (same_host and same_dev):
+                fail(f"pipeline ({key}): the native batches differ from the Python reader's")
+            del got
+        torch.cuda.empty_cache()
+
+        def read_rate(**kw):
+            """(best, median) MB/s of parsed batches over 5 passes of the shards."""
+            rates = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                n = sum(np.asarray(b["video_packed" if kw.get("prepack") else "video"]).nbytes
+                        for b in tfrecord_batches(shards, B, frames=T, **kw))
+                rates.append(n / (time.perf_counter() - t0) / 1e6)
+            return max(rates), sorted(rates)[2]
+
+        for tag, kw in (("native, packed, pinned", dict(prepack=True, pin_memory=True)),
+                        ("native, packed", dict(prepack=True)),
+                        ("Python, packed", dict(prepack=True, use_native=False)),
+                        ("native, unpacked", dict(prepack=False)),
+                        ("Python, unpacked", dict(prepack=False, use_native=False))):
+            best, median = read_rate(**kw)
+            print(f"[input] {tag}: {best:.0f} MB/s of parsed batches (best of 5 passes over "
+                  f"{SHARDS} batches of {B}; median {median:.0f}), on the host's one producer "
+                  f"thread", flush=True)
+
         def run_runner(tag, out_dir, max_steps, train_counts, eval_counts, step_alone_ms,
                        profiled=False):
             """universal.run with the counts reset just before and read just
@@ -1383,6 +1466,8 @@ def main() -> None:
             fail(f"runner default: {out['final_eval']['total_valid_videos']} valid videos, "
                  f"expected {SHARDS * PER_SHARD}")
         default_loss = out["history"]["total_loss"][0]
+        default_hist = out["history"]
+        rate_default = out["steps_per_sec_after_first"]
         delta12 = out["state"].delta.clone()
 
         out, said, _, _ = run_runner("resumed", "default", RESUME_STEPS, TRAIN_COUNTS,
@@ -1400,28 +1485,59 @@ def main() -> None:
             run_runner("default, eager step (control)", "eager", RUNNER_STEPS, TRAIN_COUNTS,
                        EVAL_COUNTS, eager_step_ms)
 
-        # the same 12 steps once more under torch.profiler, which slows the
-        # host: the steps/s above are the untraced run's, the shares this one's
-        out, _, wall, prof = run_runner(
-            "default, traced", "traced", RUNNER_STEPS, TRAIN_COUNTS, EVAL_COUNTS, step_ms,
-            profiled=True)
-        spans = (loops.STEP_SPAN, loops.EVAL_SPAN)
-        busy_ms = sum(r[0] for r in kernel_rows(prof, spans=spans))
-        share = loop_share(prof, loops.EVAL_SPAN, spans)
-        if busy_ms > 0 and share is not None:
-            print(f"[profile] runner default, whole run (initial eval, {RUNNER_STEPS} steps, "
+        def traced_share(tag, out_dir):
+            """The 12 steps under torch.profiler, which slows the host: the
+            steps/s are the untraced run's, the busy shares this one's.
+            Returns the steps' busy share (None if not measured) and the run."""
+            out, _, wall, prof = run_runner(
+                f"{tag}, traced", out_dir, RUNNER_STEPS, TRAIN_COUNTS, EVAL_COUNTS, step_ms,
+                profiled=True)
+            spans = (loops.STEP_SPAN, loops.EVAL_SPAN)
+            busy_ms = sum(r[0] for r in kernel_rows(prof, spans=spans))
+            share = loop_share(prof, loops.EVAL_SPAN, spans)
+            if not (busy_ms > 0 and share is not None):
+                print(f"[profile] runner {tag}: torch.profiler gave no device time, eval spans or "
+                      "launch records: busy share not measured")
+                return None, out
+            print(f"[profile] runner {tag}, whole run (initial eval, {RUNNER_STEPS} steps, "
                   f"{len(out['history']['fool_rate_steps']) - 1} more evals, host pipeline): "
                   f"kernels and copies {busy_ms / 1e3:.2f} s of {wall:.2f} s wall; device busy "
                   f"{busy_ms / 1e3 / wall:.1%}, idle {1 - busy_ms / 1e3 / wall:.1%}")
             k_ms, w_ms, unmatched = share
-            print(f"[profile] runner default, the {RUNNER_STEPS} steps alone (traced in the "
+            print(f"[profile] runner {tag}, the {RUNNER_STEPS} steps alone (traced in the "
                   f"loop, its evals taken out): kernels {k_ms / RUNNER_STEPS:.2f} ms a step in "
                   f"{w_ms / RUNNER_STEPS:.1f} ms a step of wall; device busy {k_ms / w_ms:.1%}, "
                   f"idle {1 - k_ms / w_ms:.1%} ({unmatched} kernels without a launch record "
                   f"left out)", flush=True)
-        else:
-            print("[profile] torch.profiler gave no device time, eval spans or launch records: "
-                  "runner busy share not measured")
+            return k_ms / w_ms, out
+
+        # the native reader against the Python reader on this machine, in
+        # turns: native (the run above), Python, native; each untraced for
+        # its rate, then traced for its busy share
+        turns = [("native", rate_default, *traced_share("default", "traced"))]
+        python_reader = (lambda *a, **kw: tfrecord_batches(*a, use_native=False, **kw))
+        with mock.patch.object(universal, "tfrecord_batches", python_reader):
+            out, _, _, _ = run_runner("Python reader (control)", "python", RUNNER_STEPS,
+                                      TRAIN_COUNTS, EVAL_COUNTS, step_ms)
+            turns.append(("Python reader", out["steps_per_sec_after_first"],
+                          *traced_share("Python reader (control)", "python_traced")))
+        for k in ("total_loss", "fool_rate"):
+            if out["history"][k] != default_hist[k]:
+                fail(f"runner: the Python reader's {k} {out['history'][k]} differs from the native "
+                     f"reader's {default_hist[k]}")
+        unpinned = (lambda *a, **kw: tfrecord_batches(*a, **{**kw, "pin_memory": False}))
+        with mock.patch.object(universal, "tfrecord_batches", unpinned):
+            out, _, _, _ = run_runner("native, unpinned batches", "unpinned", RUNNER_STEPS,
+                                      TRAIN_COUNTS, EVAL_COUNTS, step_ms)
+        turns.append(("native, unpinned batches", out["steps_per_sec_after_first"], None, None))
+        out, _, _, _ = run_runner("native, second turn", "native2", RUNNER_STEPS, TRAIN_COUNTS,
+                                  EVAL_COUNTS, step_ms)
+        turns.append(("native, second turn", out["steps_per_sec_after_first"],
+                      *traced_share("native, second turn", "native2_traced")))
+        print("[time] runner readers in turns on this machine (steps/s after the first step; "
+              "busy share of the steps alone): " + "; ".join(
+                  f"{tag} {rate:.3f}" + (f" ({share:.1%})" if share is not None else "")
+                  for tag, rate, share, _ in turns), flush=True)
 
         # ---- 8. the runner with USE_PALLAS_FUSED: True -------------------------------
         ac.USE_PALLAS_FUSED = True
@@ -1630,6 +1746,108 @@ def main() -> None:
             if probs.shape != (1, CLASSES) or not err <= 1e-6:
                 fail("InferenceModel disagrees with engine.forward")
         del eng, infer
+        torch.cuda.empty_cache()
+
+        # ---- 11. the real-victim path: checkpoint files, rgb and rgb600 ---------------
+        # seed 1, not build_victim's seed 0: a silent random init would show.
+        # The card has no TensorFlow to write a DeepMind checkpoint, so the
+        # state goes through the checkpoint's names and back (the TF bundle
+        # reader is held against TensorFlow on the CPU)
+        weights = {}
+        for world, classes in (("rgb", CLASSES), ("rgb600", 600)):
+            state = init_i3d_state(1, classes)
+            back = convert_i3d_var_map(i3d_var_map(state, bare_names=world == "rgb600"),
+                                       eval_type=world)
+            if set(back) != set(state) or not all(torch.equal(back[k], state[k]) for k in state):
+                fail(f"real victim ({world}): the DeepMind names do not convert back bit-equal")
+            weights[world] = (state, os.path.join(tmp, f"i3d_{world}.pt"))
+            convert_cli.save_weights(back, weights[world][1])
+        npz = os.path.join(tmp, "golden_rgb.npz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_cli.main(["i3d", weights["rgb"][1], "--dump-golden", npz])
+        report = golden.verify_golden(npz)
+        print(f"[victim] seed-1 states (400 classes, prefixed names; 600 classes, bare names) "
+              f"through the DeepMind names and back: bit-equal; convert.cli wrote "
+              f"{[os.path.basename(w[1]) for w in weights.values()]}; golden file at "
+              f"{golden.GOLDEN_GEOMETRY['tanh']} verified: {report}", flush=True)
+
+        built = []
+
+        def keep_victim(*args, **kw):
+            built.append(real_build_victim(*args, **kw))
+            return built[-1]
+
+        real_build_victim = common.build_victim
+        cfg.MODEL.CKPT_PATH = weights["rgb"][1]
+        ac.USE_PALLAS_FUSED = False
+        ac.MAX_NUM_STEP = VICTIM_STEPS
+        with mock.patch.object(common, "build_victim", keep_victim):
+            out, said, _, _ = run_runner("real victim (seed-1 .pt)", "victim", VICTIM_STEPS,
+                                         TRAIN_COUNTS, EVAL_COUNTS, step_ms)
+        if "[warn]" in said or "random init" in said:
+            fail("real victim: the runner warned of random init")
+        state = weights["rgb"][0]
+        got_sd = built[0].state_dict()
+        if set(got_sd) != set(state) or not all(torch.equal(got_sd[k].cpu(), state[k]) for k in state):
+            fail("real victim: the runner's model does not hold the checkpoint's weights")
+        direct = InceptionI3D(CLASSES, torch.bfloat16, device=dev)
+        direct.load_state_dict(state)
+        x = torch.from_numpy(first_batch["video"]).to(dev).float() / 128.0 - 1.0
+        with torch.no_grad():
+            mine, theirs = built[0](x)[0], direct(x)[0]
+        print(f"[victim] universal runner on {os.path.basename(weights['rgb'][1])}: "
+              f"{out['steps']} steps, final eval {out['final_eval']}; clean logits of its model "
+              f"bit-equal to a model given the state: {torch.equal(mine, theirs)} (top-1 "
+              f"{mine.argmax(-1).tolist()})", flush=True)
+        if not torch.equal(mine, theirs):
+            fail("real victim: the runner's clean logits differ from the directly loaded model's")
+        del built, direct, mine, theirs, x
+        cfg.MODEL.CKPT_PATH = "data/checkpoints/rgb_imagenet/model.ckpt"
+
+        cfg600 = load_config(os.path.join(HERE, "configs", "run_config_rgb600.yml"))
+        sv6 = cfg600.SINGLE_VIDEO_ATTACK
+        if (cfg600.MODEL.EVAL_TYPE != "rgb600" or sv6.COMPUTE_DTYPE != "bfloat16"
+                or sv6.TARGETED_ATTACK):
+            fail("configs/run_config_rgb600.yml is not the configuration this phase expects")
+        cfg600.MODEL.CKPT_PATH = weights["rgb600"][1]
+        sv6.NPY_PATH = os.path.join(tmp, "npy600")
+        sv6.PKL_RESULT_PATH = os.path.join(tmp, "sv600") + "/"
+        sv6.MAX_NUM_STEP = 1
+        os.makedirs(sv6.NPY_PATH)
+        with contextlib.redirect_stdout(io.StringIO()):
+            eng600, labels600 = common.build_engine(sv6, cfg600.MODEL, frames=SV_FRAMES)
+        clip = np.random.default_rng(SEED + 11).uniform(
+            -1, 1, (1, SV_FRAMES, SIZE, SIZE, 3)).astype(np.float32)
+        top = int(InferenceModel(eng600)(clip).argmax())
+        if labels600 != kinetics600_labels() or eng600.model.num_classes != 600:
+            fail("rgb600: the engine is not 600-way or its labels are not Kinetics-600's")
+        save_npy_clip(os.path.join(sv6.NPY_PATH, f"rgb_0@{labels600[top].replace(' ', '_')}.npy"),
+                      clip)
+        del eng600
+        said = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(said):
+            written = single_video.run(cfg600, frames=SV_FRAMES)
+        torch.cuda.synchronize()
+        got = read_counts(ops)
+        said = said.getvalue()
+        results = [load_result(w) for w in written]
+        n_steps = sum(r["total_steps"] + 1 for r in results)
+        want = {k: n_steps * SV_STEP_COUNTS[k] + SV_CLEAN_COUNTS[k] for k in NAMES}
+        print(f"[victim] rgb600 single-video ({os.path.basename(HERE)}/configs/"
+              f"run_config_rgb600.yml): class {labels600[top]!r} ({top}); pkls "
+              f"{[os.path.basename(w) for w in written]}; steps {n_steps}; fooled "
+              f"{[r['is_adversarial'] for r in results]}; launches {got} (expected {want})",
+              flush=True)
+        if len(written) != 1 or not os.path.isfile(written[0]) or "[warn]" in said:
+            fail("rgb600: expected one pkl and no random-init warning")
+        r = results[0]
+        if r["softmax_init"].shape[-1] != 600 or not all(
+                math.isfinite(v) for k in ("total_loss_l", "adv_loss_l", "reg_loss_l") for v in r[k]):
+            fail("rgb600: the pkl's softmax is not 600-way or a loss is not finite")
+        if got != want:
+            fail("rgb600: kernel launch counts differ from the per-step counts")
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

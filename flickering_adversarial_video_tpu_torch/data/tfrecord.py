@@ -10,10 +10,13 @@ with the JAX package's.
 TFRecord framing: {u64 length, u32 masked-crc32c(length), bytes data,
 u32 masked-crc32c(data)}.
 
-Not ported yet: the native C++ reader (so there is no ``use_native``
-argument: no flag pretends to be native over a Python fallback), the float
-schema, ``prepack="view"`` (a TPU layout), ``make_tf_dataset`` and the
-multi-host shard split.
+``tfrecord_batches`` reads through the native C++ reader
+(``data/native_reader.py``) by default, as the JAX package does; unlike the
+JAX package, a reader that fails to build raises, and ``use_native=False``
+is the only way onto the Python codec below.
+
+Not ported: the float schema, ``prepack="view"`` (a TPU layout),
+``make_tf_dataset`` and the multi-host shard split.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from functools import lru_cache
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from . import example_proto
 from .packing import pack_video_np
@@ -229,6 +233,47 @@ def list_shards(paths: Sequence[str] | str, limit: Optional[int] = None) -> List
     return shards[:limit] if limit else shards
 
 
+def _batch_buffer(n: int, shape, pin_memory: bool):
+    """(buffer, numpy view of it) for n clips of `shape`: a page-locked torch
+    tensor from the CUDA caching host allocator when `pin_memory`, else a
+    numpy array (the buffer itself)."""
+    if pin_memory:
+        buf = torch.empty((n, *shape), dtype=torch.uint8, pin_memory=True)
+        return buf, buf.numpy()
+    buf = np.empty((n, *shape), np.uint8)
+    return buf, buf
+
+
+def _native_batches(reader, shards, batch_size, frames, repeat, drop_remainder, packed,
+                    pin_memory, key):
+    """Fill each batch buffer in place, record by record, straight from the
+    shards: one copy a clip (and the pack inside it), no per-record array
+    and no stack.  Records run on across shard ends into one batch."""
+    shape = reader.packed_shape(frames) if packed else (
+        frames, reader.height, reader.width, reader.channels)
+    clip_bytes = reader.record_bytes(frames)
+
+    def new():
+        buf, view = _batch_buffer(batch_size, shape, pin_memory)
+        return buf, view.ctypes.data, np.empty(batch_size, np.int64)
+
+    buf, addr, labels = new()
+    filled = 0
+    for _ in range(repeat):
+        for shard in shards:
+            with reader.open(shard) as handle:
+                while True:
+                    filled += reader.fill(handle, shard, addr + filled * clip_bytes,
+                                          labels[filled:], frames, batch_size - filled, packed)
+                    if filled < batch_size:
+                        break  # the shard is done
+                    yield {key: buf, "labels": labels}
+                    buf, addr, labels = new()
+                    filled = 0
+    if filled and not drop_remainder:
+        yield {key: buf[:filled], "labels": labels[:filled]}
+
+
 def tfrecord_batches(
     shards: Sequence[str],
     batch_size: int,
@@ -238,18 +283,33 @@ def tfrecord_batches(
     drop_remainder: bool = True,
     height: int = 224,
     width: int = 224,
+    use_native: bool = True,
     prepack: bool = False,
+    pin_memory: bool = False,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield {'video': uint8 [B,T,H,W,C], 'labels': int64 [B]} batches.
 
     `frames` crops to the trailing `frames` frames and skips clips that are
     shorter, whatever `prepack` says, so that toggling PREPACK_INPUT never
-    changes the dataset's composition.
+    changes the dataset's composition.  Records run on across shard ends
+    into one batch; `repeat` passes over the shards, and the last partial
+    batch is kept unless `drop_remainder`.
 
     prepack=True yields {'video_packed': [B,T/2,H/2,W/2,8C] uint8} instead:
     the space-to-depth layout of the attack step's input head
-    (ops/packed_apply.py), packed on the host by data.packing.pack_video_np.
-    Requires `frames` and even geometry.
+    (ops/packed_apply.py), packed on the host (in C++ inside the native
+    reader's record copy, or by data.packing.pack_video_np on the Python
+    path).  Requires `frames` and even geometry.
+
+    use_native=True (the default) reads through the native C++ reader, and
+    raises if it cannot be built; False is the Python codec.  Both give the
+    same batches.
+
+    pin_memory=True puts each batch's video in page-locked memory, a torch
+    tensor filled in place, so that the move to the card needs no staging
+    copy.  Every batch gets a new buffer from the CUDA caching host
+    allocator, which hands a freed buffer out again only after the
+    non-blocking copies that read it have completed.
     """
     if prepack not in (False, True):
         raise ValueError(f"prepack={prepack!r}: only False and True are ported")
@@ -259,25 +319,38 @@ def tfrecord_batches(
         if frames % 2 or height % 2 or width % 2:
             raise ValueError("prepack needs even frames/height/width")
     key = "video_packed" if prepack else "video"
+    shards = list(shards)
+
+    if use_native:
+        from .native_reader import NativeTFRecordReader
+
+        reader = NativeTFRecordReader(height=height, width=width)
+        if frames is not None:
+            yield from _native_batches(reader, shards, batch_size, frames, repeat,
+                                       drop_remainder, prepack, pin_memory, key)
+            return
+        records = (r for _ in range(repeat) for s in shards for r in reader.read_parsed(s))
+    else:
+        records = (parse_example_uint8(rec, height=height, width=width)
+                   for _ in range(repeat) for s in shards for rec in read_records(s))
 
     def emit(videos, labels):
-        return {key: np.stack(videos), "labels": np.asarray(labels, np.int64)}
+        buf, view = _batch_buffer(len(videos), videos[0].shape, pin_memory)
+        np.stack(videos, out=view)
+        return {key: buf, "labels": np.asarray(labels, np.int64)}
 
     videos, labels = [], []
-    for _ in range(repeat):
-        for shard in shards:
-            for rec in read_records(shard):
-                video, label = parse_example_uint8(rec, height=height, width=width)
-                if frames is not None:
-                    if video.shape[0] < frames:
-                        continue
-                    video = video[-frames:]
-                if prepack:
-                    video = pack_video_np(video)
-                videos.append(video)
-                labels.append(label)
-                if len(videos) == batch_size:
-                    yield emit(videos, labels)
-                    videos, labels = [], []
+    for video, label in records:
+        if frames is not None:
+            if video.shape[0] < frames:
+                continue
+            video = video[-frames:]
+        if prepack:
+            video = pack_video_np(video)
+        videos.append(video)
+        labels.append(label)
+        if len(videos) == batch_size:
+            yield emit(videos, labels)
+            videos, labels = [], []
     if videos and not drop_remainder:
         yield emit(videos, labels)

@@ -203,14 +203,18 @@ def single_video_attack(
     }
 
 
-def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     """Move a host batch: through pinned memory and a non-blocking copy on
-    CUDA, so that the copy overlaps the step that is running."""
+    CUDA, so that the copy overlaps the step that is running.  A tensor the
+    pipeline already filled in pinned memory (``tfrecord_batches(pin_memory=True)``)
+    is copied from where it lies."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
         if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
+            if not t.is_pinned():
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=True)
         out[k] = t
     return out
 

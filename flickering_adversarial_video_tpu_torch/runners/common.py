@@ -1,10 +1,10 @@
 """Shared runner plumbing: victim construction + engine wiring from config.
 
 Port of the JAX package's ``runners/common.py`` for the I3D victim on one
-device.  Real victims need the DeepMind I3D checkpoint and its conversion,
-which is not ported yet: an existing checkpoint path raises, a missing one
-gives seeded random weights with a loud warning (the attack machinery is
-weight-agnostic).
+device.  A checkpoint is a DeepMind TF checkpoint (its prefix; converted on
+load by the port's own bundle reader, no TensorFlow) or a ``.pt`` state dict
+that ``convert.cli`` wrote; a missing one gives seeded random weights with a
+loud warning (the attack machinery is weight-agnostic).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Any, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from ..attack import FlickerSpec
-from ..convert import init_i3d_state
+from ..convert import EVAL_TYPES, init_i3d_state, load_weights
 from ..engine import AttackConfig, AttackEngine
 from ..models.registry import MODEL_REGISTRY, create_model
 from ..utils.labels import load_label_map
@@ -37,6 +37,16 @@ def pair_pools_from_env(environ: Optional[Mapping[str, str]] = None) -> Tuple[st
     return ("MaxPool3d_2a_3x3", "MaxPool3d_3a_3x3")
 
 
+def infer_num_classes(state: Optional[Mapping[str, Any]], model_name: str,
+                      default: Optional[int] = None) -> int:
+    """The head width present in a state dict (checkpoint truth), else
+    `default`, else the registry's."""
+    bias = (state or {}).get("Logits.Conv3d_0c_1x1.conv_3d.bias")
+    if bias is not None:
+        return int(bias.shape[0])
+    return default or MODEL_REGISTRY[model_name].num_classes
+
+
 def build_victim(
     model_name: str,
     ckpt_path: Optional[str],
@@ -48,26 +58,33 @@ def build_victim(
     device=None,
     pair_pools: Sequence[str] = (),
 ) -> torch.nn.Module:
-    """The frozen victim on `device` (CUDA unless told otherwise).  A missing
-    checkpoint falls back to random weights from seed 0 with a loud warning;
-    a checkpoint that exists is not silently ignored.  `pair_pools`: see
-    :func:`pair_pools_from_env`."""
-    if eval_type != "rgb":
-        raise NotImplementedError(f"EVAL_TYPE {eval_type!r}: only the Kinetics-400 'rgb' world is ported")
+    """The frozen victim on `device` (CUDA unless told otherwise).
+
+    `ckpt_path` is a DeepMind TF checkpoint prefix (converted on load,
+    convert/tf_i3d.py) or a ``.pt`` state dict (convert.cli); a ``.msgpack``
+    raises.  eval_type='rgb600' selects the Kinetics-600 world: prefix-less
+    checkpoint names and a 600-way head.  The head is as wide as
+    `num_classes`, else as the checkpoint's.  Only when no file exists at
+    `ckpt_path` do the weights come from seed 0, with a loud warning.
+    `pair_pools`: see :func:`pair_pools_from_env`."""
+    if eval_type not in EVAL_TYPES:
+        raise ValueError(f"EVAL_TYPE {eval_type!r}: choose from {EVAL_TYPES}")
+    state = None
     if ckpt_path and (os.path.exists(ckpt_path) or os.path.exists(ckpt_path + ".index")):
-        raise NotImplementedError(
-            f"a checkpoint exists at {ckpt_path!r}, but checkpoint conversion "
-            "(convert/tf_i3d.py; ROADMAP.md queue A item 12) is not ported yet"
-        )
-    model, spec = create_model(
+        state = load_weights(ckpt_path, eval_type=eval_type)
+    num_classes = num_classes or infer_num_classes(
+        state, model_name, 600 if eval_type == "rgb600" else None)
+    model, _ = create_model(
         model_name, num_classes=num_classes, compute_dtype=compute_dtype, device=device,
         pair_pools=pair_pools,
     )
-    print(
-        f"[warn] no checkpoint for {model_name} at {ckpt_path!r}; "
-        "using random init (attack mechanics only, no meaningful victims)"
-    )
-    model.load_state_dict(init_i3d_state(0, num_classes or spec.num_classes))
+    if state is None:
+        print(
+            f"[warn] no checkpoint for {model_name} at {ckpt_path!r}; "
+            "using random init (attack mechanics only, no meaningful victims)"
+        )
+        state = init_i3d_state(0, num_classes)
+    model.load_state_dict(state)
     return model
 
 
@@ -110,7 +127,8 @@ def build_engine(
     )
 
     labels = load_label_map(
-        model_cfg.get("LABEL_MAP_PATH"), num_classes=num_classes or reg.num_classes
+        model_cfg.get("LABEL_MAP_PATH"),
+        num_classes=getattr(model, "num_classes", None) or num_classes or reg.num_classes,
     )
     targeted = bool(attack_cfg.get("TARGETED_ATTACK", False))
     target_class = labels.index(attack_cfg.get("TARGETED_CLASS")) if targeted else None
@@ -147,7 +165,9 @@ def make_shard_batches(
 
     Host-prepacked input defaults on (PREPACK_INPUT) whenever the engine's
     packed path exists and the geometry is even; with USE_PALLAS_FUSED the
-    packed path is off and the pipeline delivers unpacked uint8 clips.
+    packed path is off and the pipeline delivers unpacked uint8 clips.  The
+    shards are read by the native reader (the pipeline's default), into
+    pinned buffers when the engine is on CUDA.
 
     `tfrecord_batches_fn` is passed in (the runner's module-level symbol) so
     tests can monkeypatch it per runner."""
@@ -164,7 +184,7 @@ def make_shard_batches(
     def batches(shards):
         return tfrecord_batches_fn(
             shards, batch_size, frames=frames, height=size_eff,
-            width=size_eff, prepack=prepack,
+            width=size_eff, prepack=prepack, pin_memory=engine.device.type == "cuda",
         )
 
     return batches, prepack

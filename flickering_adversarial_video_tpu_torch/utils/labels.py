@@ -1,15 +1,17 @@
-"""Label maps: Kinetics-400.
+"""Label maps: Kinetics-400 and Kinetics-600.
 
 The port's own copy of the JAX package's ``utils/labels.py``, cut to what the
-I3D universal runner uses.  The reference keeps its label maps as
-line-per-class text files; the Kinetics-400 class names are embedded here so
-the package stands alone, and an external file in the same format loads
-through :func:`load_label_map`.  The Kinetics-600 and UCF-101 lists come with
-the rgb600 victims: asking for them raises.
+I3D runners use.  The reference keeps its label maps as line-per-class text
+files; the Kinetics-400 class names are embedded here and the Kinetics-600
+list is the port's own copy of the JAX package's file
+(``label_maps/label_map_600.txt``), so the package stands alone, and an
+external file in the same format loads through :func:`load_label_map`.  The
+UCF-101 list is not ported yet: asking for it raises.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional
 
 # Kinetics-400 class names (public dataset metadata; the order matches the
@@ -420,6 +422,14 @@ def kinetics400_labels() -> List[str]:
     return _KINETICS400.split("\n")
 
 
+def kinetics600_labels() -> List[str]:
+    """Kinetics-600 class names (the reference's data/label_map_600.txt,
+    used with eval_type 'rgb600')."""
+    path = os.path.join(os.path.dirname(__file__), "label_maps", "label_map_600.txt")
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
 def labels_for_num_classes(num_classes: int) -> List[str]:
     """The dataset label map for a victim head of `num_classes`.  A head
     size without a public class list gets placeholder names, so that a
@@ -427,9 +437,11 @@ def labels_for_num_classes(num_classes: int) -> List[str]:
     dataset's class index."""
     if num_classes == 400:
         return kinetics400_labels()
-    if num_classes in (600, 101):
+    if num_classes == 600:
+        return kinetics600_labels()
+    if num_classes == 101:
         raise NotImplementedError(
-            f"the {num_classes}-class label map (Kinetics-600 / UCF-101) is not ported yet"
+            "the UCF-101 label map is not ported yet (ROADMAP.md queue A item 13)"
         )
     return [f"class_{i:03d}" for i in range(num_classes)]
 

@@ -507,6 +507,46 @@ class TestGraphedStep:
         assert ops.launch_counts() == graphed_short
 
 
+@pytest.mark.cuda
+class TestPinnedPipeline:
+    """The runners' input path on the card: the native reader fills each
+    batch in pinned memory and ``engine.loops._to_device`` copies it with a
+    non-blocking copy on the producer thread.  A pinned buffer refilled
+    while a copy still reads it would hand the engine a wrong batch: over
+    more than 20 batches, each on a stream kept busy so that the copies
+    queue, every device batch equals the Python reader's host batch."""
+
+    def test_device_batches_equal_the_host_batches(self, tmp_path):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU")
+        from flickering_adversarial_video_tpu_torch.data import (
+            PrefetchIterator, TFRecordWriter, make_uint8_example, tfrecord_batches)
+        from flickering_adversarial_video_tpu_torch.engine.loops import _to_device
+
+        rng = np.random.default_rng(4)
+        for s in range(2):
+            with TFRecordWriter(str(tmp_path / f"s{s}.tfrecords")) as w:
+                for i in range(21):
+                    clip = rng.integers(0, 256, (8 + i % 3, 32, 32, 3), dtype=np.uint8)
+                    w.write(make_uint8_example(clip, i))
+        shards = sorted(str(p) for p in tmp_path.glob("*.tfrecords"))
+        for prepack in (True, False):
+            kw = dict(frames=8, height=32, width=32, prepack=prepack)
+            want = list(tfrecord_batches(shards, 2, use_native=False, **kw))
+            produce = (_to_device(b, torch.device("cuda"))
+                       for b in tfrecord_batches(shards, 2, pin_memory=True, **kw))
+            got = []
+            for batch in PrefetchIterator(produce, depth=2):
+                torch.cuda._sleep(2_000_000)  # the next copies queue behind this
+                got.append(batch)
+            torch.cuda.synchronize()
+            assert len(got) == len(want) == 21
+            key = "video_packed" if prepack else "video"
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g[key].cpu().numpy(), w[key])
+                np.testing.assert_array_equal(g["labels"].cpu().numpy(), w["labels"])
+
+
 def _bn_t(gen, c):
     return (
         torch.randn(c, generator=gen),

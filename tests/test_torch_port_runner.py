@@ -37,6 +37,7 @@ from flickering_adversarial_video_tpu_torch.convert import (
     attack_state_to_jax,
     init_i3d_state,
 )
+from flickering_adversarial_video_tpu_torch.convert.tf_bundle import BundleError
 from flickering_adversarial_video_tpu_torch.data import tfrecord as ttfr
 from flickering_adversarial_video_tpu_torch.data.video_dataset import PrefetchIterator
 from flickering_adversarial_video_tpu_torch.engine import AttackState, RuntimeFlags
@@ -91,8 +92,14 @@ class TestLabelsAndRegistry:
 
     @pytest.mark.parametrize("n", [600, 101])
     def test_unported_label_maps_raise(self, n):
-        with pytest.raises(NotImplementedError):
-            tlabels.labels_for_num_classes(n)
+        """Kinetics-600 is ported (the rgb600 victims) and equals the JAX
+        package's map; UCF-101 still raises."""
+        if n == 600:
+            assert tlabels.labels_for_num_classes(n) == jlabels.labels_for_num_classes(n)
+            assert len(set(tlabels.labels_for_num_classes(n))) == 600
+        else:
+            with pytest.raises(NotImplementedError, match="item 13"):
+                tlabels.labels_for_num_classes(n)
 
     def test_label_map_file(self, tmp_path):
         p = tmp_path / "map.txt"
@@ -205,8 +212,16 @@ class TestTFRecord:
             list(ttfr.tfrecord_batches([], 2, prepack=True))
         with pytest.raises(ValueError):
             list(ttfr.tfrecord_batches([], 2, frames=3, prepack=True))
-        with pytest.raises(TypeError):
-            ttfr.tfrecord_batches([], 2, use_native=True)
+        # use_native is ported: the native reader gives the Python codec's batches
+        rng = np.random.default_rng(3)
+        _write(ttfr, tmp_path / "s0.tfrecords", _clips(rng, [4, 2, 6, 4, 4]))
+        kw = dict(frames=FRAMES, height=SIZE, width=SIZE, prepack=True)
+        native = list(ttfr.tfrecord_batches([str(tmp_path / "s0.tfrecords")], 2, use_native=True, **kw))
+        plain = list(ttfr.tfrecord_batches([str(tmp_path / "s0.tfrecords")], 2, use_native=False, **kw))
+        assert len(native) == len(plain) == 2
+        for g, w in zip(native, plain):
+            np.testing.assert_array_equal(g["video_packed"], w["video_packed"])
+            np.testing.assert_array_equal(g["labels"], w["labels"])
 
 
 # ---------------- prefetcher, checkpointer, writer ----------------
@@ -629,8 +644,10 @@ class TestBuildVictimAndPrepackGate:
         assert eng.model.num_classes == 400 and eng.device.type == "cpu"
 
     def test_existing_checkpoint_is_not_ignored(self, tmp_path):
+        """A checkpoint file that exists is read, never replaced by random
+        init: an empty index fails in the bundle reader."""
         (tmp_path / "model.ckpt.index").write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(BundleError, match="shorter than a table footer"):
             tcommon.build_victim("i3d", str(tmp_path / "model.ckpt"), torch.float32, 4, 16,
                                  device="cpu")
 
