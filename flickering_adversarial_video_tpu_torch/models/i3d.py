@@ -1,8 +1,11 @@
 """Inception-v1 Inflated 3D ConvNet (I3D) in PyTorch, NDHWC, frozen victim.
 
 Port of the JAX package's ``models/i3d.py`` (``InceptionI3D``): the packed
-space-to-depth stem (kernel B1), MaxPool3d_2a/3a (kernels B5/B6, or the
-index pair B9 for the endpoints named in ``pair_pools``), Unit3D convs
+space-to-depth stem (kernel B1) when T, H and W are even, else the unpacked
+7x7x7 stride-2 SAME ``Unit3D`` (a cuDNN conv, as the JAX package's
+``models/i3d.py:668-673``), MaxPool3d_2a/3a (kernels B5/B6, or the index
+pair B9 for the endpoints named in ``pair_pools``; the generic pool where
+the pool's H or W is odd, as the JAX package's ``_max_pool_same``), Unit3D convs
 (conv + frozen BN + relu, backward through kernel B2 for KT=3), nine Inception
 Mixed blocks with the stride-1 branch pool (kernels B3/B4), MaxPool3d_4a/5a,
 and the Logits head: a VALID average pool of window (min(2,T), min(7,H),
@@ -29,9 +32,9 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.conv_unit import conv_bn_relu
-from ..ops.maxpool import pool4a, pool5a
+from ..ops.maxpool import max_pool_same, pool4a, pool5a
 from ..ops.pool_s1 import max_pool_333
-from ..ops.pool_strided import max_pool_133_s2, max_pool_133_s2_pair
+from ..ops.pool_strided import STRIDES, WINDOW, max_pool_133_s2, max_pool_133_s2_pair
 from ..ops.space_to_depth import pack_input, pack_stem_kernel
 from ..ops.stem_conv import stem_bn_relu
 
@@ -150,8 +153,8 @@ class _LogitsUnit(nn.Module):
 
 
 class InceptionI3D(nn.Module):
-    """Full I3D.  ``forward(x)`` takes [B, T, H, W, 3] in [-1, 1] with even
-    T/H/W and returns (output, endpoints) like the JAX model; ``trunk(y)``
+    """Full I3D.  ``forward(x)`` takes [B, T, H, W, 3] in [-1, 1] and returns
+    (output, endpoints) like the JAX model; ``trunk(y)``
     runs everything after the stem from the stem output (the attack step
     computes the stem inside its input head).  Weights start at zero: load a
     state dict (``convert.flax_i3d``).  Runs on CUDA unless ``device`` says
@@ -199,8 +202,14 @@ class InceptionI3D(nn.Module):
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         if final_endpoint not in I3D_ENDPOINTS:
             raise ValueError(f"Unknown final endpoint {final_endpoint}")
-        xp = pack_input(x.to(self.compute_dtype))
-        y = stem_bn_relu(xp, *self.stem_params())
+        x = x.to(self.compute_dtype)
+        if all(s % 2 == 0 for s in x.shape[1:4]):
+            y = stem_bn_relu(pack_input(x), *self.stem_params())
+        else:
+            stem = self.Conv3d_1a_7x7
+            bn = stem.batch_norm
+            y = conv_bn_relu(x, stem.conv_3d.weight, bn.running_mean, bn.running_var, bn.bias,
+                             stride=(2, 2, 2))
         endpoints: Dict[str, torch.Tensor] = {}
         return self.trunk(y, final_endpoint, endpoints), endpoints
 
@@ -218,6 +227,8 @@ class InceptionI3D(nn.Module):
             return final_endpoint == name
 
         def strided_pool(name: str, v: torch.Tensor) -> torch.Tensor:
+            if v.shape[2] % 2 or v.shape[3] % 2:  # no kernel in either package
+                return max_pool_same(v, WINDOW, STRIDES)
             return max_pool_133_s2_pair(v) if name in self.pair_pools else max_pool_133_s2(v)
 
         if done("Conv3d_1a_7x7"):

@@ -126,11 +126,14 @@ def max_pool_same(x: torch.Tensor, window: Sequence[int], strides: Sequence[int]
 
 def pool4a(x: torch.Tensor) -> torch.Tensor:
     """MaxPool3d_4a_3x3 ((3,3,3)/(2,2,2)): the spatial (1,3,3)/(1,2,2) pool
-    (kernel B5), then the temporal window-3 stride-2 pool.  The chained
-    backward routes temporal first, then spatial -- the composite order."""
-    from .pool_strided import max_pool_133_s2
+    (kernel B5 at even H and W, else the generic pool), then the temporal
+    window-3 stride-2 pool.  The chained backward routes temporal first,
+    then spatial -- the composite order."""
+    from .pool_strided import STRIDES, WINDOW, max_pool_133_s2
 
-    return max_pool_same(max_pool_133_s2(x), (3, 1, 1), (2, 1, 1))
+    odd = x.shape[2] % 2 or x.shape[3] % 2
+    y = max_pool_same(x, WINDOW, STRIDES) if odd else max_pool_133_s2(x)
+    return max_pool_same(y, (3, 1, 1), (2, 1, 1))
 
 
 def pool5a(x: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,14 @@ MaxPool3d_3a and the spatial half of MaxPool3d_4a.
 
 B5, B6 and B9 march a block down H over a frame's full width, a thread a
 window column and 16-byte channel vector, so they take a width up to 1024
-(the wrappers raise above it; B1 limits the clip to 256).
+(the wrappers raise above it).
+
+Callers route the pool by its static geometry, as the JAX package's
+``_max_pool_same`` (``models/i3d.py:485-509``) and ``ops/maxpool.max_pool_same``
+do: even H and W take B5/B6 (or the pair B9); an odd H or W takes the generic
+SAME pool of ``ops/maxpool.py`` (pads (1,1) on that axis), which is XLA's
+reduce-window and select-and-scatter in the JAX package, no Pallas kernel,
+with the pair switch set or not.
 """
 
 from __future__ import annotations
@@ -246,3 +253,4 @@ def max_pool_133_s2_pair(x: torch.Tensor) -> torch.Tensor:
     each); a forward that needs no gradient stores none."""
     want_grad = torch.is_grad_enabled() and x.requires_grad
     return _Pool133S2Pair.apply(x.contiguous(), want_grad)
+

@@ -13,7 +13,14 @@ Port of ``stem_tmajor.stem_conv_bn_relu_view`` / ``stem_bn_relu_tmajor``
   relu keeps a NaN, as ``jnp.maximum`` does.  Bound by operations on the H100
   (about 631 GFLOP per call at B=8, T=64, 224^2); the design (a persistent
   wgmma implicit GEMM, the weight resident in shared memory) is in the CUDA
-  source.  W' <= 128; any B, T', H'.
+  source.  The kernel takes a row of W' <= 128 (``MAX_W``); any B, T', H'.
+  A wider row (``--size`` above 256; the Pallas kernel has no width limit)
+  is split into segments of output columns (``stem_segments``): each launch
+  reads its segment's input columns with a halo of 1 on the left and 2 on
+  the right, which the kernel's own (1,2) pads then see as real data except
+  at the true edges, and its halo outputs are cropped.  Each output sums the
+  same 64 taps in the same order as in one launch, so the result does not
+  depend on the segmentation: 2 launches at W' = 144.
 * ``stem_bn_relu`` is the autograd op for a stem whose INPUT needs a
   gradient (the model's own forward): B1 forward; backward as ``_tmajor_bwd``
   -- one wide transposed conv of g*(y>0)*rsqrt(var+eps), then the temporal
@@ -34,6 +41,7 @@ from .stem_combine import catbwd_part, temporal_combine
 
 CIN, COUT, TAPS = 24, 64, 4
 PADS = (1, 2)
+MAX_W = 128  # the kernel's widest row (csrc/stem_conv.cu MAX_W)
 BWD_PADS = ((2, 1), (2, 1))  # transposed spatial pads of the (1,2) forward
 
 
@@ -53,14 +61,42 @@ def stem_conv_bn_relu_plain(xp, pk, mean, var, bias, eps: float = 1e-3) -> torch
     return torch.relu((y - mean.to(dt)) * mul + bias.to(dt)).contiguous()
 
 
-def stem_conv_bn_relu(xp, pk, mean, var, bias, eps: float = 1e-3) -> torch.Tensor:
-    """B1: xp [B,T',H',W',24], pk [4,4,4,24,64], BN vectors [64] -> y [B,T',H',W',64]."""
+def stem_segments(w: int, max_w: int = MAX_W):
+    """[(a, b, lo, hi)]: output columns [a, b) of a row of width `w`, each
+    computed from input columns [lo, hi) = [a-1, b+2) clipped to [0, w), with
+    hi - lo <= max_w; the fewest equal segments.  One (0, w, 0, w) when the
+    row fits."""
+    k = 1
+    while True:
+        cuts = [round(i * w / k) for i in range(k + 1)]
+        segs = [(a, b, max(a - 1, 0), min(b + 2, w)) for a, b in zip(cuts, cuts[1:])]
+        if all(hi - lo <= max_w for _, _, lo, hi in segs):
+            return segs
+        k += 1
+
+
+def segmented(xp: torch.Tensor, conv, max_w: int = MAX_W) -> torch.Tensor:
+    """conv (a packed-stem function of x [B,T',H',W',24] -> [B,T',H',W',64])
+    over the column segments of ``stem_segments``, assembled."""
+    segs = stem_segments(xp.shape[3], max_w)
+    if len(segs) == 1:
+        return conv(xp)
+    parts = [conv(xp[:, :, :, lo:hi].contiguous())[:, :, :, a - lo:b - lo]
+             for a, b, lo, hi in segs]
+    return torch.cat(parts, dim=3)
+
+
+def stem_conv_bn_relu(xp, pk, mean, var, bias, eps: float = 1e-3,
+                      max_w: int = MAX_W) -> torch.Tensor:
+    """B1: xp [B,T',H',W',24], pk [4,4,4,24,64], BN vectors [64] -> y
+    [B,T',H',W',64]; one launch a segment of at most `max_w` input columns."""
     if xp.dim() != 5 or xp.shape[-1] != CIN or tuple(pk.shape) != (TAPS, TAPS, TAPS, CIN, COUT):
         raise ValueError(f"stem expects x [B,T,H,W,{CIN}] and pk [4,4,4,{CIN},{COUT}], "
                          f"got {tuple(xp.shape)} and {tuple(pk.shape)}")
+    if not 4 <= max_w <= MAX_W:
+        raise ValueError(f"max_w {max_w}: the kernel takes rows of 4 to {MAX_W} columns")
     if not xp.is_cuda:
         return stem_conv_bn_relu_plain(xp, pk, mean, var, bias, eps)
-    b, t, h, w, _ = xp.shape
     xp = xp.contiguous()
     pk = pk.to(xp.dtype).contiguous()
     code = kernels.check(xp, pk)
@@ -68,14 +104,19 @@ def stem_conv_bn_relu(xp, pk, mean, var, bias, eps: float = 1e-3) -> torch.Tenso
     mul_f = torch.rsqrt(var.float() + eps).contiguous()
     bias_f = bias.float().contiguous()
     kernels.check(mean_f, mul_f, bias_f, dtype=torch.float32)
-    y = torch.empty((b, t, h, w, COUT), dtype=xp.dtype, device=xp.device)
-    kernels.launch(
-        "fav_stem_conv_bn_relu", xp.data_ptr(), pk.data_ptr(), mean_f.data_ptr(),
-        mul_f.data_ptr(), bias_f.data_ptr(), y.data_ptr(), b, t, h, w, code,
-        kernels.stream(),
-    )
-    stem_conv_bn_relu.launches += 1
-    return y
+
+    def launch(x: torch.Tensor) -> torch.Tensor:
+        b, t, h, w, _ = x.shape
+        y = torch.empty((b, t, h, w, COUT), dtype=x.dtype, device=x.device)
+        kernels.launch(
+            "fav_stem_conv_bn_relu", x.data_ptr(), pk.data_ptr(), mean_f.data_ptr(),
+            mul_f.data_ptr(), bias_f.data_ptr(), y.data_ptr(), b, t, h, w, code,
+            kernels.stream(),
+        )
+        stem_conv_bn_relu.launches += 1
+        return y
+
+    return segmented(xp, launch, max_w)
 
 
 stem_conv_bn_relu.launches = 0
