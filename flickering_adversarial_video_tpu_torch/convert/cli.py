@@ -9,39 +9,61 @@ Convert once, load fast:
 The port's counterpart of the JAX package's ``convert/cli.py``.  The TF
 checkpoint is read by the port's own bundle reader (``convert/tf_bundle.py``),
 without TensorFlow, so the command is the same on the CPU and on the card.
-The output is ``torch.save`` of the InceptionI3D state dict, the port's
-counterpart of the ``.msgpack``; a ``.pt`` input is taken as converted
-already (for ``--dump-golden`` without converting again).  ``--dump-golden``
-runs the model, on the card unless ``--device cpu``.
+The output is ``torch.save`` of the InceptionI3D state dict (``--out
+w.pt``), or the JAX package's own format, the Flax variables tree in flax's
+msgpack (``--out w.msgpack``; ``save_variables`` / ``load_variables``, the
+counterparts of the JAX package's, through the port's own codec
+``convert/flax_msgpack.py``: the card has no flax and no ``msgpack``).  A
+``.pt`` or ``.msgpack`` input is taken as converted already (for
+``--dump-golden`` or a change of format without converting again).
+``--dump-golden`` runs the model, on the card unless ``--device cpu``.
 
-Not ported: reading a ``.msgpack`` (it needs flax's msgpack codec; ROADMAP.md
-queue A item 12) and the torch-world models (item 10).
+Not ported: the torch-world models (ROADMAP.md queue A item 10).
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import torch
+
+from . import flax_msgpack
+from .flax_i3d import from_flax_variables, to_flax_variables
 
 TORCH_WORLD = ("r3d_18", "mc3_18", "r2plus1d_18", "r2plus1d_34")
 
 
+def save_variables(variables: Dict[str, Any], path: str) -> None:
+    """A Flax variables tree (numpy or torch leaves) to a ``.msgpack``, the
+    bytes ``flax.serialization.msgpack_serialize`` writes."""
+    with open(path, "wb") as f:
+        f.write(flax_msgpack.serialize(variables))
+
+
+def load_variables(path: str) -> Dict[str, Any]:
+    """``flax.serialization.msgpack_restore`` of the file at `path`."""
+    with open(path, "rb") as f:
+        return flax_msgpack.restore(f.read())
+
+
 def save_weights(state: Mapping[str, torch.Tensor], path: str) -> None:
+    """The I3D state dict to `path`: the Flax tree in a ``.msgpack``, else
+    ``torch.save``."""
+    if str(path).endswith(".msgpack"):
+        save_variables(to_flax_variables(state), path)
+        return
     torch.save({k: v.detach().cpu().contiguous() for k, v in state.items()}, path)
 
 
 def load_weights(path: str, eval_type: str = "rgb") -> Dict[str, torch.Tensor]:
-    """The I3D state dict at `path`: a ``.pt``/``.pth`` that
+    """The I3D state dict at `path`: a ``.msgpack`` of the JAX I3D's Flax
+    variables (mapped by ``convert/flax_i3d.py``), a ``.pt``/``.pth`` that
     :func:`save_weights` wrote, or a DeepMind TF checkpoint prefix,
     converted on load (`eval_type` 'rgb600': prefix-less names)."""
     path = str(path)
     if path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: reading a .msgpack of Flax variables needs flax's msgpack codec "
-            "(ROADMAP.md queue A item 12); convert the TF checkpoint to a .pt instead"
-        )
+        return from_flax_variables(load_variables(path))
     if path.endswith((".pt", ".pth")):
         state = torch.load(path, map_location="cpu", weights_only=True)
         if not isinstance(state, dict):
@@ -65,10 +87,10 @@ def main(argv=None):
     p.add_argument("model", choices=["i3d", *TORCH_WORLD])
     p.add_argument(
         "ckpt",
-        help="TF checkpoint prefix (i3d), or an already-converted .pt (for --dump-golden "
-        "without converting again)",
+        help="TF checkpoint prefix (i3d), or an already-converted .pt or .msgpack (for "
+        "--dump-golden or a change of format without converting again)",
     )
-    p.add_argument("--out", help="output .pt path")
+    p.add_argument("--out", help="output path: .pt (torch.save) or .msgpack (Flax variables)")
     p.add_argument(
         "--eval-type",
         default="rgb",

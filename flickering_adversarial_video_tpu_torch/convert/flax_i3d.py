@@ -8,6 +8,9 @@ port's state dict: DHWIO conv kernels become OIDHW, the frozen BN's
 Logits conv keeps its bias.  A Flax module name with '/' (``Branch_1/...``,
 ``Logits/Conv3d_0c_1x1``) is one level of the port's module tree per part.
 
+``to_flax_variables`` is the inverse: the state dict as the Flax tree (numpy
+f32), what ``convert.cli.save_variables`` writes to a ``.msgpack``.
+
 ``init_i3d_state`` makes a random state dict from a numpy seed, for the card
 where JAX is absent: conv kernels LeCun-normal (std 1/sqrt(fan_in)), BN and
 biases at their Flax initial values.
@@ -22,10 +25,15 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a bf16 leaf of a .msgpack (numpy has no bf16)
+        return a.float()
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
 def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    if not {"params", "batch_stats"} <= set(variables):
+        raise ValueError(f"not a Flax I3D variables tree: keys {sorted(variables)}, "
+                         "need 'params' and 'batch_stats'")
     params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
 
@@ -45,6 +53,30 @@ def from_flax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
             for sub, q in p.items():
                 unit(f"{name}.{sub.replace('/', '.')}", q, stats[name][sub])
     return sd
+
+
+def to_flax_variables(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's state dict as the JAX I3D's ``{'params', 'batch_stats'}``
+    tree of numpy f32 arrays (conv kernels DHWIO)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, value in state.items():
+        *path, leaf_module, leaf = key.split(".")
+        # a Mixed block holds its units one level down, named Branch_k/Conv...
+        unit = [path[0], "/".join(path[1:])] if path[0].startswith("Mixed_") else ["/".join(path)]
+        a = value.detach().cpu().float().numpy()
+        if leaf_module == "conv_3d":
+            tree, name = params, "kernel" if leaf == "weight" else "bias"
+            if leaf == "weight":
+                a = a.transpose(2, 3, 4, 1, 0)
+        elif leaf == "bias":
+            tree, name = params, "bias"
+        else:
+            tree, name = stats, {"running_mean": "mean", "running_var": "var"}[leaf]
+        for part in unit:
+            tree = tree.setdefault(part, {})
+        tree.setdefault(leaf_module, {})[name] = np.ascontiguousarray(a)
+    return {"params": params, "batch_stats": stats}
 
 
 def init_i3d_state(seed: int = 0, num_classes: int = 400) -> Dict[str, torch.Tensor]:

@@ -2,8 +2,9 @@
 
 Port of the JAX package's ``runners/common.py`` for the I3D victim on one
 device.  A checkpoint is a DeepMind TF checkpoint (its prefix; converted on
-load by the port's own bundle reader, no TensorFlow) or a ``.pt`` state dict
-that ``convert.cli`` wrote; a missing one gives seeded random weights with a
+load by the port's own bundle reader, no TensorFlow), a ``.msgpack`` of the
+JAX I3D's Flax variables (the JAX package's weight file; read by the port's
+own codec) or a ``.pt`` state dict that ``convert.cli`` wrote; a missing one gives seeded random weights with a
 loud warning (the attack machinery is weight-agnostic).
 """
 
@@ -61,8 +62,8 @@ def build_victim(
     """The frozen victim on `device` (CUDA unless told otherwise).
 
     `ckpt_path` is a DeepMind TF checkpoint prefix (converted on load,
-    convert/tf_i3d.py) or a ``.pt`` state dict (convert.cli); a ``.msgpack``
-    raises.  eval_type='rgb600' selects the Kinetics-600 world: prefix-less
+    convert/tf_i3d.py), a ``.msgpack`` of Flax variables (convert/flax_i3d.py)
+    or a ``.pt`` state dict (convert.cli).  eval_type='rgb600' selects the Kinetics-600 world: prefix-less
     checkpoint names and a 600-way head.  The head is as wide as
     `num_classes`, else as the checkpoint's.  Only when no file exists at
     `ckpt_path` do the weights come from seed 0, with a loud warning.

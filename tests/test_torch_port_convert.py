@@ -19,6 +19,7 @@ import pickle
 import struct
 import sys
 
+import flax.serialization
 import jax
 import numpy as np
 import pytest
@@ -34,12 +35,15 @@ from flickering_adversarial_video_tpu_torch.convert import (
     BundleReader,
     cli,
     convert_i3d_checkpoint,
+    flax_msgpack,
     from_flax_variables,
     golden,
     i3d_var_map,
     load_weights,
     read_bundle,
+    save_variables,
     save_weights,
+    to_flax_variables,
 )
 from flickering_adversarial_video_tpu_torch.convert.tf_bundle import BundleError, _handle
 from flickering_adversarial_video_tpu_torch.data import tfrecord as ttfr
@@ -241,10 +245,6 @@ class TestCli:
         _assert_states_equal(load_weights(again), assets[world]["state"])
 
     def test_unported_inputs_raise(self, tmp_path):
-        msgpack = tmp_path / "w.msgpack"
-        msgpack.write_bytes(b"\x80")
-        with pytest.raises(NotImplementedError, match="item 12"):
-            cli.main(["i3d", str(msgpack), "--out", str(tmp_path / "w.pt")])
         with pytest.raises(NotImplementedError, match="item 10"):
             cli.main(["r2plus1d_18", str(tmp_path / "x.pth"), "--out", str(tmp_path / "w.pt")])
         with pytest.raises(SystemExit):
@@ -314,10 +314,28 @@ class TestBuildVictim:
         _assert_states_equal(model.state_dict(), assets[world]["state"])
 
     def test_msgpack_raises(self, tmp_path):
+        """A .msgpack that holds no Flax I3D variables (an empty map) is
+        refused by name."""
         path = tmp_path / "i3d.msgpack"
         path.write_bytes(b"\x80")
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="params"):
             tcommon.build_victim("i3d", str(path), torch.float32, FRAMES, SIZE, device="cpu")
+
+    def test_msgpack_gives_the_logits_of_the_pt(self, assets, tmp_path, capsys):
+        """build_victim on a flax-written .msgpack of the JAX I3D's variables:
+        the same weights, bit for bit, and the same logits as the .pt route."""
+        path = str(tmp_path / "i3d.msgpack")
+        with open(path, "wb") as f:
+            f.write(flax.serialization.msgpack_serialize(assets["rgb"]["variables"]))
+        models = {src: tcommon.build_victim("i3d", p, torch.float32, FRAMES, SIZE, device="cpu")
+                  for src, p in (("msgpack", path), ("pt", assets["rgb"]["pt"]))}
+        assert "[warn]" not in capsys.readouterr().out
+        _assert_states_equal(models["msgpack"].state_dict(), models["pt"].state_dict())
+        clip = torch.from_numpy(np.random.default_rng(6).uniform(-1, 1, (1, FRAMES, SIZE, SIZE, 3))
+                                .astype(np.float32))
+        with torch.no_grad():
+            logits = {k: m(clip)[0] for k, m in models.items()}
+        assert torch.equal(logits["msgpack"], logits["pt"])
 
     def test_rgb600_engine_and_labels(self, assets):
         cfg = tconfig.default_config()
@@ -331,19 +349,23 @@ class TestBuildVictim:
         assert labels == tlabels.kinetics600_labels()
 
 
-def test_universal_runner_on_a_checkpoint_reads_the_same_natively(assets, tmp_path, monkeypatch):
-    """The universal runner on the converted rgb checkpoint: native shards
-    (the default) and use_native=False give the same losses in res.pkl."""
-    monkeypatch.setitem(sys.modules, "tensorboardX", None)  # the JSONL scalar writer
-    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+def _write_shards(shard_dir):
     rng = np.random.default_rng(5)
-    shard_dir = tmp_path / "shards"
     shard_dir.mkdir()
     for s in range(2):
         with jtfr.TFRecordWriter(str(shard_dir / f"s{s}.tfrecords")) as w:
             for n in (FRAMES, FRAMES + 2, FRAMES - 1, FRAMES):
                 clip = rng.integers(0, 256, (n, SIZE, SIZE, 3), dtype=np.uint8)
                 w.write(jtfr.make_uint8_example(clip, int(rng.integers(0, 400))))
+
+
+def test_universal_runner_on_a_checkpoint_reads_the_same_natively(assets, tmp_path, monkeypatch):
+    """The universal runner on the converted rgb checkpoint: native shards
+    (the default) and use_native=False give the same losses in res.pkl."""
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)  # the JSONL scalar writer
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    shard_dir = tmp_path / "shards"
+    _write_shards(shard_dir)
     results = {}
     for native in (True, False):
         cfg = tconfig.default_config()
@@ -372,3 +394,143 @@ def test_universal_runner_on_a_checkpoint_reads_the_same_natively(assets, tmp_pa
     for a, b in zip(got["perturbation"], want["perturbation"]):
         np.testing.assert_array_equal(a, b)
     assert results[True]["final_eval"] == results[False]["final_eval"]
+
+
+# ---------------- .msgpack: flax's format in the port's own codec ----------------
+
+def _assert_trees_equal(got, want):
+    """Equal dict trees: the same keys, and leaves of one dtype and value."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and list(got) == list(want)
+        for k in want:
+            _assert_trees_equal(got[k], want[k])
+        return
+    if isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+        return
+    assert type(got) is type(want) and got == want
+
+
+# every msgpack form flax writes: fixed and 8/16/32/64-bit ints, floats, str
+# and bin lengths across their boundaries, maps and arrays above 15 entries,
+# numpy scalars, empty and 0-d arrays, every numpy dtype I3D trees hold
+CODEC_TREES = {
+    "ints": {"v": [0, 127, 128, 255, 256, 65535, 65536, 2**32 - 1, 2**32, 2**63, -1, -32,
+                   -33, -128, -129, -32768, -32769, -2**31, -2**31 - 1, -2**63]},
+    "floats": {"a": 1.5, "b": -0.0, "c": 1e300, "d": float("inf")},
+    "strings": {"s": "x" * 31, "t": "y" * 32, "u": "z" * 256, "v": "w" * 70000, "e": ""},
+    "containers": {"m": {str(i): i for i in range(17)}, "l": list(range(16)), "n": None,
+                   "t": True, "f": False},
+    "arrays": {"f32": np.arange(12, dtype=np.float32).reshape(3, 4), "f16": np.ones(3, np.float16),
+               "i64": np.arange(-3, 3, dtype=np.int64), "u8": np.arange(7, dtype=np.uint8),
+               "b": np.array([True, False]), "e": np.zeros((0, 3), np.float32),
+               "z": np.array(2.5, np.float64), "s": np.float32(7), "i": np.int32(-9)},
+}
+
+
+class TestFlaxMsgpack:
+    @pytest.mark.parametrize("name", list(CODEC_TREES))
+    def test_codec_writes_and_reads_flaxs_bytes(self, name):
+        tree = CODEC_TREES[name]
+        data = flax.serialization.msgpack_serialize(tree)
+        assert flax_msgpack.serialize(tree) == data
+        _assert_trees_equal(flax_msgpack.restore(data), flax.serialization.msgpack_restore(data))
+
+    def test_bfloat16_leaf(self):
+        data = flax.serialization.msgpack_serialize(
+            {"w": jax.numpy.arange(6, dtype=jax.numpy.bfloat16).reshape(2, 3)})
+        got = flax_msgpack.restore(data)["w"]
+        assert got.dtype == torch.bfloat16 and got.shape == (2, 3)
+        assert torch.equal(got.float(), torch.arange(6.0).reshape(2, 3))
+        assert flax_msgpack.serialize({"w": got}) == data
+
+    def test_malformed_bytes_raise(self):
+        with pytest.raises(ValueError, match="truncated"):
+            flax_msgpack.restore(b"\x92\x01")
+        with pytest.raises(ValueError, match="trailing"):
+            flax_msgpack.restore(b"\x01\x02")
+        with pytest.raises(ValueError, match="0xc1"):
+            flax_msgpack.restore(b"\xc1")
+
+    def test_to_flax_variables_is_the_jax_tree(self, assets):
+        """The state as the JAX I3D's Flax variables: the tree the JAX
+        package's converter builds from the same checkpoint, value for value,
+        and back."""
+        for world in WORLDS:
+            got = to_flax_variables(assets[world]["state"])
+            want = assets[world]["variables"]
+            assert (jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want))
+            jax.tree_util.tree_map(np.testing.assert_array_equal, got, want)
+            _assert_states_equal(from_flax_variables(got), assets[world]["state"])
+
+    def test_flax_written_file_read_by_the_port(self, assets, tmp_path):
+        path = str(tmp_path / "v.msgpack")
+        data = flax.serialization.msgpack_serialize(assets["rgb"]["variables"])
+        with open(path, "wb") as f:
+            f.write(data)
+        _assert_trees_equal(cli.load_variables(path), flax.serialization.msgpack_restore(data))
+        _assert_states_equal(load_weights(path), assets["rgb"]["state"])
+
+    def test_port_written_file_read_by_flax(self, assets, tmp_path):
+        path = str(tmp_path / "v.msgpack")
+        save_weights(assets["rgb"]["state"], path)
+        with open(path, "rb") as f:
+            data = f.read()
+        assert data == flax.serialization.msgpack_serialize(assets["rgb"]["variables"])
+        jax.tree_util.tree_map(np.testing.assert_array_equal,
+                               flax.serialization.msgpack_restore(data),
+                               assets["rgb"]["variables"])
+
+    def test_chunked_arrays_both_ways(self, assets, tmp_path, monkeypatch):
+        """Arrays above MAX_CHUNK_SIZE (here 64 KiB: every Mixed 3x3x3 kernel
+        and the Logits kernel) are written in flax's chunks and reassembled."""
+        variables = assets["rgb"]["variables"]
+        monkeypatch.setattr(flax.serialization, "MAX_CHUNK_SIZE", 65536)
+        data = flax.serialization.msgpack_serialize(variables)
+        assert data.count(b"__msgpack_chunked_array__") > 10
+        path = str(tmp_path / "chunked.msgpack")
+        with open(path, "wb") as f:
+            f.write(data)
+        _assert_trees_equal(cli.load_variables(path), flax.serialization.msgpack_restore(data))
+        _assert_states_equal(load_weights(path), assets["rgb"]["state"])
+        monkeypatch.setattr(flax_msgpack, "MAX_CHUNK_SIZE", 65536)
+        save_variables(variables, str(tmp_path / "port.msgpack"))
+        with open(tmp_path / "port.msgpack", "rb") as f:
+            assert f.read() == data
+
+    def test_cli_writes_and_reads_a_msgpack(self, assets, tmp_path, capsys):
+        out = str(tmp_path / "w.msgpack")
+        cli.main(["i3d", assets["rgb"]["prefix"], "--out", out])
+        assert f"wrote {out}" in capsys.readouterr().out
+        _assert_states_equal(load_weights(out), assets["rgb"]["state"])
+        pt = str(tmp_path / "w.pt")
+        cli.main(["i3d", out, "--out", pt])  # a .msgpack input is converted already
+        _assert_states_equal(load_weights(pt), assets["rgb"]["state"])
+
+
+def test_universal_runner_on_a_msgpack_equals_the_pt(assets, tmp_path, monkeypatch):
+    """The universal runner with a .msgpack CKPT_PATH (the port's own
+    save_variables) runs the attack of the .pt route, loss for loss."""
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    shard_dir = tmp_path / "shards"
+    _write_shards(shard_dir)
+    msgpack = str(tmp_path / "w.msgpack")
+    save_variables(to_flax_variables(assets["rgb"]["state"]), msgpack)
+    results = {}
+    for src, path in (("msgpack", msgpack), ("pt", assets["rgb"]["pt"])):
+        cfg = tconfig.default_config()
+        cfg.MODEL.CKPT_PATH = path
+        ac = cfg.UNIVERSAL_ATTACK
+        ac.TF_RECORDS_TRAIN_PATH = ac.TF_RECORDS_VAL_PATH = [str(shard_dir)]
+        ac.NUM_OF_TRAIN_TF_RECORDS, ac.NUM_OF_VAL_TF_RECORDS = 2, 1
+        ac.BATCH_SIZE, ac.MAX_NUM_STEP, ac.COMPUTE_DTYPE = 2, 1, "float32"
+        ac.PKL_RESULT_PATH = str(tmp_path / f"out_{src}")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            out = tuniversal.run(cfg, frames=FRAMES, size=SIZE, device="cpu")
+        assert "[warn]" not in said.getvalue()
+        results[src] = out
+    assert results["msgpack"]["history"]["total_loss"] == results["pt"]["history"]["total_loss"]
+    assert torch.equal(results["msgpack"]["state"].delta, results["pt"]["state"].delta)
