@@ -2,11 +2,14 @@ from .losses import adversarial_loss, ce_attack_loss, improved_hinge_loss, label
 from .metrics import fooling_counts, is_adversarial, relative_percent, roughness, thickness
 from .perturbation import (
     FlickerSpec,
+    SparseSpec,
     apply_perturbation,
     clip,
     clip_delta,
     frame_mask,
     init_delta,
+    roll_shifts,
+    roll_time,
 )
 from .regularizers import (
     first_order_diff_reg,

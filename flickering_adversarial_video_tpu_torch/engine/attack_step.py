@@ -1,8 +1,11 @@
-"""The universal flickering-attack step on I3D, in PyTorch.
+"""The attack step on I3D, in PyTorch.
 
 Port of the JAX package's ``engine/attack_step.py`` (``AttackEngine``,
 ``_train_step_impl`` :500, ``_loss_terms`` :426-496, ``train_steps`` :676)
-for the tanh world and the flickering delta.  One ``train_step``:
+for the tanh world: the flickering delta [T,1,1,C], or with
+``AttackConfig.attack_kind='sparse'`` the L1,2 attack's full delta [T,H,W,C]
+(``SparseSpec``), whose regularizer is beta1 * L1,2 (the JAX package's
+:477-482); ``l12`` is logged in both kinds.  One ``train_step``:
 
 * the uint8 batch (``"video"`` [B,T,H,W,3], packed on the device, or the
   host-packed ``"video_packed"`` [B,T/2,H/2,W/2,24]) enters the input head
@@ -13,8 +16,18 @@ for the tanh world and the flickering delta.  One ``train_step``:
   clip and the victim's own forward, and B8's backward reduces d(adv) to
   d(delta); eval and ``forward`` then take the generic path (normalize,
   ``apply_perturbation``, the victim's forward), as the JAX engine's do.  A
-  victim without a packed stem (no ``stem_params``) runs the generic path
-  throughout;
+  victim without a packed stem (no ``stem_params``), a sparse delta, a
+  cyclic engine or an odd T, H or W runs the generic path throughout, as the
+  JAX engine's ``_packed_supported`` / ``packable`` gates have it;
+* with ``AttackConfig.enable_cyclic`` (the YAML's ``CYCLIC_ATTACK`` or
+  ``CYCLIC_PERTURBATION_ATTACK``) the generic path rolls the input and delta
+  in time (``attack/perturbation.apply_perturbation``), blended by the
+  runtime flags ``cyclic_flag`` / ``cyclic_pert_flag``; without it the rolls
+  are not compiled in and the flags are inert, as in the JAX engine.  The
+  shifts are drawn on the device from the call's ``seed`` and a counter
+  (``perturbation.roll_shifts``): the step count + 1 in a train step, so each
+  replay of a graph draws its own, and 0 in the eval step and ``forward``
+  (the JAX loops' ``fold_in(key, step)`` and ``key``);
 * the frozen I3D trunk gives logits; the adversarial loss, the four
   regularizers and their weighted sum give the total;
 * the backward runs over delta only; Adam with the step's learning rate
@@ -52,17 +65,20 @@ from .step_graph import StepGraphs
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # the order of the runtime flags in the engine's static scalar buffer
-SCALARS = ("adv_flag", "beta0", "beta1", "beta2", "beta3", "learning_rate")
+SCALARS = ("adv_flag", "beta0", "beta1", "beta2", "beta3", "learning_rate", "cyclic_flag",
+           "cyclic_pert_flag")
+ATTACK_KINDS = ("flickering", "sparse")
 
 
 @dataclasses.dataclass(frozen=True)
 class AttackConfig:
-    """Static attack configuration (tanh world, flickering delta)."""
+    """Static attack configuration (tanh world)."""
 
     improve_loss: bool = True          # IMPROVE_ADV_LOSS
     margin: float = 0.05               # PROB_MARGIN
     targeted: bool = False             # TARGETED_ATTACK
     use_logits: bool = False           # USE_LOGITS
+    attack_kind: str = "flickering"    # 'flickering' | 'sparse' (L1,2; FLICKERING_ATTACK false)
     reg_weighting: str = "tf"          # 'tf' (b1,b2,b3) | 'torch' (b1,1-b1)
     exclude_misclassify: bool = True
     target_class: Optional[int] = None
@@ -72,6 +88,9 @@ class AttackConfig:
     use_pallas_fused: bool = False
     # attacked frame window [start, end], inclusive; None = every frame
     frame_window: Optional[Tuple[int, int]] = None
+    # compile the cyclic rolls into the generic path (CYCLIC_ATTACK /
+    # CYCLIC_PERTURBATION_ATTACK); off, the cyclic flags are inert
+    enable_cyclic: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,11 +103,13 @@ class RuntimeFlags:
     beta2: float = 0.5
     beta3: float = 0.5
     learning_rate: float = 1e-3
+    cyclic_flag: float = 0.0       # blend of the time-rolled input (CYCLIC_ATTACK)
+    cyclic_pert_flag: float = 0.0  # blend of the time-rolled delta (CYCLIC_PERTURBATION_ATTACK)
 
 
 @dataclasses.dataclass
 class AttackState:
-    delta: torch.Tensor    # [T,1,1,C] f32
+    delta: torch.Tensor    # the spec's shape ([T,1,1,C] or [T,H,W,C]), f32
     mu: torch.Tensor       # Adam first moment
     nu: torch.Tensor       # Adam second moment
     step: int = 0          # steps taken; the step itself counts on the device
@@ -117,16 +138,21 @@ class AttackEngine:
     On CUDA the train step is a CUDA graph."""
 
     def __init__(
-        self, model: torch.nn.Module, spec: pert_lib.FlickerSpec,
-        config: AttackConfig = AttackConfig(), track_probs: bool = True,
+        self, model: torch.nn.Module, spec, config: AttackConfig = AttackConfig(),
+        track_probs: bool = True,
     ):
         if config.reg_weighting not in ("tf", "torch"):
             raise ValueError(f"reg_weighting {config.reg_weighting!r}")
+        if config.attack_kind not in ATTACK_KINDS:
+            raise ValueError(f"attack_kind {config.attack_kind!r}: choose from {ATTACK_KINDS}")
         if config.use_pallas_fused and (spec.input_min, spec.input_max) != (-1.0, 1.0):
             raise ValueError(
                 "use_pallas_fused clips to the fixed bounds [-1, 1]; the spec's are "
                 f"[{spec.input_min}, {spec.input_max}]"
             )
+        if config.use_pallas_fused and not isinstance(spec, pert_lib.FlickerSpec):
+            raise ValueError("use_pallas_fused (kernel B8) takes the flickering delta "
+                             "[T,1,1,C] only, as the JAX package's fused_normalize_perturb")
         self.model = model
         self.spec = spec
         self.config = config
@@ -136,12 +162,17 @@ class AttackEngine:
         if config.frame_window is not None:
             start, end = config.frame_window
             self._mask = pert_lib.frame_mask(spec.frames, start, end, device=self.device)
-        # made once: the clean forward's zero delta and zero flag
-        self._zero_delta = torch.zeros(spec.shape, device=self.device)
+        # made once: the packed clean forward's zero delta and zero flag
+        self._zero_delta = (torch.zeros(spec.shape, device=self.device)
+                            if self._packed_supported() else None)
         self._zero_flag = torch.zeros((), device=self.device)
         # the runtime flags (SCALARS) of every step, and their host values
         self._scalars = torch.zeros(len(SCALARS), device=self.device)
         self._scalar_values: Optional[Tuple[float, ...]] = None
+        # the cyclic rolls' seed (static, as the flags) and the eval's counter
+        self._seed = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._seed_value: Optional[int] = None
+        self._eval_counter = torch.zeros((), dtype=torch.int32, device=self.device)
         self._graphs = StepGraphs(spec.shape, self.device) if self.device.type == "cuda" else None
 
     # ---------- state and batches ----------
@@ -152,9 +183,10 @@ class AttackEngine:
 
     def _packed_supported(self) -> bool:
         """Can batches take the packed input head?  (The JAX engine's
-        ``_packed_supported``: a packed forward exists and the fused-kernel
-        mode is off.)"""
-        return hasattr(self.model, "stem_params") and not self.config.use_pallas_fused
+        ``_packed_supported``: a packed forward exists, the delta is the
+        flickering one, and the cyclic and fused-kernel modes are off.)"""
+        return (hasattr(self.model, "stem_params") and isinstance(self.spec, pert_lib.FlickerSpec)
+                and not self.config.use_pallas_fused and not self.config.enable_cyclic)
 
     def prepare_batch(self, batch: Dict) -> Tuple[torch.Tensor, bool, torch.Tensor]:
         """(clip on the device, packed?, labels int64).  packed: the uint8
@@ -166,7 +198,8 @@ class AttackEngine:
             if not self._packed_supported():
                 raise ValueError(
                     "batch carries 'video_packed' but the engine cannot take the packed "
-                    "path (needs a victim with a packed stem and use_pallas_fused off)"
+                    "path (needs a victim with a packed stem, a flickering delta, and the "
+                    "cyclic and use_pallas_fused modes off)"
                 )
             return torch.as_tensor(batch["video_packed"], device=self.device), True, labels
         video = torch.as_tensor(batch["video"], device=self.device)
@@ -177,22 +210,33 @@ class AttackEngine:
 
     # ---------- forward pieces ----------
 
-    def _step_scalars(self, flags: RuntimeFlags) -> torch.Tensor:
-        """The static device buffer of the runtime flags (SCALARS),
-        rewritten only when a value changes: through pinned memory and a copy
-        on the current stream on CUDA, ordered after the steps before."""
+    def _write(self, buffer: torch.Tensor, values) -> None:
+        """Host values into a static device buffer: through pinned memory and
+        a copy on the current stream on CUDA, ordered after the steps before."""
+        host = torch.tensor(values, dtype=buffer.dtype)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        buffer.copy_(host, non_blocking=True)
+
+    def _step_scalars(self, flags: RuntimeFlags, seed: Optional[int] = 0) -> torch.Tensor:
+        """The static device buffer of the runtime flags (SCALARS), and the
+        rolls' seed beside it (kept when None), each rewritten only when a
+        value changes."""
         values = tuple(float(getattr(flags, k)) for k in SCALARS)
         if values != self._scalar_values:
-            host = torch.tensor(values, dtype=torch.float32)
-            if self.device.type == "cuda":
-                host = host.pin_memory()
-            self._scalars.copy_(host, non_blocking=True)
+            self._write(self._scalars, values)
             self._scalar_values = values
+        if seed is not None and int(seed) != self._seed_value:
+            self._write(self._seed, int(seed))
+            self._seed_value = int(seed)
         return self._scalars
 
-    def _adv_flag(self, flags: RuntimeFlags) -> torch.Tensor:
-        """`flags.adv_flag` as a 0-d view of the static scalar buffer."""
-        return self._step_scalars(flags)[SCALARS.index("adv_flag")]
+    def _shifts(self, video: torch.Tensor, counter: torch.Tensor):
+        """The cyclic rolls' (input, delta) shifts for this counter, or None
+        when the rolls are not compiled in."""
+        if not self.config.enable_cyclic:
+            return None
+        return pert_lib.roll_shifts(self._seed, counter, video.shape[1], self.spec.frames)
 
     def _applied_delta(self, delta: torch.Tensor) -> torch.Tensor:
         clipped = pert_lib.clip_delta(self.spec, delta)
@@ -208,12 +252,14 @@ class AttackEngine:
         return video.float()
 
     def _logits(self, delta: Optional[torch.Tensor], video, packed: bool,
-                adv_flag: torch.Tensor, train: bool = False):
+                scalars: torch.Tensor, counter: torch.Tensor, train: bool = False):
         """Logits of the (adversarial) clip.  delta=None is the clean forward.
         packed: clip/mask delta -> input head -> trunk (the clean forward
         goes through the same head with flag 0, delta 0).  Else the generic
-        path; `train` with use_pallas_fused takes kernel B8 on uint8.
-        `adv_flag` is a 0-d device tensor."""
+        path (with the cyclic rolls of `counter` when they are compiled in);
+        `train` with use_pallas_fused takes kernel B8 on uint8.  `scalars` is
+        the static flag buffer (SCALARS' order)."""
+        adv_flag = scalars[SCALARS.index("adv_flag")]
         if packed:
             if delta is None:
                 clipped, flag = self._zero_delta, self._zero_flag
@@ -225,22 +271,29 @@ class AttackEngine:
                 self.spec.input_min, self.spec.input_max, self.model.compute_dtype,
             )
             return self.model.trunk(y)
-        if train and self.config.use_pallas_fused and video.dtype == torch.uint8:
+        cfg = self.config
+        if (train and cfg.use_pallas_fused and not cfg.enable_cyclic
+                and video.dtype == torch.uint8):
             adv = fused_normalize_perturb(video, self._applied_delta(delta), adv_flag)
             return self._apply_model(adv)
         x = self._normalize(video)
         if delta is not None:
             x = pert_lib.apply_perturbation(
-                x, delta, self.spec, adv_flag=adv_flag, mask=self._mask
+                x, delta, self.spec, adv_flag=adv_flag, mask=self._mask,
+                cyclic_flag=scalars[SCALARS.index("cyclic_flag")],
+                cyclic_pert_flag=scalars[SCALARS.index("cyclic_pert_flag")],
+                shifts=self._shifts(video, counter),
             )
         return self._apply_model(x)
 
-    def _loss_terms(self, delta, video, packed, labels, scalars: torch.Tensor):
+    def _loss_terms(self, delta, video, packed, labels, scalars: torch.Tensor,
+                    step: torch.Tensor):
         """(total, terms) of the train step; the flags are the device
-        scalars `scalars` (SCALARS' order), never host values."""
+        scalars `scalars` (SCALARS' order), never host values, and `step`
+        the device count of the steps taken."""
         cfg = self.config
-        adv_flag, beta0, beta1, beta2, beta3, _ = scalars.unbind()
-        logits = self._logits(delta, video, packed, adv_flag, train=True)
+        _, beta0, beta1, beta2, beta3 = scalars.unbind()[:5]
+        logits = self._logits(delta, video, packed, scalars, step + 1, train=True)
         adv_total, aux = losses_lib.adversarial_loss(
             logits, labels, improve_loss=cfg.improve_loss, margin=cfg.margin,
             targeted=cfg.targeted, use_logits=cfg.use_logits,
@@ -249,7 +302,9 @@ class AttackEngine:
         diff_r = reg_lib.first_order_diff_reg(delta)
         lap_r = reg_lib.second_order_diff_reg(delta)
         l12_r = reg_lib.l12_regularizer(delta)
-        if cfg.reg_weighting == "torch":
+        if cfg.attack_kind == "sparse":
+            reg = beta1 * l12_r
+        elif cfg.reg_weighting == "torch":
             reg = beta1 * norm_r + (1.0 - beta1) * (diff_r + lap_r)
         else:
             reg = beta1 * norm_r + beta2 * diff_r + beta3 * lap_r
@@ -289,7 +344,7 @@ class AttackEngine:
         and the CUDA graph captures: ((delta, mu, nu, step) after it, the
         metrics, all tensors)."""
         d = delta.detach().requires_grad_(True)
-        total, terms = self._loss_terms(d, video, packed, labels, scalars)
+        total, terms = self._loss_terms(d, video, packed, labels, scalars, step)
         (grad,) = torch.autograd.grad(total, d)
         with torch.no_grad():
             new = self._adam(delta, mu, nu, step, grad, scalars[SCALARS.index("learning_rate")])
@@ -310,40 +365,46 @@ class AttackEngine:
                 metrics["probs"] = probs
         return new, metrics
 
-    def _train_step(self, state: AttackState, video, packed, labels, flags: RuntimeFlags):
+    def _train_step(self, state: AttackState, video, packed, labels, flags: RuntimeFlags,
+                    seed: int = 0):
         """One eager step: the CPU's, and the reference a graphed step is
         held to on the card."""
-        scalars = self._step_scalars(flags)
+        scalars = self._step_scalars(flags, seed)
         step = torch.full((), state.step, dtype=torch.int32, device=self.device)
         (delta, mu, nu, _), metrics = self._step(
             state.delta, state.mu, state.nu, step, video, packed, labels, scalars)
         metrics["step"] = state.step
         return AttackState(delta, mu, nu, state.step + 1), metrics
 
-    def _steps(self, state, batch, flags, n, with_metrics):
+    def _steps(self, state, batch, flags, n, with_metrics, seed):
         video, packed, labels = self.prepare_batch(batch)
         if self._graphs is not None:
-            self._step_scalars(flags)
+            self._step_scalars(flags, seed)
             return self._graphs.run(
                 lambda *args: self._step(*args, self._scalars), state, video, packed, labels,
                 n, with_metrics)
         metrics = None
         for _ in range(n):
-            state, metrics = self._train_step(state, video, packed, labels, flags)
+            state, metrics = self._train_step(state, video, packed, labels, flags, seed)
         return state, metrics
 
     def train_step(
-        self, state: AttackState, batch: Dict, flags: RuntimeFlags = RuntimeFlags()
+        self, state: AttackState, batch: Dict, flags: RuntimeFlags = RuntimeFlags(),
+        seed: int = 0,
     ) -> Tuple[AttackState, Dict[str, torch.Tensor]]:
-        """One optimizer step (a graph replay on CUDA, which donates `state`)."""
-        return self._steps(state, batch, flags, 1, True)
+        """One optimizer step (a graph replay on CUDA, which donates `state`).
+        `seed` and the state's step draw the cyclic rolls' shifts."""
+        return self._steps(state, batch, flags, 1, True, seed)
 
     def train_steps(
-        self, state: AttackState, batch: Dict, flags: RuntimeFlags = RuntimeFlags(), n: int = 1
+        self, state: AttackState, batch: Dict, flags: RuntimeFlags = RuntimeFlags(), n: int = 1,
+        seed: int = 0,
     ) -> AttackState:
         """n optimizer steps on one batch (the batch is moved once; on CUDA n
-        replays of one graph, the counterpart of the JAX engine's lax.scan)."""
-        return self._steps(state, batch, flags, n, False)[0]
+        replays of one graph, the counterpart of the JAX engine's lax.scan),
+        equal to n ``train_step`` calls (each step draws its rolls from its
+        own count; the JAX scan reuses one key)."""
+        return self._steps(state, batch, flags, n, False, seed)[0]
 
     def graph_stats(self) -> Dict[tuple, Dict[str, float]]:
         """Each train-step graph's pool bytes and capture seconds, by (clip
@@ -352,13 +413,14 @@ class AttackEngine:
 
     @torch.no_grad()
     def eval_step(
-        self, delta: torch.Tensor, batch: Dict, flags: RuntimeFlags = RuntimeFlags()
+        self, delta: torch.Tensor, batch: Dict, flags: RuntimeFlags = RuntimeFlags(),
+        seed: int = 0,
     ) -> Dict[str, torch.Tensor]:
         video, packed, labels = self.prepare_batch(batch)
         delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
-        flag = self._adv_flag(flags)
-        adv_probs = torch.softmax(self._logits(delta, video, packed, flag), dim=-1)
-        clean_probs = torch.softmax(self._logits(None, video, packed, flag), dim=-1)
+        scalars, counter = self._step_scalars(flags, seed), self._eval_counter
+        adv_probs = torch.softmax(self._logits(delta, video, packed, scalars, counter), dim=-1)
+        clean_probs = torch.softmax(self._logits(None, video, packed, scalars, counter), dim=-1)
         miss, valid = metrics_lib.fooling_counts(
             adv_probs, clean_probs, labels, targeted=self.config.targeted,
             target_class=self.config.target_class,
@@ -369,13 +431,13 @@ class AttackEngine:
     @torch.no_grad()
     def forward(
         self, delta: torch.Tensor, batch: Dict, flags: RuntimeFlags = RuntimeFlags(),
-        adversarial: bool = True,
+        adversarial: bool = True, seed: int = 0,
     ) -> torch.Tensor:
         video, packed, _ = self.prepare_batch(batch)
         if adversarial:
             delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
         logits = self._logits(delta if adversarial else None, video, packed,
-                              self._adv_flag(flags))
+                              self._step_scalars(flags, seed), self._eval_counter)
         return torch.softmax(logits, dim=-1)
 
     @torch.no_grad()
@@ -384,9 +446,9 @@ class AttackEngine:
     ) -> torch.Tensor:
         """The adversarial clip itself (the result dict's ``adv_video``): the
         normalized ``"video"`` plus the clipped (and frame-masked) delta,
-        clipped to the input range."""
+        clipped to the input range; no rolls (the JAX engine's call gives no
+        key)."""
         x = self._normalize(torch.as_tensor(batch["video"], device=self.device))
         delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
-        return pert_lib.apply_perturbation(
-            x, delta, self.spec, adv_flag=self._adv_flag(flags), mask=self._mask
-        )
+        adv_flag = self._step_scalars(flags, None)[SCALARS.index("adv_flag")]
+        return pert_lib.apply_perturbation(x, delta, self.spec, adv_flag=adv_flag, mask=self._mask)

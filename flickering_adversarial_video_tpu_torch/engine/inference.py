@@ -1,9 +1,11 @@
 """Inference wrapper: a frozen victim callable with an adversarial flag, used
 to pre-screen candidate videos and to evaluate saved perturbations.
 
-Port of the JAX package's ``engine/inference.py``.  The cyclic flags of the
-reference's signature are kept; the cyclic modes are not ported (ROADMAP.md
-queue A item 5), so a non-zero value raises.
+Port of the JAX package's ``engine/inference.py``.  The cyclic flags are
+per-call runtime scalars; they roll the input and delta when the engine was
+built with ``AttackConfig.enable_cyclic`` and are inert otherwise, as in the
+JAX package.  Each call draws its rolls from the seed of its call number
+(the JAX wrapper's ``jax.random.key(self._step)``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ class InferenceModel:
         self.delta = pert_lib.init_delta(engine.spec, device=engine.device)
         if delta is not None:
             self.load_perturbation(delta)
+        self._step = 0
 
     def load_perturbation(self, delta: np.ndarray) -> None:
         self.delta = torch.as_tensor(
@@ -43,8 +46,6 @@ class InferenceModel:
         cyclic_eps_flag: float = 0.0,
         labels: Optional[np.ndarray] = None,
     ) -> np.ndarray:
-        if cyclic_input_flag or cyclic_eps_flag:
-            raise NotImplementedError("the cyclic attack modes are ROADMAP.md queue A item 5")
         clips = np.asarray(clips)
         if clips.ndim == 4:
             clips = clips[None]
@@ -52,8 +53,10 @@ class InferenceModel:
             "video": clips,
             "labels": labels if labels is not None else np.zeros((clips.shape[0],), np.int64),
         }
-        flags = RuntimeFlags(adv_flag=float(adv_flag))
-        probs = self.engine.forward(self.delta, batch, flags, adversarial=True)
+        flags = RuntimeFlags(adv_flag=float(adv_flag), cyclic_flag=float(cyclic_input_flag),
+                             cyclic_pert_flag=float(cyclic_eps_flag))
+        self._step += 1
+        probs = self.engine.forward(self.delta, batch, flags, adversarial=True, seed=self._step)
         return probs.cpu().numpy()  # the copy waits for the device
 
     def evaluate(

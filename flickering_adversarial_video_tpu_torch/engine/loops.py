@@ -42,6 +42,8 @@ def flags_from_config(attack_cfg, learning_rate: Optional[float] = None) -> Runt
     beta3 := BETA_2, matching the reference scripts' wiring."""
     return RuntimeFlags(
         adv_flag=1.0,
+        cyclic_flag=float(attack_cfg.get("CYCLIC_ATTACK", False)),
+        cyclic_pert_flag=float(attack_cfg.get("CYCLIC_PERTURBATION_ATTACK", False)),
         beta0=float(attack_cfg.get("LAMBDA", 1.0)),
         beta1=float(attack_cfg.get("BETA_1", 0.5)),
         beta2=float(attack_cfg.get("BETA_2", 0.5)),
@@ -59,14 +61,16 @@ def evaluate_fooling(
     delta: torch.Tensor,
     batches: Iterable[Dict[str, np.ndarray]],
     flags: RuntimeFlags,
+    seed: int = 0,
 ) -> Dict[str, float]:
     """Fooling rate over a validation stream with exclude-misclassified
-    accounting: miss_rate = sum(miss)/sum(valid)."""
+    accounting: miss_rate = sum(miss)/sum(valid).  `seed` draws the cyclic
+    rolls of the eval steps."""
     miss = torch.zeros((), dtype=torch.int64, device=engine.device)
     valid = torch.zeros_like(miss)
     n_batches = 0
     for batch in batches:
-        out = engine.eval_step(delta, batch, flags)
+        out = engine.eval_step(delta, batch, flags, seed)
         miss += out["miss"]
         valid += out["valid"]
         n_batches += 1
@@ -133,10 +137,10 @@ def single_video_attack(
     misclassifies the clip, else a result dict in the reference's schema,
     holding numpy arrays and Python scalars only.
 
-    `seed` feeds only the cyclic rolls in the JAX package; the cyclic modes
-    are not ported, so it is accepted and ignored.
+    `seed` draws the cyclic rolls (with the step count, on the device;
+    ``AttackEngine.train_step``), as the JAX loop's ``fold_in(key(seed),
+    step)``.
     """
-    del seed
     attack_label = label if target_label is None else target_label
     video = np.asarray(clip if clip.ndim == 5 else clip[None])
     batch = {
@@ -144,7 +148,8 @@ def single_video_attack(
         "labels": torch.as_tensor(np.asarray([attack_label], np.int64), device=engine.device),
     }
     state = engine.init_state()
-    clean_probs = engine.forward(state.delta, batch, flags, adversarial=False).cpu().numpy()
+    clean_probs = engine.forward(state.delta, batch, flags, adversarial=False,
+                                 seed=seed).cpu().numpy()
     if int(clean_probs.argmax()) != label:
         return None
 
@@ -155,7 +160,7 @@ def single_video_attack(
     cap = hard_cap if hard_cap is not None else max_step * 40
     while True:
         timer.tick()
-        state, metrics = engine.train_step(state, batch, flags)
+        state, metrics = engine.train_step(state, batch, flags, seed)
         # the step's scalars in one read of the device
         values = dict(zip(
             SINGLE_VIDEO_SCALARS,
@@ -234,6 +239,7 @@ def batched_attack_loop(
     writer=None,
     log_every: int = 50,
     targeted_label: Optional[int] = None,
+    seed: int = 0,
     start_step: int = 0,
 ) -> Dict[str, Any]:
     """Shared engine for class-gen (epoch cadence) and universal (step cadence).
@@ -245,6 +251,7 @@ def batched_attack_loop(
       eval cost stays bounded).  None -> epoch-boundary eval only
       (eval_every_epochs).
     - writer: viz.tensorboard.ScalarWriter or None.
+    - seed: draws the cyclic rolls of the train and eval steps.
     """
     if state is None:
         state = engine.init_state()
@@ -255,7 +262,7 @@ def batched_attack_loop(
 
     def run_eval():
         with record_function(EVAL_SPAN):
-            ev = evaluate_fooling(engine, state.delta, val_batches_fn(), flags)
+            ev = evaluate_fooling(engine, state.delta, val_batches_fn(), flags, seed)
         history["fool_rate"].append(ev["miss_rate"])
         history["fool_rate_steps"].append(step)
         if writer is not None:
@@ -283,7 +290,7 @@ def batched_attack_loop(
                     break
                 timer.tick()
                 with record_function(STEP_SPAN):
-                    state, metrics = engine.train_step(state, batch_on_device, flags)
+                    state, metrics = engine.train_step(state, batch_on_device, flags, seed)
                 step += 1
                 if step % log_every == 0 or step == 1:
                     # the step's one read of the device

@@ -15,7 +15,7 @@ from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from ..attack import FlickerSpec
+from ..attack import FlickerSpec, SparseSpec
 from ..convert import EVAL_TYPES, init_i3d_state, load_weights
 from ..engine import AttackConfig, AttackEngine
 from ..models.registry import MODEL_REGISTRY, create_model
@@ -99,13 +99,9 @@ def build_engine(
     track_probs: bool = True,
     device=None,
 ) -> Tuple[AttackEngine, List[str]]:
-    """AttackEngine + label list from run_config.yml sections."""
-    if attack_kind != "flickering":
-        raise NotImplementedError(
-            f"attack_kind {attack_kind!r}: the L1,2 sparse attack is ROADMAP.md queue A item 9"
-        )
-    if attack_cfg.get("CYCLIC_ATTACK", False) or attack_cfg.get("CYCLIC_PERTURBATION_ATTACK", False):
-        raise NotImplementedError("the cyclic attack modes are ROADMAP.md queue A item 5")
+    """AttackEngine + label list from run_config.yml sections.  attack_kind
+    'sparse' gives the L1,2 attack's full delta (``SparseSpec`` of the clip's
+    frames x size x size); either cyclic key compiles the rolls in."""
     model_name = attack_cfg.get("MODEL_NAME", "i3d")
     if model_name not in MODEL_REGISTRY:
         raise NotImplementedError(f"MODEL_NAME {model_name!r}: only 'i3d' is ported")
@@ -143,12 +139,19 @@ def build_engine(
         margin=float(attack_cfg.get("PROB_MARGIN", 0.05)),
         targeted=targeted,
         use_logits=bool(attack_cfg.get("USE_LOGITS", False)),
+        attack_kind=attack_kind,
         reg_weighting="tf",
         target_class=target_class,
         use_pallas_fused=bool(attack_cfg.get("USE_PALLAS_FUSED", False)),
         frame_window=frame_window,
+        enable_cyclic=bool(attack_cfg.get("CYCLIC_ATTACK", False)
+                           or attack_cfg.get("CYCLIC_PERTURBATION_ATTACK", False)),
     )
-    engine = AttackEngine(model, FlickerSpec(frames=frames), cfg, track_probs=track_probs)
+    if attack_kind == "sparse":
+        spec = SparseSpec(frames=frames, height=size, width=size)
+    else:
+        spec = FlickerSpec(frames=frames)
+    engine = AttackEngine(model, spec, cfg, track_probs=track_probs)
     return engine, labels
 
 
@@ -165,8 +168,9 @@ def make_shard_batches(
     universal/class-gen runners.
 
     Host-prepacked input defaults on (PREPACK_INPUT) whenever the engine's
-    packed path exists and the geometry is even; with USE_PALLAS_FUSED the
-    packed path is off and the pipeline delivers unpacked uint8 clips.  The
+    packed path exists and the geometry is even; with USE_PALLAS_FUSED, the
+    sparse attack or the cyclic modes the packed path is off and the
+    pipeline delivers unpacked uint8 clips, as at an odd frame count or size.  The
     shards are read by the native reader (the pipeline's default), into
     pinned buffers when the engine is on CUDA.
 

@@ -5,8 +5,8 @@ optimized over all-class Kinetics tfrecord shards, step-cadenced checkpoints
 (every 100 steps, keep 5), resume from the latest checkpoint else the
 zero-perturbation start, TensorBoard scalars every 50 steps with the
 reference's tag names, and an exclude-misclassified fooling eval over the
-val shards.  The L1,2 sparse variant (FLICKERING_ATTACK false) is not
-ported yet and raises.
+val shards.  FLICKERING_ATTACK false selects the L1,2 sparse variant (a full
+[T,H,W,3] delta), whose results go under ``SUP_ATTACK``.
 
 Usage: python -m flickering_adversarial_video_tpu_torch.runners.universal [run_config.yml]
 """
@@ -44,12 +44,10 @@ def run(cfg, *, frames: int = 90, size=None, max_steps=None, device=None):
     """Run the attack of cfg.UNIVERSAL_ATTACK on `device` (CUDA unless the
     caller asks for "cpu")."""
     attack_cfg = cfg.UNIVERSAL_ATTACK
-    if not attack_cfg.get("FLICKERING_ATTACK", True):
-        raise NotImplementedError(
-            "FLICKERING_ATTACK: False (the L1,2 sparse attack) is ROADMAP.md queue A item 9"
-        )
+    attack_kind = "flickering" if attack_cfg.get("FLICKERING_ATTACK", True) else "sparse"
     engine, labels = build_engine(
-        attack_cfg, cfg.MODEL, frames=frames, size=size, track_probs=False, device=device
+        attack_cfg, cfg.MODEL, frames=frames, size=size, attack_kind=attack_kind,
+        track_probs=False, device=device,
     )
     flags = flags_from_config(attack_cfg)
 

@@ -474,10 +474,17 @@ class TestUniversalRunner:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tuniversal.run(cfg, frames=FRAMES, size=SIZE)
 
-    def test_sparse_variant_raises(self, tmp_path):
+    def test_sparse_variant_raises(self, tmp_path, monkeypatch):
+        """FLICKERING_ATTACK false is the L1,2 attack (tests/
+        test_torch_port_sparse_cyclic.py runs it): its results go under
+        SUP_ATTACK, and on an empty shard directory it gets as far as the
+        pipeline, which raises for the missing batches."""
+        _patch_victims(monkeypatch)
         cfg = _cfg(tconfig, str(tmp_path), tmp_path / "out", FLICKERING_ATTACK=False)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tuniversal.run(cfg, frames=FRAMES, device="cpu")
+        assert "SUP_ATTACK" in tuniversal.model_dir_name(cfg.UNIVERSAL_ATTACK)
+        with contextlib.redirect_stdout(io.StringIO()):
+            with pytest.raises(RuntimeError, match="yielded no batches"):
+                tuniversal.run(cfg, frames=FRAMES, size=SIZE, device="cpu")
 
 
 @pytest.fixture
@@ -610,16 +617,28 @@ class TestBuildEngine:
 
     @pytest.mark.parametrize("key", ["CYCLIC_ATTACK", "CYCLIC_PERTURBATION_ATTACK"])
     def test_cyclic_keys_raise(self, engines, key):
+        """Either cyclic key compiles the rolls in, as the JAX package's
+        build_engine does, and keeps the engine off the packed input path."""
         _, _, ac = engines
         ac[key] = True
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tcommon.build_engine(ac, tconfig.default_config().MODEL, frames=FRAMES, device="cpu")
+        eng, _ = tcommon.build_engine(ac, tconfig.default_config().MODEL, frames=FRAMES,
+                                      device="cpu")
+        jeng, _ = jcommon.build_engine(ac, jconfig.default_config().MODEL, frames=FRAMES,
+                                       size=SIZE, use_mesh=False)
+        assert eng.config.enable_cyclic and jeng.config.enable_cyclic
+        assert not eng._packed_supported()
 
     def test_sparse_kind_raises(self, engines):
+        """attack_kind 'sparse' builds the L1,2 attack's full delta, the JAX
+        package's SparseSpec shape."""
         _, _, ac = engines
-        with pytest.raises(NotImplementedError, match="item 9"):
-            tcommon.build_engine(ac, tconfig.default_config().MODEL, attack_kind="sparse",
-                                 device="cpu")
+        eng, _ = tcommon.build_engine(ac, tconfig.default_config().MODEL, frames=FRAMES,
+                                      size=SIZE, attack_kind="sparse", device="cpu")
+        jeng, _ = jcommon.build_engine(ac, jconfig.default_config().MODEL, frames=FRAMES,
+                                       size=SIZE, attack_kind="sparse", use_mesh=False)
+        assert eng.config.attack_kind == jeng.config.attack_kind == "sparse"
+        assert eng.spec.shape == jeng.spec.shape == (FRAMES, SIZE, SIZE, 3)
+        assert eng.init_state().delta.eq(1e-8).all()
 
 
 class TestBuildVictimAndPrepackGate:

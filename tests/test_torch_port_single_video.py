@@ -322,7 +322,6 @@ class TestSingleVideoRunner:
         ({}, {"SLOTS": 2}, "item 10"),
         (dict(use_mesh=True), {}, "item 11"),
         (dict(dashboard_path="d.png"), {}, "item 13"),
-        ({}, {"CYCLIC_ATTACK": True}, "item 5"),
     ])
     def test_unported_options_raise(self, sv_runs, tmp_path, monkeypatch, kw, over, item):
         _patch_victims(monkeypatch)
@@ -488,9 +487,17 @@ class TestInferenceModel:
 
     @pytest.mark.parametrize("kw", [dict(cyclic_input_flag=1.0), dict(cyclic_eps_flag=1.0)])
     def test_cyclic_flags_raise(self, engines, kw):
-        _, teng, _ = engines
-        with pytest.raises(NotImplementedError, match="item 5"):
-            InferenceModel(teng)(np.zeros((1, FRAMES, SIZE, SIZE, 3), np.float32), **kw)
+        """On an engine built without the cyclic modes the flags are inert in
+        both packages (the rolls are not compiled in); with them,
+        tests/test_torch_port_sparse_cyclic.py."""
+        jeng, teng, _ = engines
+        clips = np.random.default_rng(3).uniform(-1, 1, (2, FRAMES, SIZE, SIZE, 3))
+        clips = clips.astype(np.float32)
+        delta = np.random.default_rng(4).uniform(-0.3, 0.3, (FRAMES, 1, 1, 3)).astype(np.float32)
+        got = InferenceModel(teng, delta)(clips, adv_flag=1.0, **kw)
+        np.testing.assert_array_equal(got, InferenceModel(teng, delta)(clips, adv_flag=1.0))
+        np.testing.assert_allclose(got, JaxInferenceModel(jeng, delta)(clips, adv_flag=1.0, **kw),
+                                   atol=1e-6)
 
 
 # ---------------- the real I3D, once ----------------
