@@ -59,7 +59,13 @@ which fails the run:
    beside the default engine's; then 3 graphed steps against 3 eager steps
    from init_state, bit for bit (delta, mu, nu, every metric), and the
    graphed run's launch counts, at B=8 default, with the pair, with
-   USE_PALLAS_FUSED and at B=1, T=90 on a float32 clip (B2 20, no B7);
+   USE_PALLAS_FUSED, at B=1, T=90 on a float32 clip (B2 20, no B7), at an
+   odd geometry (B=8 uint8 clips of 63x220x220: the unpacked cuDNN stem, no
+   B1; B2 19, B5 2, B6 2: the generic pool at 3a's 55x55), with the L1,2
+   sparse attack (a full delta [64,224,224,3], the generic path: B1 1, B2
+   20, no B7) and with both cyclic rolls at B=1, T=90 (seeded; the float
+   clip's counts); and for the cyclic engine, train_steps(3) against 3
+   train_step calls, bit for bit, and another seed giving another delta;
 4. the same engine at a small geometry in f32, in both configurations,
    against the plain versions on the CPU: loss and delta trajectory to
    tolerance;
@@ -70,8 +76,11 @@ which fails the run:
    strided pools, each summed as one B=8 step beside its bound), the step
    time eager and graphed (in turns; and 10 replays a call) at B=8 and at
    B=1, T=90 on a float32 clip, graphed with USE_PALLAS_FUSED and with the
-   pair at 2a and at 2a+3a, the eager peak memory and each graph's pool and
-   capture time, the card's name and power limit;
+   pair at 2a and at 2a+3a, eager and graphed at the odd geometry, with the
+   sparse attack and with the cyclic rolls, the eager peak memory and each
+   graph's pool and capture time, B1 at the wide clip's [1,45,144,144,24]
+   (2 column segments) and B5 and B6 at the new geometries' strided pools,
+   the card's name and power limit;
 6. where the step's device time goes, by torch.profiler over 2 train steps,
    graphed and eager, at B=8 and at B=1, T=90: by group, each of the port's
    kernels a step with its share (B1's among them), the slowest kernels, and
@@ -130,7 +139,22 @@ which fails the run:
    clean prediction among the 600 classes, from a 600-way checkpoint with
    bare names made the same way: a pkl on disk, finite losses, exact
    launch counts.  The card has no TensorFlow, so the TF bundle reader
-   itself is held on the CPU only (tests/test_torch_port_convert.py).
+   itself is held on the CPU only (tests/test_torch_port_convert.py);
+12. the universal runner with FLICKERING_ATTACK: False (the L1,2 sparse
+   attack) on phase 7's shards, 4 steps: exact counts (B1 1, B2 20, B3 9, B4
+   9, B5 3, B6 3 a step, no B7, no B8), results under SUP_ATTACK, a full
+   delta in the state and res.pkl, no host prepack;
+13. phase 11's seed-1 state written as a ``.msgpack`` of Flax variables by
+   the port's own codec (``convert.cli.save_variables``), read back
+   bit-equal, and the universal runner on it for 4 steps: the weights, the
+   history and the final delta of phase 11's ``.pt`` run, bit for bit;
+14. the single-video runner with CYCLIC_ATTACK and
+   CYCLIC_PERTURBATION_ATTACK on one clip: exact counts, a pkl;
+15. a float32 clip [1,90,288,288,3] (W' = 144 at the stem, B1 in 2 column
+   segments): up to Mixed_5c with an input gradient, exact counts, the stem
+   against B1's plain version; then through the single-video runner, which
+   refuses the Logits' unsqueezable 3x3 map after B1 ran (the JAX package's
+   model raises there too).
 
 Prints the kernel table as one JSON line (a kernel's launches: those that ran
 on the device in phase 3's traced run of its path), then as the last line
@@ -187,6 +211,21 @@ SV_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0)))
 SV_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 3, 0, 0, 0, 0, 0, 0)))
 SV_PAIR_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 2, 2, 0, 0, 0, 1, 1)))
 SV_PAIR_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 2, 0, 0, 0, 0, 1, 0)))
+# ... the L1,2 sparse attack on uint8 clips: the generic path (a full delta
+# takes no packed head), so the stem's input gradient adds a B2; no B7, no B8
+# (a train step, and an eval step's two forwards)
+SPARSE_TRAIN_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0)))
+SPARSE_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 0, 0, 0, 0, 0)))
+# ... an odd geometry, uint8 clips of ODD_FRAMES x ODD_SIZE^2: the unpacked
+# cuDNN stem (no B1, and no B2 in its backward), B5/B6 at MaxPool3d_2a
+# (110x110) and 4a (28x28), the generic pool at 3a (55x55)
+ODD_FRAMES, ODD_SIZE = 63, 220
+ODD_TRAIN_COUNTS = dict(zip(NAMES, (0, 19, 9, 9, 2, 2, 0, 0, 0, 0, 0)))
+# ... a clip wider than 256 (WIDE_SIZE: W' = 144, B1 in 2 column segments) up
+# to Mixed_5c with an input gradient, and its clean forward to the Logits
+WIDE_SIZE, WIDE_FORWARD_COUNTS = 288, dict(zip(NAMES, (2, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0)))
+WIDE_CLEAN_COUNTS = dict(zip(NAMES, (2, 0, 9, 0, 3, 0, 0, 0, 0, 0, 0)))
+CYCLIC_SEED = 7
 # the input of each Mixed block's branch_3 pool in a train step: B3's and
 # B4's nine launches (4c, 4d and 4e share a shape, as 5b and 5c do)
 POOL_STEP = {"Mixed_3b": (B, T // 2, 28, 28, 192), "Mixed_3c": (B, T // 2, 28, 28, 256),
@@ -331,9 +370,10 @@ def main() -> None:
         import torch.nn.functional as F
 
         from flickering_adversarial_video_tpu_torch import ops
-        from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
+        from flickering_adversarial_video_tpu_torch.attack import FlickerSpec, SparseSpec
         from flickering_adversarial_video_tpu_torch.convert import (
-            cli as convert_cli, convert_i3d_var_map, golden, i3d_var_map, init_i3d_state)
+            cli as convert_cli, convert_i3d_var_map, golden, i3d_var_map, init_i3d_state,
+            to_flax_variables)
         from flickering_adversarial_video_tpu_torch.data import (
             PrefetchIterator, TFRecordWriter, list_shards, make_uint8_example, pack_video_np,
             tfrecord_batches)
@@ -349,6 +389,7 @@ def main() -> None:
         from flickering_adversarial_video_tpu_torch.ops import fused_apply, kernels, packed_apply
         from flickering_adversarial_video_tpu_torch.ops import pool_s1, pool_strided
         from flickering_adversarial_video_tpu_torch.ops import stem_combine, stem_conv
+        from flickering_adversarial_video_tpu_torch.ops.space_to_depth import pack_input
         from flickering_adversarial_video_tpu_torch.runners import (
             class_gen, common, single_video, universal)
         from flickering_adversarial_video_tpu_torch.utils.config import load_config
@@ -516,6 +557,14 @@ def main() -> None:
     b6_shapes.update({"one window": (1, 3, 2, 2, 8), "3 rows": (2, 3, 6, 10, 40),
                       "C=13": (2, 1, 4, 6, 13), "W'=1": (2, 3, 10, 2, 8),
                       "H'=17": (1, 1, 34, 8, 8), "C=40 groups": (1, 3, 8, 224, 40)})
+    # the odd geometry's MaxPool3d_2a (ODD_SIZE 220: 110x110; its 3a is odd
+    # and takes the generic pool, its 4a is the step's) and the wide clip's
+    # three (WIDE_SIZE 288: 144, 72, 36)
+    wide_pools = {"2a wide": (1, SV_FRAMES // 2, WIDE_SIZE // 2, WIDE_SIZE // 2, 64),
+                  "3a wide": (1, SV_FRAMES // 2, WIDE_SIZE // 4, WIDE_SIZE // 4, 192),
+                  "4a wide": (1, SV_FRAMES // 2, WIDE_SIZE // 8, WIDE_SIZE // 8, 480)}
+    b6_shapes.update({"2a odd": (B, (ODD_FRAMES + 1) // 2, ODD_SIZE // 2, ODD_SIZE // 2, 64),
+                      **wide_pools})
     for block, shape6 in b6_shapes.items():
         pooled6 = (*shape6[:2], shape6[2] // 2, shape6[3] // 2, shape6[4])
         for dtype in (torch.bfloat16, torch.float32):
@@ -624,6 +673,35 @@ def main() -> None:
             bne = (randn(64), randn(64).abs() + 0.5, randn(64))
             hold(f"B1 {list(edge)}", lambda: stem_conv.stem_conv_bn_relu(xe, pke, *bne),
                  lambda: stem_conv.stem_conv_bn_relu_plain(xe, pke, *bne), dtype)
+
+    # B1 above its 128 columns: the wide clip's [1,45,144,144,24] in 2 column
+    # segments against the plain version (B1's tolerance), and the segments'
+    # independence: bit-equal to 4 segments (max_w 40), and at W' = 112 two
+    # segments (max_w 64) bit-equal to one launch
+    b1_wide = (1, SV_FRAMES // 2, WIDE_SIZE // 2, WIDE_SIZE // 2, 24)
+    for dtype in (torch.bfloat16, torch.float32):
+        xw = (drandint(0, 256, b1_wide, torch.float32) / 128 - 1).to(dtype)
+        pkw = drandn(4, 4, 4, 24, 64, dtype=dtype) * 0.05
+        bnw = (drandn(64), drandn(64).abs() + 0.5, drandn(64))
+        checks[("B1 wide", dtype)] = hold(
+            f"B1 {list(b1_wide)}", lambda: stem_conv.stem_conv_bn_relu(xw, pkw, *bnw),
+            lambda: stem_conv.stem_conv_bn_relu_plain(xw, pkw, *bnw), dtype)
+        two = stem_conv.stem_conv_bn_relu(xw, pkw, *bnw)
+        four = stem_conv.stem_conv_bn_relu(xw, pkw, *bnw, max_w=40)
+        x112 = xw[:, :4, :16, :112].contiguous()
+        one = stem_conv.stem_conv_bn_relu(x112, pkw, *bnw)
+        split = stem_conv.stem_conv_bn_relu(x112, pkw, *bnw, max_w=64)
+        torch.cuda.synchronize()
+        ok = torch.equal(two, four) and torch.equal(one, split)
+        print(f"[check] B1 column segments {str(dtype)[6:]:8s}: W'=144 in "
+              f"{len(stem_conv.stem_segments(144))} against {len(stem_conv.stem_segments(144, 40))} "
+              f"segments, W'=112 in one launch against {len(stem_conv.stem_segments(112, 64))}: "
+              f"{'bit-equal' if ok else 'DIFFER'} (tolerance 0)", flush=True)
+        if not ok:
+            fail(f"B1's result depends on its column segments ({dtype})")
+        if dtype == torch.bfloat16:
+            inputs["b1_wide"] = (pkw, bnw)
+        del xw, two, four, x112, one, split
 
     # The NaN rule: a NaN and a -inf block reach B1 and B3..B6.  Each kernel
     # equals its plain version: NaN positions equal, and the other values
@@ -916,14 +994,15 @@ def main() -> None:
             return a == b
         return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
 
-    def eager_step(eng, state_, batch_):
-        return eng._train_step(state_, *eng.prepare_batch(batch_), flags)
+    def eager_step(eng, state_, batch_, flags_=flags, seed=0):
+        return eng._train_step(state_, *eng.prepare_batch(batch_), flags_, seed)
 
-    def three_steps(model_, batch_, cfg, frames, graphed):
-        e = AttackEngine(model_, FlickerSpec(frames=frames), cfg, track_probs=False)
+    def three_steps(model_, batch_, cfg, spec, graphed, flags_=flags, seed=0):
+        e = AttackEngine(model_, spec, cfg, track_probs=False)
         s, ms = e.init_state(), []
         for _ in range(3):
-            s, m = e.train_step(s, batch_, flags) if graphed else eager_step(e, s, batch_)
+            s, m = (e.train_step(s, batch_, flags_, seed) if graphed
+                    else eager_step(e, s, batch_, flags_, seed))
             ms.append(m)
         torch.cuda.synchronize()
         return [s.delta.clone(), s.mu.clone(), s.nu.clone(), s.step] + [
@@ -932,19 +1011,36 @@ def main() -> None:
     sv_batch = {"video": torch.from_numpy(np.random.default_rng(SEED + 3).uniform(
         -1, 1, (1, SV_FRAMES, SIZE, SIZE, 3)).astype(np.float32)).to(dev),
         "labels": batch["labels"][:1]}
+    # the odd geometry (uint8 clips of ODD_FRAMES x ODD_SIZE^2), the L1,2
+    # sparse attack (a full delta) and the cyclic rolls (both flags, seeded:
+    # the shifts come from the seed and the device's step count) take the
+    # generic input path
+    odd_batch = {"video": torch.from_numpy(rng.integers(
+        0, 256, (B, ODD_FRAMES, ODD_SIZE, ODD_SIZE, 3), dtype=np.uint8)).to(dev),
+        "labels": batch["labels"]}
+    cyclic_flags = RuntimeFlags(cyclic_flag=1.0, cyclic_pert_flag=1.0)
     graph_device = {}
-    for tag, model_, batch_, cfg, frames, step_counts in (
-        (f"B={B} default", model, batch, AttackConfig(), T, TRAIN_COUNTS),
-        (f"B={B} pair at MaxPool3d_2a", pair_engine.model, batch, AttackConfig(), T,
-         PAIR_TRAIN_COUNTS),
-        (f"B={B} USE_PALLAS_FUSED", model, batch, AttackConfig(use_pallas_fused=True), T,
-         FUSED_TRAIN_COUNTS),
-        (f"B=1 T={SV_FRAMES} float32 clip", model, sv_batch, AttackConfig(), SV_FRAMES,
-         SV_STEP_COUNTS),
+    for tag, model_, batch_, cfg, spec, flags_, seed, step_counts in (
+        (f"B={B} default", model, batch, AttackConfig(), FlickerSpec(T), flags, 0, TRAIN_COUNTS),
+        (f"B={B} pair at MaxPool3d_2a", pair_engine.model, batch, AttackConfig(), FlickerSpec(T),
+         flags, 0, PAIR_TRAIN_COUNTS),
+        (f"B={B} USE_PALLAS_FUSED", model, batch, AttackConfig(use_pallas_fused=True),
+         FlickerSpec(T), flags, 0, FUSED_TRAIN_COUNTS),
+        (f"B=1 T={SV_FRAMES} float32 clip", model, sv_batch, AttackConfig(),
+         FlickerSpec(SV_FRAMES), flags, 0, SV_STEP_COUNTS),
+        (f"B={B} odd geometry {ODD_FRAMES}x{ODD_SIZE}x{ODD_SIZE} uint8", model, odd_batch,
+         AttackConfig(), FlickerSpec(ODD_FRAMES), flags, 0, ODD_TRAIN_COUNTS),
+        (f"B={B} sparse (L1,2, delta [{T},{SIZE},{SIZE},3])", model, batch,
+         AttackConfig(attack_kind="sparse"), SparseSpec(T, SIZE, SIZE), flags, 0,
+         SPARSE_TRAIN_COUNTS),
+        (f"B=1 T={SV_FRAMES} float32 clip, cyclic (both flags, seed {CYCLIC_SEED})", model,
+         sv_batch, AttackConfig(enable_cyclic=True), FlickerSpec(SV_FRAMES), cyclic_flags,
+         CYCLIC_SEED, SV_STEP_COUNTS),
     ):
         t0 = time.perf_counter()
-        eager = three_steps(model_, batch_, cfg, frames, False)
-        graphed, got, got_dev = traced(lambda: three_steps(model_, batch_, cfg, frames, True))
+        eager = three_steps(model_, batch_, cfg, spec, False, flags_, seed)
+        graphed, got, got_dev = traced(
+            lambda: three_steps(model_, batch_, cfg, spec, True, flags_, seed))
         graph_device[tag] = got_dev
         ok = len(graphed) == len(eager) and all(map(bit_equal, graphed, eager))
         counted = (got == scaled(step_counts, 3)
@@ -960,6 +1056,38 @@ def main() -> None:
             fail(f"the graphed step's launch counts differ from the per-step counts ({tag})")
         del eager, graphed
         torch.cuda.empty_cache()
+
+    # the cyclic engine: train_steps(3) (3 replays of one graph, no host
+    # between) against 3 train_step calls, bit for bit, each step's shifts
+    # drawn from (seed, its step count); a seed of its own rolls otherwise
+    from flickering_adversarial_video_tpu_torch.attack.perturbation import roll_shifts
+
+    def cyclic_run(n_calls, seed):
+        e = AttackEngine(model, FlickerSpec(SV_FRAMES), AttackConfig(enable_cyclic=True),
+                         track_probs=False)
+        if n_calls == 1:
+            s = e.train_steps(e.init_state(), sv_batch, cyclic_flags, 3, seed=seed)
+        else:
+            s = e.init_state()
+            for _ in range(3):
+                s, _ = e.train_step(s, sv_batch, cyclic_flags, seed)
+        torch.cuda.synchronize()
+        return s.delta.clone(), s.mu.clone(), s.nu.clone()
+
+    chained, stepped = cyclic_run(1, CYCLIC_SEED), cyclic_run(3, CYCLIC_SEED)
+    other = cyclic_run(1, CYCLIC_SEED + 1)
+    shifts = [tuple(int(v) for v in roll_shifts(torch.tensor(CYCLIC_SEED, device=dev),
+                                                 torch.tensor(c, device=dev), SV_FRAMES,
+                                                 SV_FRAMES)) for c in (1, 2, 3)]
+    ok = all(map(bit_equal, chained, stepped))
+    print(f"[graph] cyclic, seed {CYCLIC_SEED}: train_steps(3) against 3 train_step calls "
+          f"(delta, mu, nu): {'bit-equal' if ok else 'DIFFER'}; the steps' (input, delta) shifts "
+          f"{shifts}; seed {CYCLIC_SEED + 1} gives another delta: "
+          f"{not torch.equal(other[0], chained[0])}", flush=True)
+    if not ok or torch.equal(other[0], chained[0]) or len(set(shifts)) == 1:
+        fail("the cyclic engine's chained steps differ from its single steps, or the rolls "
+             "do not depend on the seed and the step")
+    del chained, stepped, other
 
     # ---- 4. small geometry, f32: kernels vs the plain versions on the CPU ----
     small = {"video": rng.integers(0, 256, (2, 8, 32, 32, 3), dtype=np.uint8),
@@ -1049,6 +1177,36 @@ def main() -> None:
               f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; default "
               f"{step_ms:.2f} ms in this run", flush=True)
     del pair_engine, eng
+
+    # the odd geometry, the sparse attack and the cyclic rolls: the step
+    # graphed (one train_steps call a step) and eager, in turns
+    new_step_ms, new_paths = {}, []
+    for tag, eng_, batch_, flags_, seed in (
+        (f"odd geometry B={B} {ODD_FRAMES}x{ODD_SIZE}x{ODD_SIZE} uint8",
+         AttackEngine(model, FlickerSpec(ODD_FRAMES), track_probs=False), odd_batch, flags, 0),
+        (f"sparse (L1,2) B={B} T={T} {SIZE}x{SIZE} uint8",
+         AttackEngine(model, SparseSpec(T, SIZE, SIZE), AttackConfig(attack_kind="sparse"),
+                      track_probs=False), batch, flags, 0),
+        (f"cyclic B=1 T={SV_FRAMES} float32 clip",
+         AttackEngine(model, FlickerSpec(SV_FRAMES), AttackConfig(enable_cyclic=True),
+                      track_probs=False), sv_batch, cyclic_flags, CYCLIC_SEED),
+    ):
+        st = eng_.init_state()
+        torch.cuda.reset_peak_memory_stats()
+        e_ms = [cuda_ms(torch, lambda: eager_step(eng_, st, batch_, flags_, seed), iters=5,
+                        warmup=1)]
+        e_peak = torch.cuda.max_memory_allocated() / 1e9
+        g_ms = [cuda_ms(torch, lambda: eng_.train_steps(st, batch_, flags_, 1, seed=seed), iters=5,
+                        warmup=1)]
+        e_ms.append(cuda_ms(torch, lambda: eager_step(eng_, st, batch_, flags_, seed), iters=5,
+                            warmup=1))
+        g_ms.append(cuda_ms(torch, lambda: eng_.train_steps(st, batch_, flags_, 1, seed=seed),
+                            iters=5, warmup=1))
+        print(f"[time] train step, {tag}: eager {e_ms[0]:.2f}, {e_ms[1]:.2f} ms; graphed "
+              f"{g_ms[0]:.2f}, {g_ms[1]:.2f} ms ({1000 / min(g_ms):.3f} steps/s); eager peak "
+              f"memory {e_peak:.2f} GB; {graph_stats(eng_)}", flush=True)
+        new_step_ms[tag.split()[0]] = min(g_ms)
+        new_paths.append((tag, eng_, st, batch_, flags_, seed))
 
     x1, pk, bn, xp, x5 = (inputs[k] for k in ("x1", "pk", "bn", "xp", "x5"))
     isz = 2
@@ -1230,6 +1388,42 @@ def main() -> None:
           flush=True)
     del x1s, x1sp
 
+    # B1 at the wide clip's shape (2 column segments, 2 launches), and B5 and
+    # B6 at the new geometries' strided pools, each beside its bound
+    pkw, bnw = inputs["b1_wide"]
+    xws = (drandint(0, 256, b1_wide, torch.float32) / 128 - 1).to(torch.bfloat16)
+    macs_w = 24 * 64 * n_in_range(b1_wide[1], 1, 4) * n_in_range(b1_wide[2], 1, 4) * n_in_range(
+        b1_wide[3], 1, 4)
+    bytes_w = xws.numel() * isz + pkw.numel() * isz + xws.numel() // 24 * 64 * isz + 3 * 64 * 4
+    bound_w = max(2 * macs_w / PEAK_BF16_FLOPS, bytes_w / PEAK_BYTES) * 1e3
+    ms1w = cuda_ms(torch, lambda: stem_conv.stem_conv_bn_relu(xws, pkw, *bnw))
+    plain1w = cuda_ms(torch, lambda: stem_conv.stem_conv_bn_relu_plain(xws, pkw, *bnw), iters=3,
+                      warmup=1)
+    x1wp = F.pad(xws.permute(0, 4, 1, 2, 3), (1, 2) * 3)
+    w1w = stem_conv.pk_to_oidhw(pkw).contiguous(memory_format=torch.channels_last_3d)
+    lib1w = cuda_ms(torch, lambda: F.conv3d(x1wp, w1w))
+    print(f"[time] B1 at the wide clip's {list(b1_wide)} in "
+          f"{len(stem_conv.stem_segments(b1_wide[3]))} column segments: {ms1w:.3f} ms (bound "
+          f"{bound_w:.3f} ms, operations; {bound_w / ms1w:.1%} of it), plain {plain1w:.3f} ms, "
+          f"F.conv3d {lib1w:.3f} ms", flush=True)
+    del xws, x1wp
+    for block in ("2a odd", *wide_pools):
+        shape6 = b6_shapes[block]
+        x6 = drandn(*shape6, dtype=torch.bfloat16)
+        dy6 = drandn(*shape6[:2], shape6[2] // 2, shape6[3] // 2, shape6[4], dtype=torch.bfloat16)
+        ms5 = cuda_ms(torch, lambda: pool_strided.pool133_s2_fwd(x6))
+        b5 = (x6.numel() + dy6.numel()) * isz / PEAK_BYTES * 1e3
+        ms6 = cuda_ms(torch, lambda: pool_strided.pool133_s2_bwd(x6, dy6))
+        b6 = (2 * x6.numel() + dy6.numel()) * isz / PEAK_BYTES * 1e3
+        lib5 = cuda_ms(torch, lambda: F.max_pool3d(
+            F.pad(x6.permute(0, 4, 1, 2, 3), (0, 1, 0, 1), value=float("-inf")), (1, 3, 3),
+            (1, 2, 2)))
+        print(f"[time] B5 MaxPool3d_{block} {list(shape6)}: {ms5:.4f} ms (bound {b5:.4f} ms, "
+              f"bytes; {b5 / ms5:.1%} of it; F.max_pool3d on the padded x, the pad included, "
+              f"{lib5:.4f} ms); B6 {ms6:.4f} ms (bound {b6:.4f} ms, bytes; {b6 / ms6:.1%} of it)",
+              flush=True)
+        del x6, dy6
+
     kern, plain = inputs["b2_stem"]
     n4 = B * (T // 2) * th * tw * 24
     print(f"[time] B2 at the stem's dgrad [{B},{T // 2},{th},{tw},96] (USE_PALLAS_FUSED): "
@@ -1294,7 +1488,8 @@ def main() -> None:
     packed, is_packed, _ = engine.prepare_batch(batch)
     with torch.no_grad():
         fwd_ms = cuda_ms(torch, lambda: engine._logits(state.delta, packed, is_packed,
-                                                        engine._adv_flag(flags)),
+                                                        engine._step_scalars(flags),
+                                                        engine._eval_counter),
                          iters=5, warmup=1)
     print(f"[profile] forward alone (no grad, eager) {fwd_ms:.2f} ms; backward + Adam + metrics "
           f"{eager_step_ms - fwd_ms:.2f} ms of the {eager_step_ms:.2f} ms eager step", flush=True)
@@ -1304,10 +1499,17 @@ def main() -> None:
     if sv_busy and sv_busy_eager:
         print(f"[profile] kernel time a B=1 T={SV_FRAMES} step: graphed {sv_busy:.2f} ms, "
               f"eager {sv_busy_eager:.2f} ms ({sv_busy / sv_busy_eager - 1:+.1%})", flush=True)
+    # the odd geometry, the sparse attack and the cyclic rolls, graphed
+    for tag, eng_, st, batch_, flags_, seed in new_paths:
+        breakdown(f"{tag}, graphed",
+                  lambda: eng_.train_steps(st, batch_, flags_, 1, seed=seed),
+                  new_step_ms[tag.split()[0]], top=8)
+    del new_paths, eng_, st
+    torch.cuda.empty_cache()
 
 
     # ---- 7. the universal runner, default configuration ---------------------------
-    del inputs, engine, fused_engine, packed, b1_engine, b1_state, sv_batch
+    del inputs, engine, fused_engine, packed, b1_engine, b1_state, sv_batch, odd_batch
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="fav_smoke_") as tmp:
         shard_dir = os.path.join(tmp, "shards")
@@ -1801,8 +2003,9 @@ def main() -> None:
               f"{mine.argmax(-1).tolist()})", flush=True)
         if not torch.equal(mine, theirs):
             fail("real victim: the runner's clean logits differ from the directly loaded model's")
+        victim_hist, victim_delta = out["history"], out["state"].delta.clone()
         del built, direct, mine, theirs, x
-        cfg.MODEL.CKPT_PATH = "data/checkpoints/rgb_imagenet/model.ckpt"
+        default_ckpt = cfg.MODEL.CKPT_PATH = "data/checkpoints/rgb_imagenet/model.ckpt"
 
         cfg600 = load_config(os.path.join(HERE, "configs", "run_config_rgb600.yml"))
         sv6 = cfg600.SINGLE_VIDEO_ATTACK
@@ -1848,6 +2051,148 @@ def main() -> None:
             fail("rgb600: the pkl's softmax is not 600-way or a loss is not finite")
         if got != want:
             fail("rgb600: kernel launch counts differ from the per-step counts")
+
+        # ---- 12. the universal runner, the L1,2 sparse attack ---------------------------
+        # FLICKERING_ATTACK: False on phase 7's shards: a full delta
+        # [T,224,224,3], no host prepack (the generic path), results under
+        # SUP_ATTACK; seed-0 random weights (no checkpoint), as phase 7
+        ac.FLICKERING_ATTACK = False
+        ac.MAX_NUM_STEP = VICTIM_STEPS
+        out, said, _, _ = run_runner("sparse (FLICKERING_ATTACK: False)", "sparse", VICTIM_STEPS,
+                                     SPARSE_TRAIN_COUNTS, SPARSE_EVAL_COUNTS,
+                                     new_step_ms["sparse"])
+        model_dir = universal.model_dir_name(ac)
+        with open(os.path.join(model_dir, "res.pkl"), "rb") as f:
+            res = pickle.load(f)
+        shapes_pkl = {tuple(p.shape) for p in res["history"]["perturbation"]}
+        print(f"[sparse] results under {os.path.relpath(model_dir, tmp)}; delta "
+              f"{list(out['state'].delta.shape)}, range [{out['state'].delta.min().item():.3e}, "
+              f"{out['state'].delta.max().item():.3e}]; res.pkl perturbations {shapes_pkl}; "
+              f"first losses {[round(v, 6) for v in out['history']['total_loss']]}; l12 logged "
+              f"on every step", flush=True)
+        if ("SUP_ATTACK" not in model_dir or "host-prepacked" in said
+                or tuple(out["state"].delta.shape) != (T, SIZE, SIZE, 3)
+                or shapes_pkl != {(T, SIZE, SIZE, 3)}
+                or not out["state"].delta.abs().max().item() > 1e-7):
+            fail("sparse runner: not under SUP_ATTACK, prepacked, or a delta of the wrong "
+                 "shape or unmoved")
+        ac.FLICKERING_ATTACK = True
+
+        # ---- 13. a .msgpack of Flax variables through the universal runner ------------
+        # phase 11's seed-1 state as the JAX package's Flax tree, written by
+        # the port's save_variables (flax's msgpack bytes; the card has no
+        # flax and no msgpack): read back bit-equal, and the runner on it
+        # runs phase 11's 4 steps, history and delta bit for bit
+        msgpack_path = os.path.join(tmp, "i3d_rgb.msgpack")
+        convert_cli.save_variables(to_flax_variables(weights["rgb"][0]), msgpack_path)
+        back = convert_cli.load_weights(msgpack_path)
+        state = weights["rgb"][0]
+        if set(back) != set(state) or not all(torch.equal(back[k], state[k]) for k in state):
+            fail(".msgpack: the weights do not read back bit-equal")
+        built = []
+        cfg.MODEL.CKPT_PATH = msgpack_path
+        with mock.patch.object(common, "build_victim", keep_victim):
+            out, said, _, _ = run_runner("real victim (seed-1 .msgpack)", "victim_msgpack",
+                                         VICTIM_STEPS, TRAIN_COUNTS, EVAL_COUNTS, step_ms)
+        got_sd = built[0].state_dict()
+        same_w = set(got_sd) == set(state) and all(torch.equal(got_sd[k].cpu(), state[k])
+                                                   for k in state)
+        same_run = (out["history"]["total_loss"] == victim_hist["total_loss"]
+                    and out["history"]["fool_rate"] == victim_hist["fool_rate"]
+                    and torch.equal(out["state"].delta, victim_delta))
+        print(f"[msgpack] {os.path.basename(msgpack_path)} ({os.path.getsize(msgpack_path) / 1e6:.1f}"
+              f" MB) written by save_variables, read back bit-equal; the runner's model holds "
+              f"the weights of the .pt route: {same_w}; history and final delta equal to the .pt "
+              f"route's run: {same_run}", flush=True)
+        if "[warn]" in said or not same_w or not same_run:
+            fail(".msgpack: the runner warned, or its weights or run differ from the .pt route's")
+        del built, got_sd, back
+        cfg.MODEL.CKPT_PATH = default_ckpt
+
+        # ---- 14. the cyclic rolls through the single-video runner ----------------------
+        # CYCLIC_ATTACK and CYCLIC_PERTURBATION_ATTACK on phase 9's first
+        # directory (a kept clip, seed 0, and the misnamed clip, seed 1,
+        # skipped after its clean forward): exact launch counts, a pkl,
+        # finite losses
+        sv.CYCLIC_ATTACK = sv.CYCLIC_PERTURBATION_ATTACK = True
+        sv.NPY_PATH, sv.MAX_NUM_STEP = npy_dirs[0], SV_MAX_NUM_STEP
+        sv.PKL_RESULT_PATH = os.path.join(tmp, "sv_cyclic") + "/"
+        said = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(said):
+            written = single_video.run(cfg, frames=SV_FRAMES)
+        torch.cuda.synchronize()
+        got = read_counts(ops)
+        results = [load_result(w) for w in written]
+        n_steps = sum(r["total_steps"] + 1 for r in results)
+        n_clips = len(os.listdir(npy_dirs[0]))
+        want = {k: n_steps * SV_STEP_COUNTS[k] + n_clips * SV_CLEAN_COUNTS[k] for k in NAMES}
+        rate = re.findall(r"\(([\d.]+) steps/s\)", said.getvalue())
+        print(f"[cyclic] single-video runner, both cyclic flags: pkls "
+              f"{[os.path.basename(w) for w in written]}; steps {n_steps}; {rate} steps/s by the "
+              f"loop's timer; launches {got} (expected {want})", flush=True)
+        if len(written) != 1 or got != want:
+            fail("cyclic single-video: expected one pkl and the per-step launch counts")
+        r = results[0]
+        if not (all(math.isfinite(v) for v in r["total_loss_l"])
+                and np.abs(r["final_delta"]).max() > 0):
+            fail("cyclic single-video: a loss is not finite or delta did not move")
+        sv.CYCLIC_ATTACK = sv.CYCLIC_PERTURBATION_ATTACK = False
+
+        # ---- 15. a clip wider than 256 columns ---------------------------------------
+        # one float32 clip [1,90,288,288,3]: its packed stem has W' = 144, B1
+        # in 2 column segments.  Up to Mixed_5c with an input gradient (the
+        # float-clip stem: B1 forward, B2 its dgrad): exact counts, the stem
+        # against B1's plain version, a finite input gradient.  Through the
+        # single-video runner its clean forward reaches the Logits, whose 7x7
+        # average pool leaves a 3x3 map at 288: neither package squeezes it
+        # (the JAX package's jnp.squeeze raises there too), so the runner
+        # raises after B1 ran in its segments
+        rng = np.random.default_rng(SEED + 13)
+        wide = rng.uniform(-1, 1, (1, SV_FRAMES, WIDE_SIZE, WIDE_SIZE, 3)).astype(np.float32)
+        xw = torch.from_numpy(wide).to(dev).requires_grad_(True)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        y, ep = model(xw, final_endpoint="Mixed_5c")
+        y.float().sum().backward()
+        torch.cuda.synchronize()
+        got = read_counts(ops)
+        with torch.no_grad():
+            want_stem = stem_conv.stem_conv_bn_relu_plain(
+                pack_input(xw.detach().to(torch.bfloat16)), *model.stem_params())
+        err, rel = compare(ep["Conv3d_1a_7x7"], want_stem)
+        gfin = bool(torch.isfinite(xw.grad).all()) and xw.grad.abs().max().item() > 0
+        print(f"[wide] [1,{SV_FRAMES},{WIDE_SIZE},{WIDE_SIZE},3] up to Mixed_5c "
+              f"{list(y.shape)} with its input gradient: launches {got} (expected "
+              f"{WIDE_FORWARD_COUNTS}); the stem [1,{SV_FRAMES // 2},{WIDE_SIZE // 2},"
+              f"{WIDE_SIZE // 2},64] against B1's plain version max_abs_err {err:.3e} max_rel_err "
+              f"{rel:.3e} (tolerance {tol[('B1', torch.bfloat16)]:g}); input gradient finite and "
+              f"nonzero: {gfin}", flush=True)
+        if got != WIDE_FORWARD_COUNTS or not rel <= tol[("B1", torch.bfloat16)] or not gfin:
+            fail("wide clip: launch counts, the segmented stem or the input gradient")
+        del y, ep, xw, want_stem
+        sv.NPY_PATH = os.path.join(tmp, "npy_wide")
+        sv.PKL_RESULT_PATH = os.path.join(tmp, "sv_wide") + "/"
+        os.makedirs(sv.NPY_PATH)
+        save_npy_clip(os.path.join(sv.NPY_PATH, f"rgb_0@{sv_labels[0].replace(' ', '_')}.npy"),
+                      wide)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                single_video.run(cfg, frames=SV_FRAMES)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        torch.cuda.synchronize()
+        got = read_counts(ops)
+        print(f"[wide] single-video runner at {WIDE_SIZE}x{WIDE_SIZE}: raised {raised!r} after "
+              f"its clean forward's launches {got} (expected {WIDE_CLEAN_COUNTS})", flush=True)
+        if raised is None or "squeezable" not in raised or got != WIDE_CLEAN_COUNTS:
+            fail("wide clip: the runner did not refuse the unsqueezable logits after B1's "
+                 "segments ran")
+        del wide
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
