@@ -35,8 +35,8 @@ TORCH_WORLD = ("r3d_18", "mc3_18", "r2plus1d_18", "r2plus1d_34")
 
 
 def save_variables(variables: Dict[str, Any], path: str) -> None:
-    """A Flax variables tree (numpy or torch leaves) to a ``.msgpack``, the
-    bytes ``flax.serialization.msgpack_serialize`` writes."""
+    """A Flax variables tree (numpy leaves) to a ``.msgpack``, the bytes
+    ``flax.serialization.msgpack_serialize`` writes."""
     with open(path, "wb") as f:
         f.write(flax_msgpack.serialize(variables))
 

@@ -10,7 +10,7 @@ reads and writes the format itself:
 * ExtType 1, an ndarray: the msgpack array ``(shape, dtype name, C-order
   bytes)``, and ExtType 3, a numpy scalar (the same, of shape ()); a
   ``bfloat16`` array, which numpy cannot hold, is read as a
-  ``torch.bfloat16`` tensor;
+  ``torch.bfloat16`` tensor (and not written);
 * flax's chunked arrays: an array of more than ``MAX_CHUNK_SIZE`` bytes is
   written as the map ``{'__msgpack_chunked_array__': True, 'shape': {'0':
   ..}, 'chunks': {'0': flat chunk, ..}}``, the chunks each of
@@ -195,10 +195,6 @@ def _pack(x: Any, out: bytearray) -> None:
         payload = _ndarray_to_bytes(np.asarray(x))
         _ext_header(EXT_NPSCALAR, len(payload), out)
         out += payload
-    elif _is_tensor(x):
-        payload = _bf16_payload(x)
-        _ext_header(EXT_NDARRAY, len(payload), out)
-        out += payload
     elif isinstance(x, int):
         _pack_int(x, out)
     elif isinstance(x, float):
@@ -224,10 +220,6 @@ def _pack_int(n: int, out: bytearray) -> None:
     raise ValueError(f"integer {n} does not fit msgpack's 64 bits")
 
 
-def _is_tensor(x: Any) -> bool:
-    return type(x).__module__.startswith("torch")
-
-
 def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes are not serialized")
@@ -236,31 +228,9 @@ def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
     return bytes(out)
 
 
-def _torch_leaf(x: Any) -> Any:
-    """A torch tensor as a numpy array, but for bf16, kept as a tensor and
-    written as flax writes jnp.bfloat16: the dtype name 'bfloat16' and its
-    2-byte values."""
-    import torch
-
-    t = x.detach().cpu().contiguous()
-    return t if t.dtype == torch.bfloat16 else t.numpy()
-
-
-def _bf16_payload(t) -> bytes:
-    import torch
-
-    out = bytearray()
-    _pack([list(t.shape), "bfloat16", t.view(torch.int16).numpy().tobytes("C")], out)
-    return bytes(out)
-
-
 def _chunk(tree: Any) -> Any:
     if isinstance(tree, dict):  # keys sorted, as flax's copy of the tree has them
         return {k: _chunk(tree[k]) for k in sorted(tree)}
-    if _is_tensor(tree):
-        tree = _torch_leaf(tree)
-    if _is_tensor(tree) and tree.numel() * 2 > MAX_CHUNK_SIZE:
-        raise ValueError("a bf16 tensor above MAX_CHUNK_SIZE bytes is not chunked")
     if isinstance(tree, np.ndarray) and tree.nbytes > MAX_CHUNK_SIZE:
         size = max(1, MAX_CHUNK_SIZE // tree.dtype.itemsize)
         flat = tree.reshape(-1)
@@ -273,8 +243,8 @@ def _chunk(tree: Any) -> Any:
 
 
 def serialize(tree: Any) -> bytes:
-    """flax.serialization.msgpack_serialize of a tree of dicts with array
-    (numpy or torch) and Python-scalar leaves."""
+    """flax.serialization.msgpack_serialize of a tree of dicts with numpy
+    array and Python-scalar leaves."""
     out = bytearray()
     _pack(_chunk(tree), out)
     return bytes(out)

@@ -443,7 +443,6 @@ class TestFlaxMsgpack:
         got = flax_msgpack.restore(data)["w"]
         assert got.dtype == torch.bfloat16 and got.shape == (2, 3)
         assert torch.equal(got.float(), torch.arange(6.0).reshape(2, 3))
-        assert flax_msgpack.serialize({"w": got}) == data
 
     def test_malformed_bytes_raise(self):
         with pytest.raises(ValueError, match="truncated"):
