@@ -24,10 +24,10 @@ from flickering_adversarial_video_tpu.engine import AttackConfig as JaxConfig
 from flickering_adversarial_video_tpu.engine import AttackEngine as JaxEngine
 from flickering_adversarial_video_tpu.engine import RuntimeFlags as JaxFlags
 from flickering_adversarial_video_tpu.models.i3d import InceptionI3D as JaxI3D
-from flickering_adversarial_video_tpu.models.i3d import init_i3d_params
 from flickering_adversarial_video_tpu.ops import maxpool as jmaxpool
 from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
-from flickering_adversarial_video_tpu_torch.convert import from_flax_variables
+from flickering_adversarial_video_tpu_torch.convert import (
+    from_flax_variables, init_i3d_state, to_flax_variables)
 from flickering_adversarial_video_tpu_torch.engine import AttackEngine, RuntimeFlags
 from flickering_adversarial_video_tpu_torch.models import i3d as ti3d
 from flickering_adversarial_video_tpu_torch.ops import conv_unit, maxpool, stem_conv
@@ -44,7 +44,9 @@ TERMS = ("total_loss", "adv_loss", "reg_loss", "l12", "norm_reg", "diff_norm_reg
 
 @pytest.fixture(scope="module")
 def flax_vars():
-    return init_i3d_params(jax.random.key(5), num_classes=K, frames=8, size=16)
+    """Seeded random weights as the JAX I3D's Flax tree (the JAX package's
+    own init_i3d_params takes 15 s to trace)."""
+    return to_flax_variables(init_i3d_state(5, K))
 
 
 @pytest.fixture(scope="module")

@@ -39,7 +39,6 @@ from flickering_adversarial_video_tpu.engine import AttackEngine as JaxEngine
 from flickering_adversarial_video_tpu.engine import RuntimeFlags as JaxFlags
 from flickering_adversarial_video_tpu.engine.inference import InferenceModel as JaxInferenceModel
 from flickering_adversarial_video_tpu.models.i3d import InceptionI3D as JaxI3D
-from flickering_adversarial_video_tpu.models.i3d import init_i3d_params
 from flickering_adversarial_video_tpu.runners import common as jcommon
 from flickering_adversarial_video_tpu.runners import single_video as jsingle
 from flickering_adversarial_video_tpu.runners import universal as juniversal
@@ -47,7 +46,8 @@ from flickering_adversarial_video_tpu.utils import config as jconfig
 from flickering_adversarial_video_tpu_torch.attack import metrics as tmetrics
 from flickering_adversarial_video_tpu_torch.attack import perturbation as tpert
 from flickering_adversarial_video_tpu_torch.attack import regularizers as treg
-from flickering_adversarial_video_tpu_torch.convert import from_flax_variables
+from flickering_adversarial_video_tpu_torch.convert import (
+    from_flax_variables, init_i3d_state, to_flax_variables)
 from flickering_adversarial_video_tpu_torch.data import npy as tnpy
 from flickering_adversarial_video_tpu_torch.data import tfrecord as ttfr
 from flickering_adversarial_video_tpu_torch.engine import (
@@ -88,7 +88,9 @@ def jax_stream(monkeypatch):
 
 @pytest.fixture(scope="module")
 def flax_vars():
-    return init_i3d_params(jax.random.key(6), num_classes=K, frames=FRAMES, size=SIZE)
+    """Seeded random weights as the JAX I3D's Flax tree (the JAX package's
+    own init_i3d_params takes 15 s to trace)."""
+    return to_flax_variables(init_i3d_state(6, K))
 
 
 @pytest.fixture(scope="module")
@@ -548,9 +550,14 @@ def test_wide_clips_stem_and_logits_as_in_jax(flax_vars, model):
     wider than 1, which neither package squeezes: both refuse it."""
     clip = np.random.default_rng(4).uniform(-1, 1, (1, 4, 16, 258, 3)).astype(np.float32)
     jm = JaxI3D(num_classes=K, compute_dtype=jnp.float32, final_endpoint="MaxPool3d_3a_3x3")
-    want, vjp = jax.vjp(lambda x: jm.apply(flax_vars, x)[0], jnp.asarray(clip))
-    g = np.random.default_rng(5).normal(size=want.shape).astype(np.float32)
-    (want_dx,) = vjp(jnp.asarray(g))
+    g = np.random.default_rng(5).normal(size=(1, 2, 2, 33, 192)).astype(np.float32)
+
+    @jax.jit
+    def value_and_dx(x, g):
+        want, vjp = jax.vjp(lambda q: jm.apply(flax_vars, q)[0], x)
+        return want, vjp(g)[0]
+
+    want, want_dx = value_and_dx(jnp.asarray(clip), jnp.asarray(g))
     x = torch.from_numpy(clip).requires_grad_(True)
     got = model(x, final_endpoint="MaxPool3d_3a_3x3")[0]
     got.backward(torch.from_numpy(g))
