@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths on full-width I3D (400 classes, every Mixed
-block, bf16, random weights from a numpy seed) after building the port's CUDA
+block, bf16, random weights from a numpy seed), and the torch world's video
+ResNets (phase 16), after building the port's CUDA
 kernels from ``flickering_adversarial_video_tpu_torch/csrc``: the universal
 flickering attack on B=8 uint8 clips of 64x224x224 (the attack step through
 ``AttackEngine.train_steps`` and ``eval_step``; the universal runner,
@@ -154,7 +155,26 @@ which fails the run:
    segments): up to Mixed_5c with an input gradient, exact counts, the stem
    against B1's plain version; then through the single-video runner, which
    refuses the Logits' unsqueezable 3x3 map after B1 ran (the JAX package's
-   model raises there too).
+   model raises there too);
+16. the torch world (no kernel of the port on its path: every wrapper's
+   count stays 0): each video ResNet at the reference's cell (r3d_18 B=16,
+   mc3_18 B=20, r2plus1d_18 B=16, each 16x112x112 uint8; r2plus1d_34 B=16,
+   32x112x112), bf16, seeded torchvision-layout weights written to a .pth and
+   loaded through ``build_victim``: 3 graphed ``train_step`` calls (max_norm
+   escalated x1.3 before the third: no new graph) and a graphed
+   ``train_eval_step`` against the eager steps, bit for bit; graphed and
+   eager ms a step, the graphs' pools and the eager peak; for r2plus1d_18,
+   under torch.profiler, kernel ms a step by group, the busy share, the
+   stem's forward and input-gradient ms, the convolutions by shape, and no
+   kernel of ``ops.kernels.KERNEL_SYMBOLS`` in the trace; then
+   ``runners.torch_universal`` on r2plus1d_18 (2 epochs of 4 train and 2
+   valid batches, a resume to epoch 3, the .npy schema), with
+   ``VideoDataset._decode`` replaced by seeded uint8 frames (the card has no
+   cv2); ``runners.torch_per_video`` on 3 such clips (one mislabelled and
+   skipped, a rerun skipped by the ledger for each fooled clip, n_iter 10 so
+   that the escalation runs to its end); and the YAML universal runner with
+   ``MODEL_NAME: r2plus1d_18`` on native-read shards of 16x112x112 clips it
+   writes (no host prepack).
 
 Prints the kernel table as one JSON line (a kernel's launches: those that ran
 on the device in phase 3's traced run of its path), then as the last line
@@ -175,6 +195,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from collections import defaultdict
 from unittest import mock
 
@@ -360,6 +381,397 @@ def device_launches(prof, kernels) -> dict:
 def scaled(counts: dict, k: int, plus: dict = None) -> dict:
     """k * counts (+ plus), by kernel."""
     return {name: k * counts[name] + (plus[name] if plus else 0) for name in NAMES}
+
+
+# phase 16, the torch world: each video ResNet at its reference cell
+# (variant, B, T; 112x112 uint8 clips), bf16, seeded torchvision-layout weights
+RESNET_CELLS = (("r3d_18", 16, 16), ("mc3_18", 20, 16), ("r2plus1d_18", 16, 16),
+                ("r2plus1d_34", 16, 32))
+RESNET_SIZE, RESNET_SEED = 112, 1
+# the escalating bound of the graphed-vs-eager steps: the third step's is
+# 1.3 times the first two's (lr 1e-3: delta reaches it by the third step)
+RESNET_MAX_NORMS = (0.0015, 0.0015, 0.00195)
+TW_TRAIN, TW_VALID, TW_EPOCHS = 4, 2, 2  # batches of the epoch fit, epochs before the resume
+TW_FRAMES = (20, 128, 171)               # the stub decoder's frames a video
+TW_SWEEP_ITERS, TW_SWEEP_GAP = 10, 0.02
+TW_YAML_STEPS, TW_YAML_SHARDS, TW_YAML_PER_SHARD = 4, 2, 8
+EPOCH_KEYS = {f"{p}/{k}" for p in ("train", "valid") for k in (
+    "time", "loss", "fooling_ratio", "pert_thickness", "pert_roughness", "inf_norm",
+    "perturbation", "steps_per_sec")}
+SWEEP_KEYS = {"loss/total", "loss/adv_loss", "loss/reg_loss", "perturbation/thickness",
+              "perturbation/roughness", "perturbation/inf_norm", "perturbation",
+              "prob_clean_input", "label", "is_adversarial", "final_max_norm", "escalations",
+              "steps_per_sec"}
+
+
+def torch_world_phase(tmp: str, dev) -> None:
+    """Phase 16: the torch world (the video ResNets, the mean/std attack,
+    the epoch fit, the per-video sweep and the YAML runner) at full width.
+    No kernel of the port lies on this path: each wrapper's count must stay 0
+    and no kernel of ``ops.kernels.KERNEL_SYMBOLS`` may run in a traced step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flickering_adversarial_video_tpu_torch import ops
+    from flickering_adversarial_video_tpu_torch.attack import TorchStyleFlickerSpec
+    from flickering_adversarial_video_tpu_torch.convert import write_torchvision_pth
+    from flickering_adversarial_video_tpu_torch.data import (
+        TFRecordWriter, VideoDataset, VideoRecord, make_uint8_example)
+    from flickering_adversarial_video_tpu_torch.engine import (
+        AttackConfig, AttackEngine, RuntimeFlags)
+    from flickering_adversarial_video_tpu_torch.engine.epoch_fit import find_resume
+    from flickering_adversarial_video_tpu_torch.engine.sweep import result_path_for
+    from flickering_adversarial_video_tpu_torch.models.video_resnet import stem_conv_packed
+    from flickering_adversarial_video_tpu_torch.ops import kernels
+    from flickering_adversarial_video_tpu_torch.runners import (
+        common, torch_per_video, torch_universal, universal)
+    from flickering_adversarial_video_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    symbols = [s for names in kernels.KERNEL_SYMBOLS.values() for s in names]
+    meanstd = AttackConfig(norm_world="meanstd", reg_weighting="torch")
+    zero = {name: 0 for name in NAMES}
+
+    def bit_equal(a, b):
+        if not torch.is_tensor(a):
+            return a == b
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+
+    def outcome(state, metrics):
+        return [state.delta.clone(), state.mu.clone(), state.nu.clone(), state.step] + [
+            m[k].clone() if torch.is_tensor(m[k]) else m[k] for m in metrics for k in sorted(m)]
+
+    def no_port_kernels(prof) -> bool:
+        return not any(any(sym in r[2] for sym in symbols) for r in kernel_rows(prof))
+
+    def victim(variant, t, pth):
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            model = common.build_victim(variant, pth, torch.bfloat16, t, RESNET_SIZE, device=dev)
+        if "[warn]" in said.getvalue():
+            fail(f"{variant}: build_victim did not load {pth}")
+        return model
+
+    # ---- 16a. each variant at its reference cell -------------------------------------
+    for variant, b, t in RESNET_CELLS:
+        t0 = time.perf_counter()
+        pth = write_torchvision_pth(os.path.join(tmp, f"{variant}.pth"), variant, 400, RESNET_SEED)
+        model = victim(variant, t, pth)
+        rng = np.random.default_rng(RESNET_SEED)
+        video = torch.from_numpy(rng.integers(0, 256, (b, t, RESNET_SIZE, RESNET_SIZE, 3),
+                                              dtype=np.uint8)).to(dev)
+        probe = AttackEngine(model, TorchStyleFlickerSpec(t), meanstd, track_probs=True)
+        labels = probe.forward(None, {"video": video, "labels": torch.zeros(b, dtype=torch.long,
+                                                                            device=dev)},
+                               adversarial=False).argmax(-1)
+        batch = {"video": video, "labels": labels}
+        flags = [RuntimeFlags(max_norm=m) for m in RESNET_MAX_NORMS]
+        spec = TorchStyleFlickerSpec(t, max_norm=RESNET_MAX_NORMS[0])
+
+        def run(graphed, kind):
+            e = AttackEngine(model, spec, meanstd, track_probs=True)
+            s, ms = e.init_state(), []
+            for f in (flags if kind == "train" else flags[:1]):
+                if graphed:
+                    s, m = (e.train_step if kind == "train" else e.train_eval_step)(s, batch, f)
+                else:
+                    step = e._train_step if kind == "train" else e._train_eval_step
+                    s, m = step(s, *e.prepare_batch(batch), f)
+                ms.append(m)
+            torch.cuda.synchronize()
+            return outcome(s, ms), e
+
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        results = {}
+        for kind in ("train", "train_eval"):
+            eager, _ = run(False, kind)
+            graphed, e = run(True, kind)
+            n_graphs = len(e.graph_stats())
+            results[kind] = (len(graphed) == len(eager) and all(map(bit_equal, graphed, eager)),
+                             n_graphs, eager, graphed)
+            del e
+        counts = read_counts(ops)
+        tr, te = results["train"], results["train_eval"]
+        print(f"[torch world] {variant} B={b} T={t} {RESNET_SIZE}x{RESNET_SIZE} bf16 from "
+              f"{os.path.basename(pth)} through build_victim: 3 graphed train steps (max_norm "
+              f"{RESNET_MAX_NORMS}) against 3 eager: {'bit-equal' if tr[0] else 'DIFFER'} "
+              f"({len(tr[2]) - 4} metrics, {tr[1]} graph); train_eval_step graphed against eager: "
+              f"{'bit-equal' if te[0] else 'DIFFER'} ({te[1]} graph); the port's kernels "
+              f"launched {counts} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not (tr[0] and te[0]):
+            fail(f"{variant}: a graphed step differs from its eager step")
+        if tr[1] != 1:
+            fail(f"{variant}: the max_norm change captured another graph ({tr[1]} graphs)")
+        if counts != zero:
+            fail(f"{variant}: a kernel of the port was launched on the torch-world path")
+        del results, tr, te
+
+        engine = AttackEngine(model, spec, meanstd, track_probs=True)
+        state = engine.init_state()
+        state, _ = engine.train_step(state, batch, flags[0])
+        torch.cuda.reset_peak_memory_stats()
+        eager_ms = [cuda_ms(torch, lambda: engine._train_step(
+            state, *engine.prepare_batch(batch), flags[0]), iters=3, warmup=1)]
+        eager_peak = torch.cuda.max_memory_allocated() / 1e9
+        graph_ms = [cuda_ms(torch, lambda: engine.train_steps(state, batch, flags[0], 1),
+                            iters=5, warmup=1)]
+        eager_ms.append(cuda_ms(torch, lambda: engine._train_step(
+            state, *engine.prepare_batch(batch), flags[0]), iters=3, warmup=1))
+        graph_ms.append(cuda_ms(torch, lambda: engine.train_steps(state, batch, flags[0], 1),
+                                iters=5, warmup=1))
+        te_ms = cuda_ms(torch, lambda: engine.train_eval_step(state, batch, flags[0]), iters=5,
+                        warmup=1)
+        print(f"[time] torch world {variant} B={b} T={t}: train step eager {eager_ms[0]:.2f}, "
+              f"{eager_ms[1]:.2f} ms; graphed {graph_ms[0]:.2f}, {graph_ms[1]:.2f} ms "
+              f"({1000 / min(graph_ms):.3f} steps/s); train_eval_step graphed {te_ms:.2f} ms; "
+              f"eager peak memory {eager_peak:.2f} GB; {graph_stats(engine)}", flush=True)
+
+        if variant == "r2plus1d_18":
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                wall = cuda_ms(torch, lambda: engine.train_steps(state, batch, flags[0], 1),
+                               iters=PROFILE_STEPS, warmup=0)
+            rows = kernel_rows(prof, PROFILE_STEPS)
+            busy = sum(r[0] for r in rows)
+            conv = sum(r[0] for r in rows if any(m in r[2].lower() for m in CONV_MARKS))
+            clean = no_port_kernels(prof)
+            x = engine._normalize(video).to(torch.bfloat16)
+            w = model.stem[0].weight
+            g = torch.randn(stem_conv_packed(x, w).shape, device=dev).bfloat16()
+
+            def stem_fwd():
+                with torch.no_grad():
+                    stem_conv_packed(x, w)
+
+            def stem_fwd_dgrad():
+                xx = x.detach().requires_grad_(True)
+                stem_conv_packed(xx, w).backward(g)
+
+            fwd_ms, both_ms = cuda_ms(torch, stem_fwd), cuda_ms(torch, stem_fwd_dgrad)
+            if busy > 0:
+                print(f"[profile] torch world {variant} B={b} T={t}, graphed, {PROFILE_STEPS} "
+                      f"train steps: wall {wall:.2f} ms/step; kernels {busy:.2f} ms/step in "
+                      f"{sum(r[1] for r in rows):.0f} launches/step, device busy "
+                      f"{busy / wall:.1%}; convolution / matmul (cuDNN, cuBLAS) {conv:.2f} ms "
+                      f"({conv / busy:.1%}), other {busy - conv:.2f} ms ({1 - conv / busy:.1%})",
+                      flush=True)
+                for ms, n, name in sorted(rows, reverse=True)[:8]:
+                    print(f"[profile]   slowest: {ms:8.3f} ms/step {n:5.1f} launches/step  "
+                          f"{name[:90]}")
+            else:
+                print("[profile] torch world: torch.profiler saw no device time: breakdown not "
+                      "measured", flush=True)
+            print(f"[profile] torch world {variant}: the stem's first conv (space-to-depth "
+                  f"packed, {list(x.shape)} -> {list(g.shape)}) forward {fwd_ms:.3f} ms, input "
+                  f"gradient {both_ms - fwd_ms:.3f} ms ({both_ms / min(graph_ms):.1%} of the "
+                  f"graphed step); no kernel of the port ran in the traced steps: {clean}",
+                  flush=True)
+            if not clean:
+                fail("a kernel of the port ran in a video-ResNet step")
+            # the convolutions of one eager step by op and input shape
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                engine._train_step(state, *engine.prepare_batch(batch), flags[0])
+                torch.cuda.synchronize()
+            convs = [e for e in prof.key_averages(group_by_input_shape=True)
+                     if e.key in ("aten::cudnn_convolution", "aten::convolution_backward")]
+            for e in sorted(convs, key=lambda e: -getattr(e, "device_time_total", 0))[:10]:
+                print(f"[profile]   conv op {e.key} x{e.count}: "
+                      f"{getattr(e, 'device_time_total', 0) / 1e3:.3f} ms, input shapes "
+                      f"{str(e.input_shapes)[:150]}", flush=True)
+            del x, g, prof
+        del engine, state, probe, model, batch, video
+        torch.cuda.empty_cache()
+
+    # ---- 16b. the epoch fit: runners.torch_universal on r2plus1d_18 -------------------
+    # the card has no cv2: VideoDataset._decode is replaced by a seeded uint8
+    # frame source of TW_FRAMES (what the decoder gives for a 128-pixel-high
+    # video), which the real temporal sampling, resize (a no-op at 128) and
+    # crop to 112 consume; each video labelled with the victim's clean
+    # prediction of its center crop (the valid phase's clip)
+    def decoded(path):
+        seed = zlib.crc32(os.path.basename(path).encode())
+        return np.random.default_rng(seed).integers(0, 256, TW_FRAMES + (3,), dtype=np.uint8)
+
+    def clean_labels(model, paths):
+        """The victim's clean predictions of the center-crop clips of `paths`."""
+        ds = VideoDataset([VideoRecord(p, 0) for p in paths], sample_length=t,
+                          input_size=RESNET_SIZE, random_offset=False, random_crop=False,
+                          random_flip=False)
+        probe = AttackEngine(model, TorchStyleFlickerSpec(t), meanstd)
+        out = []
+        for batch in ds.batches(b, drop_remainder=False, shuffle=False):
+            out += probe.forward(None, {"video": torch.from_numpy(batch["video"]).to(dev),
+                                        "labels": torch.from_numpy(batch["labels"]).to(dev)},
+                                 adversarial=False).argmax(-1).tolist()
+        return out
+
+    variant, b, t = "r2plus1d_18", 16, 16
+    pth = os.path.join(tmp, f"{variant}.pth")
+    paths = [f"v{i:03d}.mp4" for i in range((TW_TRAIN + TW_VALID) * b)]
+    fit_dir = os.path.join(tmp, "torch_universal")
+    t0 = time.perf_counter()
+    with mock.patch.object(VideoDataset, "_decode", lambda self, path: decoded(path)):
+        records = [VideoRecord(p, c) for p, c in zip(paths, clean_labels(victim(variant, t, pth),
+                                                                          paths))]
+        train, valid = records[:TW_TRAIN * b], records[TW_TRAIN * b:]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            first = torch_universal.run(variant, train_records=train, valid_records=valid,
+                                        ckpt_path=pth, epochs=TW_EPOCHS, model_dir=fit_dir,
+                                        sample_length=t, input_size=RESNET_SIZE, device=dev)
+            delta0, at = find_resume(fit_dir, variant)
+            resumed = torch_universal.run(variant, train_records=train, valid_records=valid,
+                                          ckpt_path=pth, epochs=TW_EPOCHS + 1, model_dir=fit_dir,
+                                          sample_length=t, input_size=RESNET_SIZE, device=dev)
+        torch.cuda.synchronize()
+        counts = read_counts(ops)
+    files = sorted(f for f in os.listdir(fit_dir) if f.endswith(".npy"))
+    saved = np.load(os.path.join(fit_dir, files[-1]), allow_pickle=True).tolist()
+    schema = all(set(r) == EPOCH_KEYS for r in first + resumed + saved)
+    ok = (schema and len(first) == TW_EPOCHS and len(resumed) == 1 and at == TW_EPOCHS
+          and files == [f"{variant}_{e:03d}.npy" for e in range(1, TW_EPOCHS + 2)]
+          and f"resuming from epoch {TW_EPOCHS}" in said.getvalue()
+          and all(math.isfinite(r["train/loss"]) for r in first + resumed)
+          and np.abs(first[-1]["valid/perturbation"]).max() > 0
+          and delta0.shape == (t, 1, 1, 3) and "[warn]" not in said.getvalue())
+    rates = [round(r[f"{p}/steps_per_sec"], 3) for r in first + resumed for p in ("train", "valid")]
+    print(f"[torch world] runners.torch_universal on {variant} (decoder stubbed: seeded uint8 "
+          f"frames {list(TW_FRAMES)}, no cv2 on the card): {TW_EPOCHS} epochs of {TW_TRAIN} train "
+          f"and {TW_VALID} valid batches of {b}, then a resume to epoch {TW_EPOCHS + 1}: files "
+          f"{files}, schema {'as the JAX package' if schema else 'WRONG'}; train/valid fooling "
+          f"{[(r['train/fooling_ratio'], r['valid/fooling_ratio']) for r in first + resumed]}, "
+          f"losses {[round(r['train/loss'], 5) for r in first + resumed]}, steps/s by phase "
+          f"{rates}; the port's kernels launched {counts} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if not ok or counts != zero:
+        fail("torch_universal: epochs, resume, schema or launch counts")
+
+    # ---- 16c. the per-video sweep: runners.torch_per_video ----------------------------
+    # three stub videos: the first two attacked, the third labelled with a
+    # class other than its clean prediction (skipped); then a rerun over the
+    # ledger, which skips every fooled video.  Seeded weights answer a clip
+    # of noise with nearly the same logits whatever the clip (a top-1/top-2
+    # gap near 1.1), which tens of flicker steps do not close; so the
+    # sweep's victim is the seeded one with its fc bias moved to leave the
+    # first clip's top two logits TW_SWEEP_GAP apart
+    sweep_dir = os.path.join(tmp, "torch_per_video")
+    t0 = time.perf_counter()
+    with mock.patch.object(VideoDataset, "_decode", lambda self, path: decoded(path)):
+        cands = [VideoRecord(f"sweep{i}.mp4", 0) for i in range(3)]
+        ds = VideoDataset(cands, sample_length=t, input_size=RESNET_SIZE, random_offset=False,
+                          random_crop=False, random_flip=False)
+
+        def clean_logp(model):
+            probe = AttackEngine(model, TorchStyleFlickerSpec(t), meanstd)
+            return np.log(np.concatenate([probe.forward(
+                None, {"video": torch.from_numpy(batch["video"]).to(dev),
+                       "labels": torch.from_numpy(batch["labels"]).to(dev)},
+                adversarial=False).cpu().numpy() for batch in ds.batches(1, shuffle=False)]))
+
+        z = clean_logp(victim(variant, t, pth))[0]
+        top1, top2 = np.argsort(-z, kind="stable")[:2]
+        sd = torch.load(pth, weights_only=True)
+        sd["fc.bias"][top1] -= float(z[top1] - z[top2]) - TW_SWEEP_GAP
+        sweep_pth = os.path.join(tmp, f"{variant}_sweep.pth")
+        torch.save(sd, sweep_pth)
+        logp = clean_logp(victim(variant, t, sweep_pth))
+        ranked = np.sort(logp, axis=-1)
+        gaps = [round(float(ranked[i, -1] - ranked[i, -2]), 5) for i in range(2)]
+        sweep = [VideoRecord(r.path, int(lp.argmax())) for r, lp in zip(cands, logp)]
+        sweep[2] = VideoRecord(sweep[2].path, (sweep[2].label + 1) % 400)
+        labels = [f"class {i}" for i in range(400)]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            out1 = torch_per_video.run(variant, records=sweep, label_names=labels,
+                                       ckpt_path=sweep_pth,
+                                       n_iter=TW_SWEEP_ITERS, model_dir=sweep_dir,
+                                       sample_length=t, input_size=RESNET_SIZE, device=dev)
+            out2 = torch_per_video.run(variant, records=sweep, label_names=labels,
+                                       ckpt_path=sweep_pth,
+                                       n_iter=TW_SWEEP_ITERS, model_dir=sweep_dir,
+                                       sample_length=t, input_size=RESNET_SIZE, device=dev)
+        torch.cuda.synchronize()
+        counts = read_counts(ops)
+    res = [np.load(result_path_for(sweep_dir, r.path, labels[r.label]), allow_pickle=True).tolist()
+           for r in sweep[:2]]
+    fooled = [bool(np.any(r["is_adversarial"])) for r in res]
+    schema = all(set(r) == SWEEP_KEYS for r in res)
+    ok = (schema and out1["attacked"] == 2 and out1["skipped_misclassified"] == 1
+          and out2["skipped_existing"] == sum(fooled) and sum(fooled) >= 1
+          and out2["skipped_misclassified"] == 1 and out2["attacked"] == 2 - sum(fooled)
+          and all(r["escalations"] <= 4 and r["perturbation/inf_norm"] <= r["final_max_norm"]
+                  for r in res)
+          and all(math.isfinite(v) for r in res for v in r["loss/total"]))
+    print(f"[torch world] runners.torch_per_video on {variant}, n_iter {TW_SWEEP_ITERS}, fc "
+          f"bias moved by {float(z[top1] - z[top2]) - TW_SWEEP_GAP:.4f} at class {top1}: the "
+          f"attacked videos' clean top-1/top-2 log-prob gaps {gaps}: first "
+          f"run {({k: v for k, v in out1.items() if k != 'results'})}, rerun over the ledger "
+          f"{({k: v for k, v in out2.items() if k != 'results'})}; per attacked video: steps "
+          f"{[len(r['loss/total']) for r in res]}, escalations {[r['escalations'] for r in res]}, "
+          f"final max_norm {[round(r['final_max_norm'], 5) for r in res]}, fooled {fooled}, "
+          f"first and last losses {[(round(r['loss/total'][0], 5), round(r['loss/total'][-1], 5)) for r in res]}, "
+          f"steps/s {[round(r['steps_per_sec'], 2) for r in res]}; schema "
+          f"{'as the JAX package' if schema else 'WRONG'}; the port's kernels launched {counts} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not ok or counts != zero:
+        fail("torch_per_video: skips, ledger, escalation bound, schema or launch counts")
+
+    # ---- 16d. the YAML universal runner with MODEL_NAME: r2plus1d_18 ------------------
+    # native-read shards of 16x112x112 clips labelled with the victim's clean
+    # predictions; the mean/std world takes no host prepack
+    shard_dir = os.path.join(tmp, "torch_world_shards")
+    os.makedirs(shard_dir)
+    cfg = load_config(os.path.join(HERE, "configs", "run_config.yml"))
+    ac = cfg.UNIVERSAL_ATTACK
+    ac.MODEL_NAME, cfg.MODEL.CKPT_PATH = variant, pth
+    ac.TF_RECORDS_TRAIN_PATH = ac.TF_RECORDS_VAL_PATH = [shard_dir]
+    ac.NUM_OF_TRAIN_TF_RECORDS = ac.NUM_OF_VAL_TF_RECORDS = TW_YAML_SHARDS
+    ac.BATCH_SIZE, ac.MAX_NUM_STEP = TW_YAML_PER_SHARD, TW_YAML_STEPS
+    ac.PKL_RESULT_PATH = os.path.join(tmp, "torch_world_yaml") + "/"
+    t0 = time.perf_counter()
+    model = victim(variant, t, pth)
+    probe = AttackEngine(model, TorchStyleFlickerSpec(t), meanstd)
+    rng = np.random.default_rng(RESNET_SEED + 1)
+    for s_i in range(TW_YAML_SHARDS):
+        clips = rng.integers(0, 256, (TW_YAML_PER_SHARD, t, RESNET_SIZE, RESNET_SIZE, 3),
+                             dtype=np.uint8)
+        pred = probe.forward(None, {"video": torch.from_numpy(clips).to(dev),
+                                    "labels": torch.zeros(len(clips), dtype=torch.long,
+                                                          device=dev)},
+                             adversarial=False).argmax(-1).tolist()
+        with TFRecordWriter(os.path.join(shard_dir, f"shard{s_i}.tfrecords")) as w:
+            for clip, label in zip(clips, pred):
+                w.write(make_uint8_example(clip, label))
+    del model, probe
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        out = universal.run(cfg, frames=t, size=RESNET_SIZE, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts(ops)
+    hist = out["history"]
+    pkl = os.path.join(universal.model_dir_name(ac), "res.pkl")
+    ok = (out["steps"] == TW_YAML_STEPS and os.path.exists(pkl)
+          and "host-prepacked" not in said.getvalue() and "[warn]" not in said.getvalue()
+          and all(math.isfinite(v) for v in hist["total_loss"])
+          and out["final_eval"]["total_valid_videos"] == TW_YAML_SHARDS * TW_YAML_PER_SHARD
+          and tuple(out["state"].delta.shape) == (t, 1, 1, 3))
+    print(f"[torch world] YAML universal runner, MODEL_NAME {variant}, {TW_YAML_SHARDS} native-read "
+          f"shards x {TW_YAML_PER_SHARD} clips [{t},{RESNET_SIZE},{RESNET_SIZE},3] uint8, no host "
+          f"prepack: steps {out['steps']}, losses {[round(v, 5) for v in hist['total_loss']]}, "
+          f"final fooling {out['final_eval']['miss_rate']:.4f} of "
+          f"{out['final_eval']['total_valid_videos']} valid, {out['steps_per_sec']:.3f} steps/s; "
+          f"the port's kernels launched {counts} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not ok or counts != zero:
+        fail("the YAML universal runner on r2plus1d_18: steps, prepack, losses, eval or counts")
+    print(f"[time] phase 16 (the torch world) {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> None:
@@ -2193,6 +2605,11 @@ def main() -> None:
             fail("wide clip: the runner did not refuse the unsqueezable logits after B1's "
                  "segments ran")
         del wide
+
+        # ---- 16. the torch world --------------------------------------------------------
+        del model
+        torch.cuda.empty_cache()
+        torch_world_phase(tmp, dev)
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -3,7 +3,9 @@ from .metrics import fooling_counts, is_adversarial, relative_percent, roughness
 from .perturbation import (
     FlickerSpec,
     SparseSpec,
+    TorchStyleFlickerSpec,
     apply_perturbation,
+    apply_perturbation_torch_style,
     clip,
     clip_delta,
     frame_mask,

@@ -1,14 +1,22 @@
-"""Perturbation algebra of the tanh (TF/I3D) world.
+"""Perturbation algebra of the tanh (TF/I3D) and mean/std (torch) worlds.
 
 Port of the JAX package's ``attack/perturbation.py`` (FlickerSpec,
-SparseSpec, init_delta, clip_delta, frame_mask, apply_perturbation):
-inputs live in [-1, 1]; delta is [T,1,1,C] (flickering, value-clipped to
+SparseSpec, TorchStyleFlickerSpec, init_delta, clip_delta, frame_mask,
+apply_perturbation, apply_perturbation_torch_style).  Tanh world: inputs
+live in [-1, 1]; delta is [T,1,1,C] (flickering, value-clipped to
 +-0.4, initially 0) or [T,H,W,C] (the L1,2 sparse attack: no value clip,
 initially 1e-8); it is gated by a frame window, optionally rolled
 cyclically (the input on its time axis, delta on its own), added with a
 scalar adv_flag, and the sum is clipped back to [input_min, input_max].
 Clipping is minimum(maximum(x, lo), hi), whose gradient is 0.5 at an exact
 bound, as jnp.clip's.
+
+Mean/std world (the video ResNets): inputs are (x/255 - mean)/std; delta is
+[T,1,1,C] in [0, 1] pixel units, initially U(-init_scale, init_scale),
+clamped to +-max_norm (a runtime value: the per-video sweep escalates it),
+divided by std, optionally rolled in time, added with adv_flag, and the sum
+clamped to the scalar range of :attr:`TorchStyleFlickerSpec.clamp_range`.
+The initial draw comes from a ``torch.Generator``, not from threefry.
 
 The rolls take their shifts as tensors (drawn on the device by
 :func:`roll_shifts`; the JAX package draws them from a PRNG key), and roll
@@ -57,20 +65,62 @@ class SparseSpec:
         return (self.frames, self.height, self.width, self.channels)
 
 
-def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """jnp.clip semantics, including the 0.5 gradient at an exact bound."""
-    # bounds as 0-d tensors made on the device (no host-to-device copy)
-    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+@dataclasses.dataclass(frozen=True)
+class TorchStyleFlickerSpec:
+    """Flickering delta of the mean/std world: [frames, height, width,
+    channels] ([T,1,1,C] unless a full-frame variant is asked for), in [0, 1]
+    pixel units, clamped to +-max_norm, initially U(-init_scale,
+    init_scale); the Kinetics statistics by default."""
+
+    frames: int
+    channels: int = 3
+    height: int = 1
+    width: int = 1
+    max_norm: float = 1.0
+    mean: Tuple[float, ...] = (0.43216, 0.394666, 0.37645)
+    std: Tuple[float, ...] = (0.22803, 0.22145, 0.216989)
+    init_scale: float = 1e-6
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.frames, self.height, self.width, self.channels)
+
+    @property
+    def clamp_range(self) -> Tuple[float, float]:
+        """Scalar bounds of the adversarial input in normalized units, the
+        reference's reduction over channels: (max_c (0 - mean_c)/std_c,
+        min_c (1 - mean_c)/std_c), each computed in f64 as numpy does."""
+        lo = max((0.0 - m) / s for m, s in zip(self.mean, self.std))
+        hi = min((1.0 - m) / s for m, s in zip(self.mean, self.std))
+        return float(lo), float(hi)
 
 
-def init_delta(spec, device=None, dtype=torch.float32) -> torch.Tensor:
-    """The reference's initial delta: zeros (flickering), 1e-8 (sparse)."""
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """jnp.clip semantics, including the 0.5 gradient at an exact bound.
+    `lo`, `hi`: Python floats, or 0-d tensors (a runtime bound on the device)."""
+
+    def bound(b):  # 0-d tensors on the device (no host-to-device copy)
+        return b.to(x.dtype) if torch.is_tensor(b) else x.new_full((), b)
+
+    return torch.minimum(torch.maximum(x, bound(lo)), bound(hi))
+
+
+def init_delta(spec, device=None, dtype=torch.float32,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The reference's initial delta: zeros (flickering), 1e-8 (sparse),
+    U(-init_scale, init_scale) (mean/std world) from `generator` (a CPU
+    generator; seeded 0 when None, as the JAX package's default key)."""
+    if isinstance(spec, TorchStyleFlickerSpec):
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        u = torch.rand(spec.shape, generator=generator, dtype=dtype) * 2.0 - 1.0
+        return (u * spec.init_scale).to(device)
     return torch.full(spec.shape, getattr(spec, "init_scale", 0.0), dtype=dtype, device=device)
 
 
 def clip_delta(spec, delta: torch.Tensor) -> torch.Tensor:
     """The value clip at +-clip_eps; none for a spec without one (sparse)."""
-    if spec.clip_eps is None:
+    if getattr(spec, "clip_eps", None) is None:
         return delta
     return clip(delta, -spec.clip_eps, spec.clip_eps)
 
@@ -147,3 +197,37 @@ def apply_perturbation(
         adv_flag = clean.new_full((), float(adv_flag))
     adv = clean + adv_flag.to(clean.dtype) * d[None]
     return clip(adv, spec.input_min, spec.input_max)
+
+
+def apply_perturbation_torch_style(
+    clean_normalized: torch.Tensor,
+    delta: torch.Tensor,
+    spec: TorchStyleFlickerSpec,
+    adv_flag: float | torch.Tensor = 1.0,
+    max_norm: float | torch.Tensor | None = None,
+    cyclic_pert_flag: float | torch.Tensor = 0.0,
+    shift: Optional[torch.Tensor] = None,
+    std: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The adversarial input of the mean/std world: clip delta to
+    +-max_norm (the spec's when None), divide by std, blend it with its roll
+    by `shift` (``cyclic_pert_flag * rolled + (1 - flag) * plain``, only
+    with a shift), add adv_flag * delta, clip to the spec's scalar range;
+    clean_normalized [B,T,H,W,C], arithmetic in its dtype.  `std`: the
+    spec's std as a tensor on the device, made once by a caller that runs
+    under a CUDA graph capture (which copies no host value); None makes it."""
+    dt = clean_normalized.dtype
+    if max_norm is None:
+        max_norm = spec.max_norm
+    m = max_norm.to(dt) if torch.is_tensor(max_norm) else clean_normalized.new_full((), max_norm)
+    d = clip(delta.to(dt), -m, m)
+    if std is None:
+        std = torch.tensor(spec.std, device=d.device)
+    d = d / std.to(dt)
+    if shift is not None:
+        cpf = torch.as_tensor(cyclic_pert_flag, dtype=dt, device=d.device)
+        d = cpf * roll_time(d, shift, axis=0) + (1.0 - cpf) * d
+    if not torch.is_tensor(adv_flag):
+        adv_flag = clean_normalized.new_full((), float(adv_flag))
+    lo, hi = spec.clamp_range
+    return clip(clean_normalized + adv_flag.to(dt) * d[None], lo, hi)

@@ -1,5 +1,5 @@
 from .cli import load_variables, load_weights, save_variables, save_weights
-from .fake_assets import i3d_var_map
+from .fake_assets import i3d_var_map, video_resnet_state_dict, write_torchvision_pth
 from .flax_i3d import (
     attack_state_from_jax,
     attack_state_to_jax,
@@ -9,3 +9,4 @@ from .flax_i3d import (
 )
 from .tf_bundle import BundleReader, read_bundle
 from .tf_i3d import EVAL_TYPES, convert_i3d_checkpoint, convert_i3d_var_map
+from .torch_video_resnet import convert_video_resnet_state_dict

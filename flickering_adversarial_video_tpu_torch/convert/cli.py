@@ -5,20 +5,22 @@ Convert once, load fast:
       /ckpts/rgb_imagenet/model.ckpt --out i3d_kinetics400.pt
   python -m flickering_adversarial_video_tpu_torch.convert.cli i3d \\
       /ckpts/rgb_kinetics_600/model.ckpt --eval-type rgb600 --out i3d_kinetics600.pt
+  python -m flickering_adversarial_video_tpu_torch.convert.cli r2plus1d_18 \\
+      /ckpts/r2plus1d_18.pth --out r2plus1d_18.msgpack
 
 The port's counterpart of the JAX package's ``convert/cli.py``.  The TF
 checkpoint is read by the port's own bundle reader (``convert/tf_bundle.py``),
 without TensorFlow, so the command is the same on the CPU and on the card.
-The output is ``torch.save`` of the InceptionI3D state dict (``--out
-w.pt``), or the JAX package's own format, the Flax variables tree in flax's
-msgpack (``--out w.msgpack``; ``save_variables`` / ``load_variables``, the
+A video ResNet's input is a torchvision state dict (``.pt``/``.pth``; its
+names are the port's, ``convert/torch_video_resnet.py`` checks the shapes).
+The output is ``torch.save`` of the model's state dict (``--out w.pt``), or
+the JAX package's own format, the Flax variables tree in flax's msgpack
+(``--out w.msgpack``; ``save_variables`` / ``load_variables``, the
 counterparts of the JAX package's, through the port's own codec
 ``convert/flax_msgpack.py``: the card has no flax and no ``msgpack``).  A
 ``.pt`` or ``.msgpack`` input is taken as converted already (for
 ``--dump-golden`` or a change of format without converting again).
 ``--dump-golden`` runs the model, on the card unless ``--device cpu``.
-
-Not ported: the torch-world models (ROADMAP.md queue A item 10).
 """
 
 from __future__ import annotations
@@ -28,8 +30,7 @@ from typing import Any, Dict, Mapping
 
 import torch
 
-from . import flax_msgpack
-from .flax_i3d import from_flax_variables, to_flax_variables
+from . import flax_i3d, flax_msgpack, flax_video_resnet
 
 TORCH_WORLD = ("r3d_18", "mc3_18", "r2plus1d_18", "r2plus1d_34")
 
@@ -47,23 +48,37 @@ def load_variables(path: str) -> Dict[str, Any]:
         return flax_msgpack.restore(f.read())
 
 
-def save_weights(state: Mapping[str, torch.Tensor], path: str) -> None:
-    """The I3D state dict to `path`: the Flax tree in a ``.msgpack``, else
-    ``torch.save``."""
+def save_weights(state: Mapping[str, torch.Tensor], path: str, model_name: str = "i3d") -> None:
+    """A state dict of `model_name` to `path`: the Flax tree in a
+    ``.msgpack``, else ``torch.save``."""
     if str(path).endswith(".msgpack"):
-        save_variables(to_flax_variables(state), path)
+        if model_name in TORCH_WORLD:
+            save_variables(flax_video_resnet.to_flax_variables(state, model_name), path)
+        else:
+            save_variables(flax_i3d.to_flax_variables(state), path)
         return
     torch.save({k: v.detach().cpu().contiguous() for k, v in state.items()}, path)
 
 
-def load_weights(path: str, eval_type: str = "rgb") -> Dict[str, torch.Tensor]:
-    """The I3D state dict at `path`: a ``.msgpack`` of the JAX I3D's Flax
-    variables (mapped by ``convert/flax_i3d.py``), a ``.pt``/``.pth`` that
-    :func:`save_weights` wrote, or a DeepMind TF checkpoint prefix,
-    converted on load (`eval_type` 'rgb600': prefix-less names)."""
+def load_weights(path: str, eval_type: str = "rgb", model_name: str = "i3d") -> Dict[str, torch.Tensor]:
+    """The state dict of `model_name` at `path`: a ``.msgpack`` of the JAX
+    model's Flax variables (mapped by ``convert/flax_i3d.py`` or
+    ``convert/flax_video_resnet.py``), a ``.pt``/``.pth`` (for a video ResNet
+    a torchvision state dict, checked by ``convert/torch_video_resnet.py``;
+    for I3D one that :func:`save_weights` wrote), or a DeepMind TF checkpoint
+    prefix of I3D, converted on load (`eval_type` 'rgb600': prefix-less
+    names)."""
     path = str(path)
     if path.endswith(".msgpack"):
-        return from_flax_variables(load_variables(path))
+        if model_name in TORCH_WORLD:
+            return flax_video_resnet.from_flax_variables(load_variables(path), model_name)
+        return flax_i3d.from_flax_variables(load_variables(path))
+    if model_name in TORCH_WORLD:
+        from .torch_video_resnet import convert_video_resnet_state_dict
+
+        if not path.endswith((".pt", ".pth")):
+            raise ValueError(f"{model_name} weights are a .pt/.pth or a .msgpack, not {path!r}")
+        return convert_video_resnet_state_dict(path, model_name)
     if path.endswith((".pt", ".pth")):
         state = torch.load(path, map_location="cpu", weights_only=True)
         if not isinstance(state, dict):
@@ -75,11 +90,7 @@ def load_weights(path: str, eval_type: str = "rgb") -> Dict[str, torch.Tensor]:
 
 
 def convert(model_name: str, ckpt_path: str, eval_type: str = "rgb") -> Dict[str, torch.Tensor]:
-    if model_name in TORCH_WORLD:
-        raise NotImplementedError(
-            f"{model_name}: the torch-world models and their conversion are ROADMAP.md queue A item 10"
-        )
-    return load_weights(ckpt_path, eval_type=eval_type)
+    return load_weights(ckpt_path, eval_type=eval_type, model_name=model_name)
 
 
 def main(argv=None):
@@ -87,8 +98,9 @@ def main(argv=None):
     p.add_argument("model", choices=["i3d", *TORCH_WORLD])
     p.add_argument(
         "ckpt",
-        help="TF checkpoint prefix (i3d), or an already-converted .pt or .msgpack (for "
-        "--dump-golden or a change of format without converting again)",
+        help="TF checkpoint prefix (i3d), a torchvision state dict .pth (the video ResNets), "
+        "or an already-converted .pt or .msgpack (for --dump-golden or a change of format "
+        "without converting again)",
     )
     p.add_argument("--out", help="output path: .pt (torch.save) or .msgpack (Flax variables)")
     p.add_argument(
@@ -109,7 +121,7 @@ def main(argv=None):
         p.error("nothing to do: pass --out and/or --dump-golden")
     state = convert(args.model, args.ckpt, eval_type=args.eval_type)
     if args.out:
-        save_weights(state, args.out)
+        save_weights(state, args.out, args.model)
         n = sum(v.numel() for v in state.values())
         print(f"wrote {args.out} ({n / 1e6:.1f}M values)")
     if args.dump_golden:

@@ -7,10 +7,10 @@ deterministic clip for a set of weights, ``verify_golden`` computes them
 again and compares (top-5 order exactly, logits within `atol`).
 
 The canonical clip comes from numpy's PCG64 stream (stable across numpy
-versions by specification) through the uint8 path of the data pipeline
-(x/128-1).  ``verify_golden`` takes the geometry the file records.  Only the
-tanh world (I3D) is ported; the mean/std world comes with the torch-world
-models (ROADMAP.md queue A item 10).
+versions by specification) through the uint8 path of the data pipeline:
+x/128-1 (the tanh world, I3D) or (x/255 - mean)/std with the Kinetics
+statistics (the mean/std world, the video ResNets).  ``verify_golden`` takes
+the geometry the file records.
 """
 
 from __future__ import annotations
@@ -24,18 +24,19 @@ import torch
 GOLDEN_SEED = 20260816
 # smaller T than the canonical clips (90) keeps the recompute cheap; every
 # layer still executes
-GOLDEN_GEOMETRY = {"tanh": (32, 224)}
+GOLDEN_GEOMETRY = {"tanh": (32, 224), "meanstd": (16, 112)}
 
 
 def canonical_clip(norm_world: str, frames: int, size: int) -> np.ndarray:
     """Deterministic normalized f32 clip [1, T, S, S, 3] for a norm world."""
-    if norm_world != "tanh":
-        raise NotImplementedError(
-            f"norm world {norm_world!r}: the torch-world models are ROADMAP.md queue A item 10"
-        )
     rng = np.random.default_rng(GOLDEN_SEED)
     u8 = rng.integers(0, 256, (1, frames, size, size, 3), dtype=np.uint8)
-    return u8.astype(np.float32) / 128.0 - 1.0
+    if norm_world == "tanh":
+        return u8.astype(np.float32) / 128.0 - 1.0
+    from ..models.registry import KINETICS_MEAN, KINETICS_STD
+
+    x = u8.astype(np.float32) / 255.0
+    return (x - np.asarray(KINETICS_MEAN, np.float32)) / np.asarray(KINETICS_STD, np.float32)
 
 
 def _top5(logits_1d: np.ndarray) -> np.ndarray:
@@ -61,7 +62,8 @@ def compute_logits(
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with torch.no_grad():
-            logits, _ = model(clip)
+            logits = model(clip)
+            logits = logits[0] if isinstance(logits, tuple) else logits  # I3D: (logits, endpoints)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     return logits.float().cpu().numpy()
@@ -103,8 +105,8 @@ def verify_golden(
 ) -> Dict[str, Any]:
     """Compute the golden logits again and compare.
 
-    `weights_path` (a ``.pt`` or a TF checkpoint prefix, read with
-    `eval_type`) defaults to the recorded weights_file next to the npz.
+    `weights_path` (a ``.pt``/``.pth``, a ``.msgpack`` or a TF checkpoint
+    prefix, read with `eval_type`) defaults to the recorded weights_file next to the npz.
     Returns a report dict; raises AssertionError on a mismatch (the top-5
     class order must match exactly; logits within `atol`)."""
     from .cli import load_weights
@@ -115,7 +117,7 @@ def verify_golden(
         weights_path = os.path.join(os.path.dirname(npz_path), str(z["weights_file"]))
     if not (os.path.exists(weights_path) or os.path.exists(weights_path + ".index")):
         raise FileNotFoundError(weights_path)
-    state = load_weights(weights_path, eval_type=eval_type)
+    state = load_weights(weights_path, eval_type=eval_type, model_name=model_name)
     logits = compute_logits(model_name, state, num_classes=int(z["num_classes"]), device=device,
                             geometry=(int(z["frames"]), int(z["size"])))
     ref = z["logits"]

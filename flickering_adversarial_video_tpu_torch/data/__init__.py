@@ -7,4 +7,13 @@ from .tfrecord import (
     read_records,
     tfrecord_batches,
 )
-from .video_dataset import PrefetchIterator
+from .video_dataset import (
+    DEFAULT_MEAN,
+    DEFAULT_STD,
+    PrefetchIterator,
+    VideoDataset,
+    VideoRecord,
+    records_from_folders,
+    records_from_split_file,
+    sample_clip_indices,
+)

@@ -1,8 +1,9 @@
-"""The attack step on I3D, in PyTorch.
+"""The attack step, in PyTorch.
 
 Port of the JAX package's ``engine/attack_step.py`` (``AttackEngine``,
-``_train_step_impl`` :500, ``_loss_terms`` :426-496, ``train_steps`` :676)
-for the tanh world: the flickering delta [T,1,1,C], or with
+``_train_step_impl`` :500, ``_train_eval_step_impl`` :553, ``_loss_terms``
+:426-496, ``train_steps`` :676) in both input worlds.  The tanh world (I3D):
+the flickering delta [T,1,1,C], or with
 ``AttackConfig.attack_kind='sparse'`` the L1,2 attack's full delta [T,H,W,C]
 (``SparseSpec``), whose regularizer is beta1 * L1,2 (the JAX package's
 :477-482); ``l12`` is logged in both kinds.  One ``train_step``:
@@ -36,6 +37,17 @@ for the tanh world: the flickering delta [T,1,1,C], or with
   the device in f32 from a device int32 step count, as optax computes them);
 * metrics are taken on the PRE-update delta, as the reference fetches them.
 
+The mean/std world (``AttackConfig.norm_world='meanstd'``, the video
+ResNets; ``TorchStyleFlickerSpec``): uint8 clips become (x/255 - mean)/std
+in f32, the delta enters through ``apply_perturbation_torch_style`` (clamped
+to the runtime ``max_norm``, over std, clamped to the spec's scalar range) on
+the generic path, whose autograd gives d(delta) (the JAX engine's packed
+torch head is a TPU layout of the same function), and the regularizers and
+the thickness/roughness metrics act on delta clipped to +-max_norm
+(``regularize_clipped``).  The clean forward normalizes without clamping.
+``train_eval_step`` is the train step and the fooling counters of the same
+batch in one program (one graph on CUDA), as the epoch fit uses it.
+
 The runtime flags (``RuntimeFlags``, Python scalars per call) enter the
 train, eval and forward steps through one static f32 device buffer, written
 only when they change, so a step reads no host value.  On CUDA
@@ -66,19 +78,21 @@ from .step_graph import StepGraphs
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # the order of the runtime flags in the engine's static scalar buffer
 SCALARS = ("adv_flag", "beta0", "beta1", "beta2", "beta3", "learning_rate", "cyclic_flag",
-           "cyclic_pert_flag")
+           "cyclic_pert_flag", "max_norm")
 ATTACK_KINDS = ("flickering", "sparse")
+NORM_WORLDS = ("tanh", "meanstd")
 
 
 @dataclasses.dataclass(frozen=True)
 class AttackConfig:
-    """Static attack configuration (tanh world)."""
+    """Static attack configuration."""
 
     improve_loss: bool = True          # IMPROVE_ADV_LOSS
     margin: float = 0.05               # PROB_MARGIN
     targeted: bool = False             # TARGETED_ATTACK
     use_logits: bool = False           # USE_LOGITS
     attack_kind: str = "flickering"    # 'flickering' | 'sparse' (L1,2; FLICKERING_ATTACK false)
+    norm_world: str = "tanh"           # 'tanh' (x/128-1, I3D) | 'meanstd' (the video ResNets)
     reg_weighting: str = "tf"          # 'tf' (b1,b2,b3) | 'torch' (b1,1-b1)
     exclude_misclassify: bool = True
     target_class: Optional[int] = None
@@ -91,6 +105,12 @@ class AttackConfig:
     # compile the cyclic rolls into the generic path (CYCLIC_ATTACK /
     # CYCLIC_PERTURBATION_ATTACK); off, the cyclic flags are inert
     enable_cyclic: bool = False
+
+    @property
+    def regularize_clipped(self) -> bool:
+        """Regularizers and metrics see delta clipped to +-max_norm (the
+        torch world), else the raw delta (the tanh world)."""
+        return self.norm_world == "meanstd"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +125,7 @@ class RuntimeFlags:
     learning_rate: float = 1e-3
     cyclic_flag: float = 0.0       # blend of the time-rolled input (CYCLIC_ATTACK)
     cyclic_pert_flag: float = 0.0  # blend of the time-rolled delta (CYCLIC_PERTURBATION_ATTACK)
+    max_norm: float = 1.0          # the torch world's delta bound (the sweep escalates it)
 
 
 @dataclasses.dataclass
@@ -133,9 +154,10 @@ class AttackState:
 class AttackEngine:
     """Attack/eval steps for one (victim, spec, config) triple on the
     model's device.  ``model`` is the frozen victim: an :class:`InceptionI3D`
-    (whose ``stem_params``/``trunk`` open the packed input head), or any
-    module mapping a clip [B,T,H,W,C] in [-1, 1] to logits (generic path).
-    On CUDA the train step is a CUDA graph."""
+    (whose ``stem_params``/``trunk`` open the packed input head), a
+    ``VideoResNet`` (mean/std world), or any module mapping a normalized clip
+    [B,T,H,W,C] to logits (generic path).  On CUDA the train step is a CUDA
+    graph."""
 
     def __init__(
         self, model: torch.nn.Module, spec, config: AttackConfig = AttackConfig(),
@@ -143,6 +165,11 @@ class AttackEngine:
     ):
         if config.reg_weighting not in ("tf", "torch"):
             raise ValueError(f"reg_weighting {config.reg_weighting!r}")
+        if config.norm_world not in NORM_WORLDS:
+            raise ValueError(f"norm_world {config.norm_world!r}: choose from {NORM_WORLDS}")
+        if config.frame_window is not None and config.norm_world != "tanh":
+            raise ValueError("frame_window is a TF/I3D-world graph feature; the torch "
+                             "Perturbation module has no frame mask")
         if config.attack_kind not in ATTACK_KINDS:
             raise ValueError(f"attack_kind {config.attack_kind!r}: choose from {ATTACK_KINDS}")
         if config.use_pallas_fused and (spec.input_min, spec.input_max) != (-1.0, 1.0):
@@ -166,6 +193,9 @@ class AttackEngine:
         self._zero_delta = (torch.zeros(spec.shape, device=self.device)
                             if self._packed_supported() else None)
         self._zero_flag = torch.zeros((), device=self.device)
+        if config.norm_world == "meanstd":
+            self._mean = torch.tensor(spec.mean, device=self.device)
+            self._std = torch.tensor(spec.std, device=self.device)
         # the runtime flags (SCALARS) of every step, and their host values
         self._scalars = torch.zeros(len(SCALARS), device=self.device)
         self._scalar_values: Optional[Tuple[float, ...]] = None
@@ -177,15 +207,24 @@ class AttackEngine:
 
     # ---------- state and batches ----------
 
-    def init_state(self) -> AttackState:
-        delta = pert_lib.init_delta(self.spec, device=self.device)
+    def init_state(self, generator: Optional[torch.Generator] = None) -> AttackState:
+        """A fresh state; a mean/std spec draws its initial delta from
+        `generator` (seeded 0 when None)."""
+        delta = pert_lib.init_delta(self.spec, device=self.device, generator=generator)
         return AttackState(delta, torch.zeros_like(delta), torch.zeros_like(delta), 0)
+
+    def reset_delta(self, state: AttackState,
+                    generator: Optional[torch.Generator] = None) -> AttackState:
+        """Delta and the Adam moments drawn again, the step count 0 (the
+        per-video sweep's re-init)."""
+        return self.init_state(generator)
 
     def _packed_supported(self) -> bool:
         """Can batches take the packed input head?  (The JAX engine's
         ``_packed_supported``: a packed forward exists, the delta is the
         flickering one, and the cyclic and fused-kernel modes are off.)"""
         return (hasattr(self.model, "stem_params") and isinstance(self.spec, pert_lib.FlickerSpec)
+                and self.config.norm_world == "tanh"
                 and not self.config.use_pallas_fused and not self.config.enable_cyclic)
 
     def prepare_batch(self, batch: Dict) -> Tuple[torch.Tensor, bool, torch.Tensor]:
@@ -247,9 +286,45 @@ class AttackEngine:
         return out[0] if isinstance(out, tuple) else out  # I3D: (logits, endpoints)
 
     def _normalize(self, video: torch.Tensor) -> torch.Tensor:
+        """uint8 -> x/128 - 1 (tanh) or (x/255 - mean)/std (mean/std), f32;
+        a float clip is taken as [-1, 1] (tanh) or [0, 1] pixels (mean/std)."""
+        if self.config.norm_world == "tanh":
+            if video.dtype == torch.uint8:
+                return video.float() / 128.0 - 1.0
+            return video.float()
+        x = video.float()
         if video.dtype == torch.uint8:
-            return video.float() / 128.0 - 1.0
-        return video.float()
+            x = x / 255.0
+        return (x - self._mean) / self._std
+
+    def _perturb(self, x: torch.Tensor, delta: torch.Tensor, scalars: torch.Tensor, shifts):
+        """The generic path's adversarial input from the normalized clip."""
+        adv_flag = scalars[SCALARS.index("adv_flag")]
+        cyclic_pert_flag = scalars[SCALARS.index("cyclic_pert_flag")]
+        if self.config.norm_world == "meanstd":
+            return pert_lib.apply_perturbation_torch_style(
+                x, delta, self.spec, adv_flag=adv_flag,
+                max_norm=scalars[SCALARS.index("max_norm")],
+                cyclic_pert_flag=cyclic_pert_flag,
+                shift=None if shifts is None else shifts[1], std=self._std,
+            )
+        return pert_lib.apply_perturbation(
+            x, delta, self.spec, adv_flag=adv_flag, mask=self._mask,
+            cyclic_flag=scalars[SCALARS.index("cyclic_flag")],
+            cyclic_pert_flag=cyclic_pert_flag, shifts=shifts,
+        )
+
+    def _reg_delta(self, delta: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+        """The delta the regularizers and metrics see: clipped to +-max_norm
+        in the mean/std world (``regularize_clipped``), else raw."""
+        if not self.config.regularize_clipped:
+            return delta
+        m = scalars[SCALARS.index("max_norm")]
+        return pert_lib.clip(delta, -m, m)
+
+    def reg_delta(self, delta: torch.Tensor, flags: RuntimeFlags = RuntimeFlags()) -> torch.Tensor:
+        """:meth:`_reg_delta` under `flags` (the epoch fit's perturbation)."""
+        return self._reg_delta(delta, self._step_scalars(flags, None))
 
     def _logits(self, delta: Optional[torch.Tensor], video, packed: bool,
                 scalars: torch.Tensor, counter: torch.Tensor, train: bool = False):
@@ -278,12 +353,7 @@ class AttackEngine:
             return self._apply_model(adv)
         x = self._normalize(video)
         if delta is not None:
-            x = pert_lib.apply_perturbation(
-                x, delta, self.spec, adv_flag=adv_flag, mask=self._mask,
-                cyclic_flag=scalars[SCALARS.index("cyclic_flag")],
-                cyclic_pert_flag=scalars[SCALARS.index("cyclic_pert_flag")],
-                shifts=self._shifts(video, counter),
-            )
+            x = self._perturb(x, delta, scalars, self._shifts(video, counter))
         return self._apply_model(x)
 
     def _loss_terms(self, delta, video, packed, labels, scalars: torch.Tensor,
@@ -298,10 +368,11 @@ class AttackEngine:
             logits, labels, improve_loss=cfg.improve_loss, margin=cfg.margin,
             targeted=cfg.targeted, use_logits=cfg.use_logits,
         )
-        norm_r = reg_lib.thinness_reg(delta)
-        diff_r = reg_lib.first_order_diff_reg(delta)
-        lap_r = reg_lib.second_order_diff_reg(delta)
-        l12_r = reg_lib.l12_regularizer(delta)
+        reg_delta = self._reg_delta(delta, scalars)
+        norm_r = reg_lib.thinness_reg(reg_delta)
+        diff_r = reg_lib.first_order_diff_reg(reg_delta)
+        lap_r = reg_lib.second_order_diff_reg(reg_delta)
+        l12_r = reg_lib.l12_regularizer(reg_delta)
         if cfg.attack_kind == "sparse":
             reg = beta1 * l12_r
         elif cfg.reg_weighting == "torch":
@@ -349,10 +420,11 @@ class AttackEngine:
         with torch.no_grad():
             new = self._adam(delta, mu, nu, step, grad, scalars[SCALARS.index("learning_rate")])
             probs = terms.pop("probs").detach()
+            metric_delta = self._reg_delta(delta, scalars)
             metrics = {
                 "total_loss": total.detach(),
-                "thickness": metrics_lib.thickness(delta),
-                "roughness": metrics_lib.roughness(delta),
+                "thickness": metrics_lib.thickness(metric_delta),
+                "roughness": metrics_lib.roughness(metric_delta),
                 "delta_max": delta.max(),
                 "delta_min": delta.min(),
                 "is_adversarial": metrics_lib.is_adversarial(
@@ -365,27 +437,54 @@ class AttackEngine:
                 metrics["probs"] = probs
         return new, metrics
 
-    def _train_step(self, state: AttackState, video, packed, labels, flags: RuntimeFlags,
-                    seed: int = 0):
-        """One eager step: the CPU's, and the reference a graphed step is
-        held to on the card."""
+    def _train_eval(self, delta, mu, nu, step, video, packed, labels, scalars):
+        """The step body of ``train_eval_step``: :meth:`_step`, then the clean
+        forward of the same batch and the fooling counters (miss, valid) of
+        the step's adversarial probabilities against it."""
+        if not self.track_probs:
+            raise ValueError("train_eval_step requires track_probs=True")
+        new, metrics = self._step(delta, mu, nu, step, video, packed, labels, scalars)
+        with torch.no_grad():
+            clean = torch.softmax(
+                self._logits(None, video, packed, scalars, self._eval_counter), dim=-1)
+            metrics["miss"], metrics["valid"] = metrics_lib.fooling_counts(
+                metrics["probs"], clean, labels, targeted=self.config.targeted,
+                target_class=self.config.target_class,
+                exclude_misclassify=self.config.exclude_misclassify,
+            )
+        return new, metrics
+
+    def _eager(self, body, state: AttackState, video, packed, labels, flags: RuntimeFlags,
+               seed: int = 0):
         scalars = self._step_scalars(flags, seed)
         step = torch.full((), state.step, dtype=torch.int32, device=self.device)
-        (delta, mu, nu, _), metrics = self._step(
+        (delta, mu, nu, _), metrics = body(
             state.delta, state.mu, state.nu, step, video, packed, labels, scalars)
         metrics["step"] = state.step
         return AttackState(delta, mu, nu, state.step + 1), metrics
 
-    def _steps(self, state, batch, flags, n, with_metrics, seed):
+    def _train_step(self, state: AttackState, video, packed, labels, flags: RuntimeFlags,
+                    seed: int = 0):
+        """One eager step: the CPU's, and the reference a graphed step is
+        held to on the card."""
+        return self._eager(self._step, state, video, packed, labels, flags, seed)
+
+    def _train_eval_step(self, state: AttackState, video, packed, labels, flags: RuntimeFlags,
+                         seed: int = 0):
+        """One eager ``train_eval_step`` (the graphed one's reference)."""
+        return self._eager(self._train_eval, state, video, packed, labels, flags, seed)
+
+    def _steps(self, state, batch, flags, n, with_metrics, seed, kind="train"):
+        body = self._train_eval if kind == "train_eval" else self._step
         video, packed, labels = self.prepare_batch(batch)
         if self._graphs is not None:
             self._step_scalars(flags, seed)
             return self._graphs.run(
-                lambda *args: self._step(*args, self._scalars), state, video, packed, labels,
-                n, with_metrics)
+                lambda *args: body(*args, self._scalars), state, video, packed, labels,
+                n, with_metrics, kind)
         metrics = None
         for _ in range(n):
-            state, metrics = self._train_step(state, video, packed, labels, flags, seed)
+            state, metrics = self._eager(body, state, video, packed, labels, flags, seed)
         return state, metrics
 
     def train_step(
@@ -406,9 +505,20 @@ class AttackEngine:
         own count; the JAX scan reuses one key)."""
         return self._steps(state, batch, flags, n, False, seed)[0]
 
+    def train_eval_step(
+        self, state: AttackState, batch: Dict, flags: RuntimeFlags = RuntimeFlags(),
+        seed: int = 0,
+    ) -> Tuple[AttackState, Dict[str, torch.Tensor]]:
+        """One optimizer step and the batch's fooling counters (``miss``,
+        ``valid``: the step's adversarial probabilities, on the pre-update
+        delta, against the clean forward) in one program: a graph of its own
+        on CUDA (donating `state`).  Needs ``track_probs``."""
+        return self._steps(state, batch, flags, 1, True, seed, "train_eval")
+
     def graph_stats(self) -> Dict[tuple, Dict[str, float]]:
-        """Each train-step graph's pool bytes and capture seconds, by (clip
-        shape, clip dtype, packed?, labels shape); empty without graphs."""
+        """Each step graph's pool bytes and capture seconds, by (clip shape,
+        clip dtype, packed?, labels shape, 'train' | 'train_eval'); empty
+        without graphs."""
         return {} if self._graphs is None else self._graphs.stats()
 
     @torch.no_grad()
@@ -446,9 +556,8 @@ class AttackEngine:
     ) -> torch.Tensor:
         """The adversarial clip itself (the result dict's ``adv_video``): the
         normalized ``"video"`` plus the clipped (and frame-masked) delta,
-        clipped to the input range; no rolls (the JAX engine's call gives no
-        key)."""
+        clipped to the input range (mean/std: to +-max_norm, over std, to
+        the scalar range); no rolls (the JAX engine's call gives no key)."""
         x = self._normalize(torch.as_tensor(batch["video"], device=self.device))
         delta = torch.as_tensor(delta, dtype=torch.float32, device=self.device)
-        adv_flag = self._step_scalars(flags, None)[SCALARS.index("adv_flag")]
-        return pert_lib.apply_perturbation(x, delta, self.spec, adv_flag=adv_flag, mask=self._mask)
+        return self._perturb(x, delta, self._step_scalars(flags, None), None)

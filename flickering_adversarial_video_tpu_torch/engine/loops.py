@@ -127,6 +127,7 @@ def single_video_attack(
     hard_cap: Optional[int] = None,
     track_history: bool = True,
     seed: int = 0,
+    init_generator: Optional[torch.Generator] = None,
     log_fn: Optional[Callable[[int, Dict], None]] = None,
 ) -> Optional[Dict[str, Any]]:
     """Attack one clip until fooled.
@@ -139,7 +140,9 @@ def single_video_attack(
 
     `seed` draws the cyclic rolls (with the step count, on the device;
     ``AttackEngine.train_step``), as the JAX loop's ``fold_in(key(seed),
-    step)``.
+    step)``.  `init_generator` draws a mean/std spec's initial delta,
+    U(-init_scale, init_scale) (seeded 0 when None), as the JAX loop's
+    ``init_key``.
     """
     attack_label = label if target_label is None else target_label
     video = np.asarray(clip if clip.ndim == 5 else clip[None])
@@ -147,7 +150,7 @@ def single_video_attack(
         "video": torch.as_tensor(video, device=engine.device),
         "labels": torch.as_tensor(np.asarray([attack_label], np.int64), device=engine.device),
     }
-    state = engine.init_state()
+    state = engine.init_state(init_generator)
     clean_probs = engine.forward(state.delta, batch, flags, adversarial=False,
                                  seed=seed).cpu().numpy()
     if int(clean_probs.argmax()) != label:

@@ -20,9 +20,12 @@ from the host.  Here each step shape is captured once with
   (written only when they change).  The batch, packed or not, is copied into
   the graph's static clip and labels; the packing and the host-to-device copy
   stay outside the graph.
-* **One graph a (clip shape, clip dtype, packed?, labels shape)**, cached on
-  the engine's ``StepGraphs``: the last short batch of a universal epoch, a
-  single-video clip and a fused-kernel batch each key their own.  Each graph
+* **One graph a (clip shape, clip dtype, packed?, labels shape, kind)**,
+  cached on the engine's ``StepGraphs``: the last short batch of a universal
+  epoch, a single-video clip and a fused-kernel batch each key their own,
+  and ``train_eval_step`` (kind ``"train_eval"``: the step and its fooling
+  counters) has graphs of its own beside ``train_step``'s (``"train"``),
+  over the same static state.  Each graph
   has its own memory pool, freed with the engine; ``stats`` gives what its
   capture reserved and how long the warm-up and capture took.
 * **Metrics** are written inside the graph into one packed byte buffer, and
@@ -89,12 +92,12 @@ class StepGraphs:
             self._step_value = int(state.step)
 
     def run(self, step_fn: Callable, state, video: torch.Tensor, packed: bool,
-            labels: torch.Tensor, n: int, with_metrics: bool):
-        """n replays of the step graph of this batch's key from `state`:
-        (the new state, holding the static tensors; the last step's metrics
-        or None).  `step_fn(delta, mu, nu, step, video, packed, labels)`
-        is the engine's step on tensors."""
-        key = (tuple(video.shape), video.dtype, packed, tuple(labels.shape))
+            labels: torch.Tensor, n: int, with_metrics: bool, kind: str = "train"):
+        """n replays of the step graph of this batch's key and `kind` from
+        `state`: (the new state, holding the static tensors; the last step's
+        metrics or None).  `step_fn(delta, mu, nu, step, video, packed,
+        labels)` is the engine's step body of that kind, on tensors."""
+        key = (tuple(video.shape), video.dtype, packed, tuple(labels.shape), kind)
         self._load(state)
         entry = self._graphs.get(key)
         if entry is None:

@@ -1,11 +1,15 @@
 """Shared runner plumbing: victim construction + engine wiring from config.
 
-Port of the JAX package's ``runners/common.py`` for the I3D victim on one
-device.  A checkpoint is a DeepMind TF checkpoint (its prefix; converted on
-load by the port's own bundle reader, no TensorFlow), a ``.msgpack`` of the
-JAX I3D's Flax variables (the JAX package's weight file; read by the port's
-own codec) or a ``.pt`` state dict that ``convert.cli`` wrote; a missing one gives seeded random weights with a
-loud warning (the attack machinery is weight-agnostic).
+Port of the JAX package's ``runners/common.py`` on one device, for I3D (the
+tanh world) and the four video ResNets (the mean/std world: r3d_18, mc3_18,
+r2plus1d_18, r2plus1d_34).  An I3D checkpoint is a DeepMind TF checkpoint
+(its prefix; converted on load by the port's own bundle reader, no
+TensorFlow), a ``.msgpack`` of the JAX I3D's Flax variables (the JAX
+package's weight file; read by the port's own codec) or a ``.pt`` state
+dict that ``convert.cli`` wrote; a video ResNet's is a torchvision state
+dict (``.pt``/``.pth``) or a ``.msgpack`` of the JAX VideoResNet's
+variables.  A missing one gives seeded random weights with a loud warning
+(the attack machinery is weight-agnostic).
 """
 
 from __future__ import annotations
@@ -15,8 +19,8 @@ from typing import Any, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from ..attack import FlickerSpec, SparseSpec
-from ..convert import EVAL_TYPES, init_i3d_state, load_weights
+from ..attack import FlickerSpec, SparseSpec, TorchStyleFlickerSpec
+from ..convert import EVAL_TYPES, init_i3d_state, load_weights, video_resnet_state_dict
 from ..engine import AttackConfig, AttackEngine
 from ..models.registry import MODEL_REGISTRY, create_model
 from ..utils.labels import load_label_map
@@ -40,11 +44,14 @@ def pair_pools_from_env(environ: Optional[Mapping[str, str]] = None) -> Tuple[st
 
 def infer_num_classes(state: Optional[Mapping[str, Any]], model_name: str,
                       default: Optional[int] = None) -> int:
-    """The head width present in a state dict (checkpoint truth), else
-    `default`, else the registry's."""
-    bias = (state or {}).get("Logits.Conv3d_0c_1x1.conv_3d.bias")
-    if bias is not None:
-        return int(bias.shape[0])
+    """The head width present in a state dict (checkpoint truth: I3D's
+    logits bias, a video ResNet's ``fc.weight``, as the ig65m r2plus1d_34
+    heads of 359/487 classes), else `default`, else the registry's."""
+    state = state or {}
+    head = (state.get("fc.weight") if model_name != "i3d"
+            else state.get("Logits.Conv3d_0c_1x1.conv_3d.bias"))
+    if head is not None:
+        return int(head.shape[0])
     return default or MODEL_REGISTRY[model_name].num_classes
 
 
@@ -61,18 +68,23 @@ def build_victim(
 ) -> torch.nn.Module:
     """The frozen victim on `device` (CUDA unless told otherwise).
 
-    `ckpt_path` is a DeepMind TF checkpoint prefix (converted on load,
-    convert/tf_i3d.py), a ``.msgpack`` of Flax variables (convert/flax_i3d.py)
-    or a ``.pt`` state dict (convert.cli).  eval_type='rgb600' selects the Kinetics-600 world: prefix-less
-    checkpoint names and a 600-way head.  The head is as wide as
+    `ckpt_path`, for I3D, is a DeepMind TF checkpoint prefix (converted on
+    load, convert/tf_i3d.py), a ``.msgpack`` of Flax variables
+    (convert/flax_i3d.py) or a ``.pt`` state dict (convert.cli);
+    eval_type='rgb600' selects the Kinetics-600 world: prefix-less
+    checkpoint names and a 600-way head.  For a video ResNet it is a
+    torchvision ``.pt``/``.pth`` (convert/torch_video_resnet.py) or a
+    ``.msgpack`` (convert/flax_video_resnet.py).  The head is as wide as
     `num_classes`, else as the checkpoint's.  Only when no file exists at
     `ckpt_path` do the weights come from seed 0, with a loud warning.
-    `pair_pools`: see :func:`pair_pools_from_env`."""
+    `pair_pools` (I3D only): see :func:`pair_pools_from_env`."""
     if eval_type not in EVAL_TYPES:
         raise ValueError(f"EVAL_TYPE {eval_type!r}: choose from {EVAL_TYPES}")
+    if model_name not in MODEL_REGISTRY:
+        raise ValueError(f"MODEL_NAME {model_name!r}: choose from {sorted(MODEL_REGISTRY)}")
     state = None
     if ckpt_path and (os.path.exists(ckpt_path) or os.path.exists(ckpt_path + ".index")):
-        state = load_weights(ckpt_path, eval_type=eval_type)
+        state = load_weights(ckpt_path, eval_type=eval_type, model_name=model_name)
     num_classes = num_classes or infer_num_classes(
         state, model_name, 600 if eval_type == "rgb600" else None)
     model, _ = create_model(
@@ -84,7 +96,11 @@ def build_victim(
             f"[warn] no checkpoint for {model_name} at {ckpt_path!r}; "
             "using random init (attack mechanics only, no meaningful victims)"
         )
-        state = init_i3d_state(0, num_classes)
+        if model_name == "i3d":
+            state = init_i3d_state(0, num_classes)
+        else:
+            state = {k: torch.from_numpy(v)
+                     for k, v in video_resnet_state_dict(model_name, num_classes, 0).items()}
     model.load_state_dict(state)
     return model
 
@@ -101,10 +117,15 @@ def build_engine(
 ) -> Tuple[AttackEngine, List[str]]:
     """AttackEngine + label list from run_config.yml sections.  attack_kind
     'sparse' gives the L1,2 attack's full delta (``SparseSpec`` of the clip's
-    frames x size x size); either cyclic key compiles the rolls in."""
+    frames x size x size; for a video ResNet a full ``TorchStyleFlickerSpec``);
+    either cyclic key compiles the rolls in.  A video ResNet
+    (``MODEL_NAME`` r3d_18, mc3_18, r2plus1d_18, r2plus1d_34) attacks in the
+    mean/std world: ``TorchStyleFlickerSpec(max_norm=L_INF_NORM)``, the
+    torch weighting of the regularizers, and no frame window (the engine
+    refuses ``ATTACK_FRAME_WINDOW``, as the JAX engine)."""
     model_name = attack_cfg.get("MODEL_NAME", "i3d")
     if model_name not in MODEL_REGISTRY:
-        raise NotImplementedError(f"MODEL_NAME {model_name!r}: only 'i3d' is ported")
+        raise ValueError(f"MODEL_NAME {model_name!r}: choose from {sorted(MODEL_REGISTRY)}")
     reg = MODEL_REGISTRY[model_name]
     frames = frames or reg.default_frames
     size = size or reg.default_size
@@ -120,7 +141,7 @@ def build_engine(
         num_classes=num_classes,
         eval_type=model_cfg.get("EVAL_TYPE", "rgb"),
         device=device,
-        pair_pools=pair_pools_from_env(),
+        pair_pools=pair_pools_from_env() if model_name == "i3d" else (),
     )
 
     labels = load_label_map(
@@ -140,14 +161,19 @@ def build_engine(
         targeted=targeted,
         use_logits=bool(attack_cfg.get("USE_LOGITS", False)),
         attack_kind=attack_kind,
-        reg_weighting="tf",
+        norm_world=reg.norm_world,
+        reg_weighting="tf" if reg.norm_world == "tanh" else "torch",
         target_class=target_class,
         use_pallas_fused=bool(attack_cfg.get("USE_PALLAS_FUSED", False)),
         frame_window=frame_window,
         enable_cyclic=bool(attack_cfg.get("CYCLIC_ATTACK", False)
                            or attack_cfg.get("CYCLIC_PERTURBATION_ATTACK", False)),
     )
-    if attack_kind == "sparse":
+    if reg.norm_world == "meanstd":
+        hw = size if attack_kind == "sparse" else 1
+        spec = TorchStyleFlickerSpec(frames=frames, height=hw, width=hw,
+                                     max_norm=float(attack_cfg.get("L_INF_NORM", 1.0)))
+    elif attack_kind == "sparse":
         spec = SparseSpec(frames=frames, height=size, width=size)
     else:
         spec = FlickerSpec(frames=frames)
@@ -170,7 +196,8 @@ def make_shard_batches(
     Host-prepacked input defaults on (PREPACK_INPUT) whenever the engine's
     packed path exists and the geometry is even; with USE_PALLAS_FUSED, the
     sparse attack or the cyclic modes the packed path is off and the
-    pipeline delivers unpacked uint8 clips, as at an odd frame count or size.  The
+    pipeline delivers unpacked uint8 clips, as at an odd frame count or size
+    or in the mean/std world (a video ResNet has no packed input head).  The
     shards are read by the native reader (the pipeline's default), into
     pinned buffers when the engine is on CUDA.
 

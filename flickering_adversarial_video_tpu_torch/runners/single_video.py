@@ -6,7 +6,7 @@ fooled (stop rule `step > MAX_NUM_STEP and is_adversarial`), and dump a pkl
 with the full per-step history under the reference's filename convention.
 
 Not ported yet, each raising: several clips in flight (``slots > 1`` or the
-YAML key ``SLOTS``; ROADMAP.md queue A item 10), sharding them over a mesh
+YAML key ``SLOTS``; ROADMAP.md queue A item 10's rest), sharding them over a mesh
 (``use_mesh``; item 11) and the live dashboard (``dashboard_path``; item 13).
 
 Usage: python -m flickering_adversarial_video_tpu_torch.runners.single_video [run_config.yml]
@@ -34,7 +34,8 @@ def run(cfg, *, frames: int = 90, size=None, stop_rule: str = "reference", max_v
         slots = int(attack_cfg.get("SLOTS", 1))
     if slots > 1:
         raise NotImplementedError(
-            "SLOTS > 1 (the vectorized sweep, engine/vector_sweep.py) is ROADMAP.md queue A item 10"
+            "SLOTS > 1 (the vectorized sweep, engine/vector_sweep.py) is ROADMAP.md queue A "
+            "item 10's rest"
         )
     if use_mesh:
         raise NotImplementedError("the device mesh is ROADMAP.md queue A item 11")

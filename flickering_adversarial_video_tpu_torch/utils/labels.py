@@ -456,3 +456,14 @@ def load_label_map(path: Optional[str] = None, num_classes: int = 400) -> List[s
         except OSError:
             pass
     return labels_for_num_classes(num_classes)
+
+
+def warn_if_placeholder(labels: List[str]) -> bool:
+    """Print a note when a label list is made of placeholder names (a head
+    with no public class list, as the ig65m r2plus1d_34's 359/487 classes):
+    results then name classes class_000, class_001, ..."""
+    if labels and all(name == f"class_{i:03d}" for i, name in enumerate(labels[:3])):
+        print(f"[labels] NOTE: no class list for a {len(labels)}-way head; class names in "
+              f"results are placeholders class_000..class_{len(labels) - 1:03d}")
+        return True
+    return False

@@ -245,8 +245,13 @@ class TestCli:
         _assert_states_equal(load_weights(again), assets[world]["state"])
 
     def test_unported_inputs_raise(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        """A video ResNet converts now (tests/test_torch_port_video_resnet.py);
+        a missing .pth or a TF prefix for one still raises, and so does an
+        I3D run with nothing to do."""
+        with pytest.raises(FileNotFoundError):
             cli.main(["r2plus1d_18", str(tmp_path / "x.pth"), "--out", str(tmp_path / "w.pt")])
+        with pytest.raises(ValueError, match=".pt/.pth or a .msgpack"):
+            cli.main(["r2plus1d_18", str(tmp_path / "model.ckpt"), "--out", str(tmp_path / "w.pt")])
         with pytest.raises(SystemExit):
             cli.main(["i3d", str(tmp_path / "x")])
 
