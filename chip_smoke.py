@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths on full-width I3D (400 classes, every Mixed
-block, bf16, random weights from a numpy seed), and the torch world's video
-ResNets (phase 16), after building the port's CUDA
+block, bf16, random weights from a numpy seed), the torch world's video
+ResNets (phase 16) and the vectorized per-video sweep (phase 17), after
+building the port's CUDA
 kernels from ``flickering_adversarial_video_tpu_torch/csrc``: the universal
 flickering attack on B=8 uint8 clips of 64x224x224 (the attack step through
 ``AttackEngine.train_steps`` and ``eval_step``; the universal runner,
@@ -174,10 +175,33 @@ which fails the run:
    skipped, a rerun skipped by the ledger for each fooled clip, n_iter 10 so
    that the escalation runs to its end); and the YAML universal runner with
    ``MODEL_NAME: r2plus1d_18`` on native-read shards of 16x112x112 clips it
-   writes (no host prepack).
+   writes (no host prepack);
+17. the vectorized per-video sweep (``engine/vector_sweep.py``): B7 with a
+   dl a clip ("B7c") bit-equal to its plain version at [4,45,112,112,24] in
+   bf16 and f32 with bound hits at -1 and +1, without a mask, and equal to
+   the shared form where every clip has one dl, timed beside its bound; the
+   slot step on 4 uint8 I3D clips [1,90,224,224,3] (the packed head with
+   B7c; the escalate family at n_iter 3: 16 steps and 4 escalations a clip)
+   as one graphed chunk from a new sweep engine, its counts reset just before
+   and read just after (B1 1, B2 19, B3 9, B4 9, B5 3, B6 3, B7 1 with a dl a
+   clip a slot step, as the wrappers count them and as the device ran them,
+   the capture's warm-up included), bit-equal to the same chunk run eagerly
+   (state and every output), and each slot against ``sweep.fit_single_video``
+   of its clip and seed (the sequential graphed step at B=1): equal step
+   counts, verdicts and escalations, delta within 1% of its movement and
+   losses within 3e-5; clip-steps/s at 1, 2, 4 and 8 slots against the
+   sequential B=1 step, with each graph's pool; the single-video runner with
+   SLOTS: 4 against SLOTS: 1 on three float32 clips [1,90,224,224,3] and a
+   misnamed one, each clip starting from a drawn delta (pkl names by the
+   reference's convention, schema, steps, verdicts, the final delta within
+   1% of its movement, losses within 3e-5, exact counts: one chunk of 64
+   slot steps and 4 clean forwards); and ``runners.torch_per_video`` with
+   slots=4 on phase 16's sweep (its counts, files and schema, a rerun skipped
+   by the ledger, no kernel of the port).
 
 Prints the kernel table as one JSON line (a kernel's launches: those that ran
-on the device in phase 3's traced run of its path), then as the last line
+on the device in phase 3's traced run of its path; B7c's, B7's kernel at the
+slot step's shape, in phase 17's), then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
 """
@@ -185,6 +209,7 @@ Exits non-zero, printing no result, without CUDA or outside the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -360,7 +385,11 @@ def graph_stats(engine) -> str:
 
 
 def read_counts(ops) -> dict:
-    return {name.split()[0]: n for name, n in ops.launch_counts().items()}
+    """The wrappers' launch counts by kernel, B1..B9 (B7's launches with a
+    delta a clip, which it also counts apart, are read where the slot step
+    runs)."""
+    return {name.split()[0]: n for name, n in ops.launch_counts().items()
+            if name.split()[0] in NAMES}
 
 
 def device_launches(prof, kernels) -> dict:
@@ -404,11 +433,13 @@ SWEEP_KEYS = {"loss/total", "loss/adv_loss", "loss/reg_loss", "perturbation/thic
               "steps_per_sec"}
 
 
-def torch_world_phase(tmp: str, dev) -> None:
+def torch_world_phase(tmp: str, dev) -> dict:
     """Phase 16: the torch world (the video ResNets, the mean/std attack,
     the epoch fit, the per-video sweep and the YAML runner) at full width.
     No kernel of the port lies on this path: each wrapper's count must stay 0
-    and no kernel of ``ops.kernels.KERNEL_SYMBOLS`` may run in a traced step."""
+    and no kernel of ``ops.kernels.KERNEL_SYMBOLS`` may run in a traced step.
+    Returns the per-video sweep's set-up and results (phase 17 runs it again
+    with slots)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -721,6 +752,9 @@ def torch_world_phase(tmp: str, dev) -> None:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     if not ok or counts != zero:
         fail("torch_per_video: skips, ledger, escalation bound, schema or launch counts")
+    sweep_run = {"variant": variant, "frames": t, "records": sweep, "labels": labels,
+                 "ckpt": sweep_pth, "dir": sweep_dir, "first": out1, "results": res,
+                 "decoded": decoded}
 
     # ---- 16d. the YAML universal runner with MODEL_NAME: r2plus1d_18 ------------------
     # native-read shards of 16x112x112 clips labelled with the victim's clean
@@ -772,6 +806,393 @@ def torch_world_phase(tmp: str, dev) -> None:
     if not ok or counts != zero:
         fail("the YAML universal runner on r2plus1d_18: steps, prepack, losses, eval or counts")
     print(f"[time] phase 16 (the torch world) {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return sweep_run
+
+
+# phase 17, the vectorized per-video sweep: VS_SLOTS uint8 I3D clips of
+# SV_FRAMES x SIZE^2 in flight as one graphed slot step (the packed head with
+# B7 reading a dl a clip, "B7c"); the escalate family at n_iter VS_ITERS, so
+# that each slot runs 4 x (VS_ITERS + 1) steps and four escalations in one
+# chunk
+VS_SLOTS, VS_ITERS = 4, 3
+VS_CHUNK = 4 * (VS_ITERS + 1) + 1
+VS_TIME_SLOTS, VS_TIME_ITERS = (1, 2, 4, 8), 20
+VS_INIT_SCALE = 0.005  # the initial draws' scale, sweep.fit_single_video's
+# a slot's trajectory against the sequential step of its clip (bf16: cuDNN
+# may take other algorithms at batch 4 than at batch 1): delta within 1% of
+# its own movement over the run, every loss within 3e-5 of itself, about 5x
+# what sound runs read on an H100 (0.16-0.22% and 2.2-5.2e-6; PERF.md)
+VS_DELTA_SHARE, VS_LOSS_REL = 0.01, 3e-5
+# launches a slot step on uint8 clips (the packed head: B7 with a dl a clip)
+SLOT_STEP_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 3, 3, 1, 0, 0, 0, 0)))
+VS_RUNNER_CHUNK = 64  # vector_single_video_attacks' chunk
+
+
+def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
+    """Phase 17: the vectorized per-video sweep (``engine/vector_sweep.py``).
+    (a) B7 with a dl a clip ("B7c") bit-equal to its plain version; the
+    slot step on VS_SLOTS uint8
+    I3D clips, a graphed chunk (counts reset just before, read just after,
+    and the device's launches under torch.profiler) bit-equal to the same
+    chunk run eagerly, and each slot's trajectory beside the sequential
+    graphed ``train_step`` of its clip and seed (``sweep.fit_single_video``);
+    clip-steps/s at VS_TIME_SLOTS slots against the B=1 step; (b) the
+    single-video runner with SLOTS: 4 against the sequential runner; (c)
+    ``torch_per_video --slots 4`` on phase 16's sweep.  Returns B7c's row of
+    the kernel table (B7's kernel at the slot step's shape and launches)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flickering_adversarial_video_tpu_torch import ops
+    from flickering_adversarial_video_tpu_torch.attack import FlickerSpec, perturbation
+    from flickering_adversarial_video_tpu_torch.convert import init_i3d_state
+    from flickering_adversarial_video_tpu_torch.data import VideoDataset
+    from flickering_adversarial_video_tpu_torch.data.npy import save_npy_clip
+    from flickering_adversarial_video_tpu_torch.engine import (
+        AttackConfig, AttackEngine, RuntimeFlags)
+    from flickering_adversarial_video_tpu_torch.engine import sweep
+    from flickering_adversarial_video_tpu_torch.engine.inference import InferenceModel
+    from flickering_adversarial_video_tpu_torch.engine.step_graph import WARMUP_STEPS
+    from flickering_adversarial_video_tpu_torch.engine.vector_sweep import (
+        SlotState, VectorSweepEngine)
+    from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
+    from flickering_adversarial_video_tpu_torch.ops import kernels, packed_apply
+    from flickering_adversarial_video_tpu_torch.runners import (
+        common, single_video, torch_per_video)
+    from flickering_adversarial_video_tpu_torch.utils.config import load_config
+    from flickering_adversarial_video_tpu_torch.viz.results import load_result, result_filename
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    state_fields = [f.name for f in dataclasses.fields(SlotState)]
+
+    # ---- 17a. B7 with a dl a clip against its plain version at the slot step's shape ----
+    # ties at both bounds: u8 0 under dl 0 is exactly -1 (clip 1), u8 255
+    # under dl 1/128 exactly +1 (clip 2): mask 1 there
+    gen = torch.Generator().manual_seed(SEED + 17)
+    shape7 = (VS_SLOTS, SV_FRAMES // 2, SIZE // 2, SIZE // 2, 24)
+    u8 = torch.randint(0, 256, shape7, generator=gen, dtype=torch.uint8)
+    dl = (torch.rand(VS_SLOTS, SV_FRAMES // 2, 24, generator=gen) - 0.5) * 0.6
+    u8[1, :, :4, :4, 0], dl[1, :, 0] = 0, 0.0
+    u8[2, :, :4, :4, 5], dl[2, :, 5] = 255, 1.0 / 128
+    u8, dl = u8.to(dev), dl.to(dev)
+    b7c_err = None
+    emit = packed_apply.emit_adv_mask
+    for dtype in (bf16, torch.float32):
+        before = emit.clip_launches
+        adv, mask2 = emit(u8, dl, -1.0, 1.0, dtype)
+        counted = emit.clip_launches == before + 1
+        want_adv, want_mask = packed_apply.emit_adv_mask_plain(u8, dl, -1.0, 1.0, dtype)
+        err = (adv.float() - want_adv.float()).abs().max().item()
+        merr = (mask2.int() - want_mask.int()).abs().max().item()
+        ties = (int((mask2[1] == 1).sum()), int((mask2[2] == 1).sum()))
+        nomask_adv, nomask = emit(u8, dl, -1.0, 1.0, dtype, want_mask=False)
+        shared = emit(u8, dl[0], -1.0, 1.0, dtype)
+        same = emit(u8, dl[:1].expand_as(dl).contiguous(), -1.0, 1.0, dtype)
+        agree = torch.equal(shared[0], same[0]) and torch.equal(shared[1], same[1])
+        b7c_err = max(err, float(merr)) if b7c_err is None else b7c_err
+        print(f"[check] B7c         {str(dtype)[6:]:8s} {list(shape7)}, dl [{VS_SLOTS},"
+              f"{SV_FRAMES // 2},24]: adv max_abs_err {err:.3e} mask max_abs_err {merr} "
+              f"(tolerance 0); on a bound (mask 1): {ties[0]} at -1 in clip 1, {ties[1]} at +1 in "
+              f"clip 2; without a mask equal: {nomask is None and torch.equal(nomask_adv, adv)}; "
+              f"one dl for every clip equal to the shared form: {agree}; counted as a launch "
+              f"with a dl a clip: {counted}", flush=True)
+        if (err or merr or 0 in ties or nomask is not None or not torch.equal(nomask_adv, adv)
+                or not agree or not counted):
+            fail(f"B7c {dtype}: not bit-equal to its plain version (or to the shared form), no "
+                 "bound hit, or not counted")
+        del adv, mask2, want_adv, want_mask, nomask_adv, shared, same
+    ms7 = cuda_ms(torch, lambda: emit(u8, dl, -1.0, 1.0, bf16))
+    plain7 = cuda_ms(torch, lambda: packed_apply.emit_adv_mask_plain(u8, dl, -1.0, 1.0, bf16),
+                     iters=3, warmup=1)
+    shared7 = cuda_ms(torch, lambda: emit(u8, dl[0], -1.0, 1.0, bf16))
+    # u8 read, bf16 adv and u8 mask written, dl read; ~10 f32 operations an element
+    t_bytes = (u8.numel() * (1 + 2 + 1) + dl.numel() * 4) / PEAK_BYTES * 1e3
+    t_ops = 10 * u8.numel() / PEAK_F32_FLOPS * 1e3
+    bound7 = max(t_bytes, t_ops)
+    print(f"[time] B7c emit_adv_mask, a dl a clip {list(shape7)} bf16: {ms7:.3f} ms (bound "
+          f"{bound7:.3f} ms, {'bytes' if t_bytes >= t_ops else 'operations'}; "
+          f"{bound7 / ms7:.1%} of it), plain {plain7:.3f} ms; the shared form B7 at the same "
+          f"shape {shared7:.3f} ms", flush=True)
+    del u8, dl
+
+    # ---- 17b. the slot step, graphed against eager and against the sequential step ------
+    model = InceptionI3D(CLASSES, bf16, device=dev)
+    model.load_state_dict(init_i3d_state(SEED))
+    engine = AttackEngine(model, FlickerSpec(SV_FRAMES), AttackConfig(), track_probs=False)
+    flags = RuntimeFlags()
+    rng = np.random.default_rng(SEED + 17)
+    clips = rng.integers(0, 256, (VS_SLOTS, 1, SV_FRAMES, SIZE, SIZE, 3), dtype=np.uint8)
+    labels = [int(engine.forward(None, {"video": torch.from_numpy(c).to(dev),
+                                        "labels": torch.zeros(1, dtype=torch.long, device=dev)},
+                                 adversarial=False).argmax()) for c in clips]
+    videos, packed, lab = engine.prepare_batch(
+        {"video": torch.from_numpy(clips[:, 0]).to(dev), "labels": torch.tensor(labels)})
+    seeds = torch.arange(VS_SLOTS, device=dev)
+
+    def fresh(n=VS_SLOTS, n_iter=VS_ITERS):
+        vse = VectorSweepEngine(engine, n, n_iter=n_iter, init_scale=VS_INIT_SCALE)
+        state = vse.init_slots()
+        for i in range(n):
+            vse.refill_slot(state, i, i, 0.2)
+        return vse, state
+
+    vse, state = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, ys = vse.run_chunk(state, videos, lab, seeds, flags, VS_CHUNK, packed=packed)
+        torch.cuda.synchronize()
+    counts, device = read_counts(ops), device_launches(prof, kernels)
+    clip_counts = emit.clip_launches
+    first_s = time.perf_counter() - t0
+    want, want_device = scaled(SLOT_STEP_COUNTS, VS_CHUNK), scaled(SLOT_STEP_COUNTS,
+                                                                   VS_CHUNK + WARMUP_STEPS)
+    g_state = {k: t.clone() for k, t in zip(state_fields, state.tensors())}
+    g_ys = {k: v.clone() for k, v in ys.items()}
+    stats = vse.graph_stats()
+    print(f"[vector] slot step, {VS_SLOTS} uint8 clips [1,{SV_FRAMES},{SIZE},{SIZE},3] "
+          f"(packed: {packed}), escalate at n_iter {VS_ITERS}: one graphed chunk of {VS_CHUNK} "
+          f"from a new sweep engine (its capture's {WARMUP_STEPS} warm-up iterations included) in "
+          f"{first_s:.2f} s; launches as the wrappers count them {counts} (expected {want}), "
+          f"B7's with a dl a clip {clip_counts} (expected {VS_CHUNK}); as the device ran them "
+          f"{device} (expected {want_device}); graph pool "
+          f"{stats['pool_bytes'] / 1e9:.3f} GB, warm-up and capture {stats['capture_s']:.2f} s",
+          flush=True)
+    if counts != want or device != want_device or clip_counts != VS_CHUNK or packed is not True:
+        fail("the slot step's launch counts (or the clips did not take the packed head)")
+    del vse, state, ys, prof
+    vse_e, state_e = fresh()
+    state_e, ys_e = vse_e.run_chunk(state_e, videos, lab, seeds, flags, VS_CHUNK, packed=packed,
+                                    eager=True)
+    torch.cuda.synchronize()
+    same_state = {k: torch.equal(g_state[k], t) for k, t in zip(state_fields, state_e.tensors())}
+    same_ys = {k: torch.equal(g_ys[k], ys_e[k]) for k in g_ys} if g_ys.keys() == ys_e.keys() else {}
+    print(f"[vector] graphed chunk against the same chunk eager, bit for bit: state "
+          f"{same_state}; outputs {same_ys}", flush=True)
+    if not all(same_state.values()) or not same_ys or not all(same_ys.values()):
+        fail("the graphed slot chunk differs from its eager run")
+    del vse_e, state_e, ys_e
+
+    # each slot against sweep.fit_single_video of its clip and seed: the
+    # sequential graphed train_step at B=1, the same stop rule
+    active = g_ys["active"].cpu().numpy()
+    post = g_ys["delta_post"].float().cpu().numpy()
+    mnorm = g_ys["max_norm"].cpu().numpy()
+    loss = g_ys["total_loss"].float().cpu().numpy()
+    fooled = g_ys["is_adversarial"].cpu().numpy()
+    rows, ok = [], True
+    for i in range(VS_SLOTS):
+        res = sweep.fit_single_video(engine, {"video": clips[i], "labels": np.asarray([labels[i]])},
+                                     flags, n_iter=VS_ITERS, max_norm=0.2, seed=i,
+                                     init_scale=VS_INIT_SCALE)
+        ran = np.nonzero(active[:, i])[0]
+        vec_delta = np.stack([np.clip(post[t, i], -mnorm[t, i], mnorm[t, i]) for t in ran])
+        seq_delta = np.asarray(res["perturbation"])
+        d_err = (float(np.abs(vec_delta - seq_delta).max()) if len(ran) == len(seq_delta)
+                 else math.inf)
+        moved = float(np.abs(seq_delta[-1] - sweep.draw_init_delta(
+            tuple(engine.spec.shape), i, VS_INIT_SCALE).numpy()).max())
+        seq_loss = np.asarray(res["loss/total"])
+        l_err = (float((np.abs(loss[ran, i] - seq_loss) / np.abs(seq_loss)).max())
+                 if len(ran) == len(seq_loss) else math.inf)
+        esc = int(g_state["chances"][i])
+        same = (len(ran) == len(seq_loss) and esc == res["escalations"]
+                and [bool(f) for f in fooled[ran, i]] == list(res["is_adversarial"]))
+        rows.append(f"slot {i}: steps {len(ran)}/{len(seq_loss)}, escalations "
+                    f"{esc}/{res['escalations']}, fooled {bool(fooled[ran, i].any())}/"
+                    f"{bool(np.any(res['is_adversarial']))}, delta max |diff| {d_err:.3e} (bound "
+                    f"{VS_DELTA_SHARE} x its movement {moved:.3e}), losses max relative diff "
+                    f"{l_err:.3e} (bound {VS_LOSS_REL})")
+        ok = ok and same and d_err <= VS_DELTA_SHARE * moved and l_err <= VS_LOSS_REL
+    print("[vector] each slot against the sequential graphed train_step of its clip and seed "
+          "(sweep.fit_single_video; vector/sequential): " + "; ".join(rows), flush=True)
+    if not ok:
+        fail("a slot's trajectory is not the sequential one: step counts, escalations, verdicts "
+             "or a bound")
+
+    # ---- 17c. clip-steps/s at N slots against the B=1 step ----------------------------
+    def seq_ms():
+        st = engine.init_state()
+        b1 = {"video": torch.from_numpy(clips[0]).to(dev), "labels": lab[:1]}
+        st = engine.train_steps(st, b1, flags, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.train_steps(st, b1, flags, VS_TIME_ITERS)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / VS_TIME_ITERS
+
+    seq = [seq_ms()]
+    timed = []
+    for n in VS_TIME_SLOTS:
+        vse_n, st = fresh(n, 10 ** 9)  # never done: every slot steps every iteration
+        pick = [i % VS_SLOTS for i in range(n)]
+        args = (videos[pick].contiguous(), lab[pick].contiguous(), torch.arange(n, device=dev))
+        st, _ = vse_n.run_chunk(st, *args, flags, VS_TIME_ITERS, packed=packed)  # the capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _ = vse_n.run_chunk(st, *args, flags, VS_TIME_ITERS, packed=packed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / VS_TIME_ITERS
+        timed.append((n, ms, vse_n.graph_stats()))
+        del vse_n, st, args
+        torch.cuda.empty_cache()
+    seq.append(seq_ms())
+    base = 1e3 / min(seq)
+    print(f"[time] vector sweep, uint8 clips [1,{SV_FRAMES},{SIZE},{SIZE},3], a chunk of "
+          f"{VS_TIME_ITERS} graphed slot steps (host clock to a synchronize): the sequential "
+          f"B=1 graphed step {seq[0]:.2f}, {seq[1]:.2f} ms ({base:.1f} clip-steps/s); " + "; ".join(
+              f"N={n}: {ms:.2f} ms a slot step, {n * 1e3 / ms:.1f} clip-steps/s "
+              f"({n * 1e3 / ms / base:.2f}x), pool {st['pool_bytes'] / 1e9:.3f} GB, capture "
+              f"{st['capture_s']:.2f} s" for n, ms, st in timed), flush=True)
+    del engine, model, videos
+    torch.cuda.empty_cache()
+
+    # ---- 17d. path (b): the single-video runner with SLOTS: 4 -------------------------
+    # float32 clips [1,90,224,224,3]: three named with the runner's seeded
+    # model's clean prediction and one with a wrong class (skipped); the
+    # sequential runner over the same directory is the reference.  Each run
+    # starts its k-th clip from sweep.draw_init_delta of seed k, not from the
+    # reference's zeros: on random weights the adversarial gradient lies
+    # below the backward's rounding, so from zeros delta moves by rounding
+    # noise; from a drawn delta the regularizers move each clip's delta its
+    # own way at Adam's rate, which a wrong per-slot gradient would change
+    cfg = load_config(os.path.join(HERE, "configs", "run_config.yml"))
+    sv = cfg.SINGLE_VIDEO_ATTACK
+    sv.MAX_NUM_STEP = SV_MAX_NUM_STEP
+    sv.NPY_PATH = os.path.join(tmp, "npy_slots")
+    os.makedirs(sv.NPY_PATH)
+    with contextlib.redirect_stdout(io.StringIO()):
+        sv_engine, sv_labels = common.build_engine(sv, cfg.MODEL, frames=SV_FRAMES)
+    infer = InferenceModel(sv_engine)
+    rng = np.random.default_rng(SEED + 18)
+    for k in range(4):
+        clip = rng.uniform(-1, 1, (1, SV_FRAMES, SIZE, SIZE, 3)).astype(np.float32)
+        top = int(infer(clip).argmax())
+        name = sv_labels[top if k < 3 else (top + 1) % CLASSES].replace(" ", "_")
+        save_npy_clip(os.path.join(sv.NPY_PATH, f"rgb_{k}@{name}.npy"), clip)
+    del sv_engine, infer
+
+    def drawn(draws):
+        """init_delta drawing a run's k-th initial delta from seed k."""
+        def init_delta(spec, device=None, dtype=torch.float32, generator=None):
+            draws.append(sweep.draw_init_delta(tuple(spec.shape), len(draws), VS_INIT_SCALE))
+            return draws[-1].to(device=device, dtype=dtype)
+        return init_delta
+
+    # each clip's result as the runner saves it: the reference names a pkl by
+    # class and rounded thickness and roughness, and the noise clips share one
+    # predicted class, so their pkls may overwrite one another
+    save = single_video._save
+
+    def kept(results):
+        def keep(res, result_path, correct_cls, k):
+            results[k] = res
+            return save(res, result_path, correct_cls, k)
+        return keep
+
+    runs = {}
+    for slots in (1, 4):
+        sv.SLOTS = slots
+        sv.PKL_RESULT_PATH = os.path.join(tmp, f"sv_slots{slots}") + "/"
+        draws, results = [], {}
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(perturbation, "init_delta", drawn(draws)), \
+                mock.patch.object(single_video, "_save", kept(results)), \
+                contextlib.redirect_stdout(io.StringIO()):
+            written = single_video.run(cfg, frames=SV_FRAMES)
+        torch.cuda.synchronize()
+        runs[slots] = (written, [load_result(p) for p in written], read_counts(ops),
+                       time.perf_counter() - t0, draws, results)
+    (w1, f1, c1, s1, i1, r1), (w4, f4, c4, s4, i4, r4) = runs[1], runs[4]
+    want4 = scaled(SV_STEP_COUNTS, VS_RUNNER_CHUNK, scaled(SV_CLEAN_COUNTS, 4))
+    # a pkl's name is the reference's convention of its own result (class,
+    # beta1, final thickness and roughness to 0.01%), in both runs; the
+    # last digit may differ between the two where a thickness lies on a
+    # rounding boundary
+    named = all(os.path.basename(p) == result_filename(
+        r["correct_cls"], r["beta_1"], r["fatness"][-1], r["smoothness"][-1])
+        for p, r in zip(w1 + w4, f1 + f4))
+    schema = all(set(r) == SV_RESULT_KEYS for r in f1 + f4)
+    clips_same = sorted(r1) == sorted(r4) == [0, 1, 2]
+    r1, r4 = [r1[k] for k in sorted(r1)], [r4[k] for k in sorted(r4)]
+    same = clips_same and len(w4) == len(w1) == 3 and len(i1) >= 3 and all(
+        a["correct_cls"] == b["correct_cls"] and a["total_steps"] == b["total_steps"]
+        and a["is_adversarial"] == b["is_adversarial"] and torch.equal(i1[j], i4[j])
+        for j, (a, b) in enumerate(zip(r4, r1)))
+    rows, ok = [], same
+    for j, (a, b) in enumerate(zip(r4, r1) if same else ()):
+        moved = float(np.abs(b["final_delta"] - i1[j].numpy()).max())
+        d_err = float(np.abs(a["final_delta"] - b["final_delta"]).max())
+        want_l, got_l = np.asarray(b["total_loss_l"]), np.asarray(a["total_loss_l"])
+        l_err = float((np.abs(got_l - want_l) / np.abs(want_l)).max())
+        rows.append(f"clip {j}: final delta max |diff| {d_err:.3e} (bound {VS_DELTA_SHARE} x its "
+                    f"movement {moved:.3e}), losses max relative diff {l_err:.3e} (bound "
+                    f"{VS_LOSS_REL})")
+        ok = ok and d_err <= VS_DELTA_SHARE * moved and l_err <= VS_LOSS_REL
+    print(f"[vector] single-video runner, SLOTS 4 against SLOTS 1 on 3 float32 clips "
+          f"[1,{SV_FRAMES},{SIZE},{SIZE},3] and a misnamed one, each from a drawn delta: pkls "
+          f"{len(w4)}/{len(w1)} {sorted(set(os.path.basename(p) for p in w4))}/"
+          f"{sorted(set(os.path.basename(p) for p in w1))}, each named by the reference's "
+          f"convention: {named}, schema {'as the sequential runner' if schema else 'WRONG'}, "
+          f"steps {[r['total_steps'] for r in r4]}/{[r['total_steps'] for r in r1]}, fooled "
+          f"{[r['is_adversarial'] for r in r4]}/{[r['is_adversarial'] for r in r1]}; "
+          + "; ".join(rows) + f"; launches {c4} (expected one chunk of {VS_RUNNER_CHUNK} slot "
+          f"steps and 4 clean forwards: {want4}), sequential {c1}; {s4:.1f} s against "
+          f"{s1:.1f} s", flush=True)
+    if not (ok and named and schema and c4 == want4):
+        fail("the single-video runner with SLOTS: pkls, names, schema, steps, delta, losses or "
+             "counts")
+
+    # ---- 17e. path (c): torch_per_video --slots 4 on phase 16's sweep ------------------
+    sr = sweep_run
+    slot_dir = sr["dir"] + "_slots"
+    kw = dict(records=sr["records"], label_names=sr["labels"], ckpt_path=sr["ckpt"],
+              n_iter=TW_SWEEP_ITERS, model_dir=slot_dir, sample_length=sr["frames"],
+              input_size=RESNET_SIZE, device=dev, slots=4)
+    t0 = time.perf_counter()
+    with mock.patch.object(VideoDataset, "_decode", lambda self, path: sr["decoded"](path)):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out1 = torch_per_video.run(sr["variant"], **kw)
+            out2 = torch_per_video.run(sr["variant"], **kw)
+        torch.cuda.synchronize()
+        counts = read_counts(ops)
+    res = [np.load(sweep.result_path_for(slot_dir, r.path, sr["labels"][r.label]),
+                   allow_pickle=True).tolist() for r in sr["records"][:2]]
+    fooled = [bool(np.any(r["is_adversarial"])) for r in res]
+    seq_fooled = [bool(np.any(r["is_adversarial"])) for r in sr["results"]]
+    files_equal = sorted(os.listdir(slot_dir)) == sorted(os.listdir(sr["dir"]))
+    schema = all(set(r) == SWEEP_KEYS for r in res)
+    stats = {k: v for k, v in out1.items() if k != "results"}
+    seq_stats = {k: v for k, v in sr["first"].items() if k != "results"}
+    ok = (files_equal and schema and stats == seq_stats
+          and out2["skipped_existing"] == sum(fooled) and out2["attacked"] == 2 - sum(fooled)
+          and counts == {name: 0 for name in NAMES})
+    print(f"[vector] runners.torch_per_video --slots 4 on {sr['variant']} (phase 16's three "
+          f"videos, n_iter {TW_SWEEP_ITERS}): {stats} (sequential {seq_stats}); rerun over the "
+          f"ledger {({k: v for k, v in out2.items() if k != 'results'})}; files "
+          f"{'as the sequential sweep' if files_equal else 'DIFFER'}, schema "
+          f"{'as the sequential sweep' if schema else 'WRONG'}; per video (slots/sequential): "
+          f"steps {[len(r['loss/total']) for r in res]}/{[len(r['loss/total']) for r in sr['results']]}, "
+          f"escalations {[r['escalations'] for r in res]}/{[r['escalations'] for r in sr['results']]}, "
+          f"fooled {fooled}/{seq_fooled}; the port's kernels launched {counts} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not ok:
+        fail("torch_per_video --slots: counts, files, schema, ledger rerun or launch counts")
+    print(f"[time] phase 17 (the vectorized sweep) {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"name": "B7c emit_adv_mask, a dl a clip", "route": "cuda",
+            "source": "flickering_adversarial_video_tpu_torch/csrc/emit.cu",
+            "replaces": "flickering_adversarial_video_tpu/ops/stem_tmajor.py:363",
+            "launches": device["B7"], "max_abs_err": b7c_err, "ms": ms7, "plain_ms": plain7,
+            "bound_ms": bound7, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def main() -> None:
@@ -2609,7 +3030,11 @@ def main() -> None:
         # ---- 16. the torch world --------------------------------------------------------
         del model
         torch.cuda.empty_cache()
-        torch_world_phase(tmp, dev)
+        sweep_run = torch_world_phase(tmp, dev)
+
+        # ---- 17. the vectorized per-video sweep -------------------------------------------
+        torch.cuda.empty_cache()
+        table.append(vector_sweep_phase(tmp, dev, sweep_run))
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

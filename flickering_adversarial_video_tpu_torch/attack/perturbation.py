@@ -21,6 +21,13 @@ The initial draw comes from a ``torch.Generator``, not from threefry.
 The rolls take their shifts as tensors (drawn on the device by
 :func:`roll_shifts`; the JAX package draws them from a PRNG key), and roll
 by an index gather, (arange(T) - s) mod T, which a CUDA graph can capture.
+
+The vectorized sweep's slots: :func:`apply_perturbation` and
+:func:`apply_perturbation_torch_style` also take a delta with a slot axis,
+[N, *spec.shape] against clips [N, T, H, W, 3] (slot i's delta perturbs clip
+i), with per-slot shifts [N] and, in the mean/std world, a per-slot max_norm
+[N]; :func:`roll_shifts` draws per-slot shifts from per-slot seeds and
+counters.
 """
 
 from __future__ import annotations
@@ -138,10 +145,23 @@ def frame_mask(
 
 def roll_time(x: torch.Tensor, shift: torch.Tensor, axis: int) -> torch.Tensor:
     """jnp.roll(x, shift, axis) for a 0-d integer tensor `shift`: out[i] =
-    x[(i - shift) mod n] along `axis`, as an index gather."""
+    x[(i - shift) mod n] along `axis`, as an index gather.  A shift [N] rolls
+    each x[j] along axis 1 by its own shift[j] (the slots' rolls)."""
     n = x.shape[axis]
-    index = torch.remainder(torch.arange(n, device=x.device) - shift, n)
-    return x.index_select(axis, index)
+    if shift.dim() == 0:
+        index = torch.remainder(torch.arange(n, device=x.device) - shift, n)
+        return x.index_select(axis, index)
+    if axis != 1:
+        raise ValueError("per-slot shifts roll axis 1 (time after the slot axis)")
+    index = torch.remainder(torch.arange(n, device=x.device) - shift[:, None], n)
+    index = index.reshape(index.shape + (1,) * (x.dim() - 2)).expand(x.shape)
+    return torch.gather(x, 1, index)
+
+
+def _per_slot(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-slot [N] tensor shaped to broadcast against [N, ...] of `ndim`
+    dims; a 0-d tensor as it is."""
+    return t.reshape(t.shape + (1,) * (ndim - 1)) if t.dim() == 1 else t
 
 
 def _mix(x: torch.Tensor) -> torch.Tensor:
@@ -156,8 +176,9 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
 
 def roll_shifts(seed: torch.Tensor, counter: torch.Tensor, frames: int, delta_frames: int):
     """The cyclic rolls' two shifts, (input uniform in [0, frames), delta
-    uniform in [0, delta_frames)), as 0-d int64 tensors on the device, a
-    function of (seed, counter) alone: the port's counterpart of
+    uniform in [0, delta_frames)), as int64 tensors on the device (0-d, or
+    [N] from per-slot seeds and counters [N]), a function of (seed, counter)
+    alone, elementwise: the port's counterpart of
     ``jax.random.split(fold_in(key(seed), step))`` and ``randint``.  Its
     stream is not threefry's; no host value is read, so a CUDA graph that
     advances `counter` on the device draws new shifts each replay."""
@@ -181,21 +202,23 @@ def apply_perturbation(
     mask * clip(delta); with `shifts` (input shift, delta shift), each is
     blended with its roll, ``flag * rolled + (1 - flag) * plain``, with
     exactly that arithmetic in clean's dtype (the JAX package's, whose rolls
-    are compiled in only with a key)."""
+    are compiled in only with a key).  A slotted delta [N, *spec.shape]
+    perturbs clip i by delta[i]; its shifts are then [N]."""
+    slotted = delta.dim() == clean.dim()
     d = clip_delta(spec, delta).to(clean.dtype)
     if mask is not None:
         d = d * mask.to(clean.dtype)
     if shifts is not None:
         shift_in, shift_pert = shifts
         clean_rolled = roll_time(clean, shift_in, axis=1)
-        delta_rolled = roll_time(d, shift_pert, axis=0)
+        delta_rolled = roll_time(d, shift_pert, axis=1 if slotted else 0)
         cf = torch.as_tensor(cyclic_flag, dtype=clean.dtype, device=clean.device)
         cpf = torch.as_tensor(cyclic_pert_flag, dtype=clean.dtype, device=clean.device)
         clean = cf * clean_rolled + (1.0 - cf) * clean
         d = cpf * delta_rolled + (1.0 - cpf) * d
     if not torch.is_tensor(adv_flag):
         adv_flag = clean.new_full((), float(adv_flag))
-    adv = clean + adv_flag.to(clean.dtype) * d[None]
+    adv = clean + adv_flag.to(clean.dtype) * (d if slotted else d[None])
     return clip(adv, spec.input_min, spec.input_max)
 
 
@@ -215,19 +238,25 @@ def apply_perturbation_torch_style(
     with a shift), add adv_flag * delta, clip to the spec's scalar range;
     clean_normalized [B,T,H,W,C], arithmetic in its dtype.  `std`: the
     spec's std as a tensor on the device, made once by a caller that runs
-    under a CUDA graph capture (which copies no host value); None makes it."""
+    under a CUDA graph capture (which copies no host value); None makes it.
+    A slotted delta [N, *spec.shape] perturbs clip i by delta[i], clamped to
+    its own max_norm[i] (a max_norm [N]) and rolled by its own shift[i]."""
     dt = clean_normalized.dtype
+    slotted = delta.dim() == clean_normalized.dim()
     if max_norm is None:
         max_norm = spec.max_norm
-    m = max_norm.to(dt) if torch.is_tensor(max_norm) else clean_normalized.new_full((), max_norm)
+    if torch.is_tensor(max_norm):
+        m = _per_slot(max_norm.to(dt), delta.dim())
+    else:
+        m = clean_normalized.new_full((), max_norm)
     d = clip(delta.to(dt), -m, m)
     if std is None:
         std = torch.tensor(spec.std, device=d.device)
     d = d / std.to(dt)
     if shift is not None:
         cpf = torch.as_tensor(cyclic_pert_flag, dtype=dt, device=d.device)
-        d = cpf * roll_time(d, shift, axis=0) + (1.0 - cpf) * d
+        d = cpf * roll_time(d, shift, axis=1 if slotted else 0) + (1.0 - cpf) * d
     if not torch.is_tensor(adv_flag):
         adv_flag = clean_normalized.new_full((), float(adv_flag))
     lo, hi = spec.clamp_range
-    return clip(clean_normalized + adv_flag.to(dt) * d[None], lo, hi)
+    return clip(clean_normalized + adv_flag.to(dt) * (d if slotted else d[None]), lo, hi)

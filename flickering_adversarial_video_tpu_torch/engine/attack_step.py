@@ -37,6 +37,19 @@ the flickering delta [T,1,1,C], or with
   the device in f32 from a device int32 step count, as optax computes them);
 * metrics are taken on the PRE-update delta, as the reference fetches them.
 
+The vectorized sweep's slot step (``_slot_step``, the JAX sweep's vmapped
+``_per_clip_step``, ``engine/vector_sweep.py:186-229``): N clips, each a
+batch of one with its own delta [N, *spec.shape], Adam moments and int32
+count [N], are one batch of N through one forward (the victim's BN is frozen,
+so the clips do not meet); every loss term is per slot ([N]), the backward
+runs on their sum (delta i reaches only clip i, so each slot gets its own
+gradient), Adam's bias corrections are per slot, and inactive slots keep
+their delta, moments and count.  A slot's max_norm (the mean/std world's
+bound, [N]) and its rolls' seed [N] come with it; the packed head takes B7's
+per-clip form.  The loss terms and metrics are the un-slotted functions
+``torch.func.vmap``-ed over the slots.  ``use_pallas_fused`` on uint8 clips
+raises there: B8 has no per-clip form.
+
 The mean/std world (``AttackConfig.norm_world='meanstd'``, the video
 ResNets; ``TorchStyleFlickerSpec``): uint8 clips become (x/255 - mean)/std
 in f32, the delta enters through ``apply_perturbation_torch_style`` (clamped
@@ -62,6 +75,7 @@ with the device inside a step: metrics stay tensors.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -270,12 +284,15 @@ class AttackEngine:
             self._seed_value = int(seed)
         return self._scalars
 
-    def _shifts(self, video: torch.Tensor, counter: torch.Tensor):
-        """The cyclic rolls' (input, delta) shifts for this counter, or None
-        when the rolls are not compiled in."""
+    def _shifts(self, video: torch.Tensor, counter: torch.Tensor,
+                seed: Optional[torch.Tensor] = None):
+        """The cyclic rolls' (input, delta) shifts for this counter (and
+        `seed`, the engine's when None; per slot [N] with a counter [N]), or
+        None when the rolls are not compiled in."""
         if not self.config.enable_cyclic:
             return None
-        return pert_lib.roll_shifts(self._seed, counter, video.shape[1], self.spec.frames)
+        seed = self._seed if seed is None else seed
+        return pert_lib.roll_shifts(seed, counter, video.shape[1], self.spec.frames)
 
     def _applied_delta(self, delta: torch.Tensor) -> torch.Tensor:
         clipped = pert_lib.clip_delta(self.spec, delta)
@@ -297,14 +314,16 @@ class AttackEngine:
             x = x / 255.0
         return (x - self._mean) / self._std
 
-    def _perturb(self, x: torch.Tensor, delta: torch.Tensor, scalars: torch.Tensor, shifts):
-        """The generic path's adversarial input from the normalized clip."""
+    def _perturb(self, x: torch.Tensor, delta: torch.Tensor, scalars: torch.Tensor, shifts,
+                 max_norm: Optional[torch.Tensor] = None):
+        """The generic path's adversarial input from the normalized clip;
+        `max_norm` (per slot) replaces the flags' in the mean/std world."""
         adv_flag = scalars[SCALARS.index("adv_flag")]
         cyclic_pert_flag = scalars[SCALARS.index("cyclic_pert_flag")]
         if self.config.norm_world == "meanstd":
             return pert_lib.apply_perturbation_torch_style(
                 x, delta, self.spec, adv_flag=adv_flag,
-                max_norm=scalars[SCALARS.index("max_norm")],
+                max_norm=scalars[SCALARS.index("max_norm")] if max_norm is None else max_norm,
                 cyclic_pert_flag=cyclic_pert_flag,
                 shift=None if shifts is None else shifts[1], std=self._std,
             )
@@ -314,12 +333,17 @@ class AttackEngine:
             cyclic_pert_flag=cyclic_pert_flag, shifts=shifts,
         )
 
-    def _reg_delta(self, delta: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+    def _reg_delta(self, delta: torch.Tensor, scalars: torch.Tensor,
+                   max_norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The delta the regularizers and metrics see: clipped to +-max_norm
-        in the mean/std world (``regularize_clipped``), else raw."""
+        in the mean/std world (``regularize_clipped``), else raw.  A
+        `max_norm` [N] clips slotted deltas [N, ...] each to its own."""
         if not self.config.regularize_clipped:
             return delta
-        m = scalars[SCALARS.index("max_norm")]
+        if max_norm is None:
+            m = scalars[SCALARS.index("max_norm")]
+        else:
+            m = max_norm.reshape(max_norm.shape + (1,) * (delta.dim() - 1))
         return pert_lib.clip(delta, -m, m)
 
     def reg_delta(self, delta: torch.Tensor, flags: RuntimeFlags = RuntimeFlags()) -> torch.Tensor:
@@ -327,13 +351,17 @@ class AttackEngine:
         return self._reg_delta(delta, self._step_scalars(flags, None))
 
     def _logits(self, delta: Optional[torch.Tensor], video, packed: bool,
-                scalars: torch.Tensor, counter: torch.Tensor, train: bool = False):
+                scalars: torch.Tensor, counter: torch.Tensor, train: bool = False,
+                max_norm: Optional[torch.Tensor] = None, seed: Optional[torch.Tensor] = None):
         """Logits of the (adversarial) clip.  delta=None is the clean forward.
         packed: clip/mask delta -> input head -> trunk (the clean forward
         goes through the same head with flag 0, delta 0).  Else the generic
         path (with the cyclic rolls of `counter` when they are compiled in);
         `train` with use_pallas_fused takes kernel B8 on uint8.  `scalars` is
-        the static flag buffer (SCALARS' order)."""
+        the static flag buffer (SCALARS' order).  A slotted delta [N,
+        *spec.shape] perturbs clip i of the batch by delta[i], with per-slot
+        `max_norm`, `seed` and `counter` [N]."""
+        slotted = delta is not None and delta.dim() == len(self.spec.shape) + 1
         adv_flag = scalars[SCALARS.index("adv_flag")]
         if packed:
             if delta is None:
@@ -349,26 +377,42 @@ class AttackEngine:
         cfg = self.config
         if (train and cfg.use_pallas_fused and not cfg.enable_cyclic
                 and video.dtype == torch.uint8):
+            if slotted:
+                raise NotImplementedError(
+                    "use_pallas_fused with slots: kernel B8 (ops/fused_apply) takes one delta "
+                    "for the batch and has no per-clip form yet (ROADMAP.md queue B); turn "
+                    "USE_PALLAS_FUSED off, or run one clip at a time")
             adv = fused_normalize_perturb(video, self._applied_delta(delta), adv_flag)
             return self._apply_model(adv)
         x = self._normalize(video)
         if delta is not None:
-            x = self._perturb(x, delta, scalars, self._shifts(video, counter))
+            x = self._perturb(x, delta, scalars, self._shifts(video, counter, seed), max_norm)
         return self._apply_model(x)
 
     def _loss_terms(self, delta, video, packed, labels, scalars: torch.Tensor,
-                    step: torch.Tensor):
+                    step: torch.Tensor, slots=None):
         """(total, terms) of the train step; the flags are the device
         scalars `scalars` (SCALARS' order), never host values, and `step`
-        the device count of the steps taken."""
+        the device count of the steps taken.  `slots` = (max_norm [N] f32,
+        seeds [N]) makes them the slot step's: delta [N, *spec.shape], clip i
+        of the batch a slot's, `step` [N], and every term [N]."""
+        max_norm, seed = (None, None) if slots is None else slots
+        logits = self._logits(delta, video, packed, scalars, step + 1, train=True,
+                              max_norm=max_norm, seed=seed)
+        reg_delta = self._reg_delta(delta, scalars, max_norm)
+        if slots is None:
+            return self._terms(logits, labels, reg_delta, scalars)
+        return self._slot_terms(logits, labels, reg_delta, scalars)
+
+    def _terms(self, logits, labels, reg_delta, scalars: torch.Tensor):
+        """(total, terms) of a batch's logits and the delta the regularizers
+        see."""
         cfg = self.config
         _, beta0, beta1, beta2, beta3 = scalars.unbind()[:5]
-        logits = self._logits(delta, video, packed, scalars, step + 1, train=True)
         adv_total, aux = losses_lib.adversarial_loss(
             logits, labels, improve_loss=cfg.improve_loss, margin=cfg.margin,
             targeted=cfg.targeted, use_logits=cfg.use_logits,
         )
-        reg_delta = self._reg_delta(delta, scalars)
         norm_r = reg_lib.thinness_reg(reg_delta)
         diff_r = reg_lib.first_order_diff_reg(reg_delta)
         lap_r = reg_lib.second_order_diff_reg(reg_delta)
@@ -395,14 +439,26 @@ class AttackEngine:
         }
         return total, terms
 
+    def _slot_terms(self, logits, labels, reg_delta, scalars: torch.Tensor):
+        """:meth:`_terms` of each slot, vmapped as the JAX sweep vmaps its
+        per-clip step: slot i's clip a batch of one (logits[i], labels[i])
+        and its own delta reg_delta[i]; every term [N], probs [N, K]."""
+        total, terms = torch.func.vmap(self._terms, in_dims=(0, 0, 0, None))(
+            logits[:, None], labels[:, None], reg_delta, scalars)
+        terms["probs"] = terms["probs"][:, 0]
+        return total, terms
+
     # ---------- steps ----------
 
     @staticmethod
     def _adam(delta, mu, nu, step, grad, lr):
-        """optax.adam on device tensors: `step` (int32, 0-d) counts the steps
-        taken; its increment gives the bias corrections 1 - b**count in f32."""
+        """optax.adam on device tensors: `step` (int32, 0-d; or [N], a count
+        a slot of deltas [N, ...]) counts the steps taken; its increment gives
+        the bias corrections 1 - b**count in f32."""
         count = step + 1
         t = count.float()
+        if count.dim():  # a count a slot, broadcast over the slot's delta
+            t = t.reshape(count.shape + (1,) * (delta.dim() - 1))
         mu = (1 - ADAM_B1) * grad + ADAM_B1 * mu
         nu = (1 - ADAM_B2) * grad**2 + ADAM_B2 * nu
         mu_hat = mu / (1 - torch.pow(ADAM_B1, t))
@@ -431,6 +487,40 @@ class AttackEngine:
                     probs, labels, targeted=self.config.targeted,
                     target_class=self.config.target_class,
                 ),
+                **{k: v.detach() for k, v in terms.items()},
+            }
+            if self.track_probs:
+                metrics["probs"] = probs
+        return new, metrics
+
+    def _slot_step(self, delta, mu, nu, count, video, packed, labels, scalars, max_norm, seeds,
+                   active):
+        """One step of N slots (the vectorized sweep's; the JAX sweep's
+        vmapped ``_per_clip_step``): delta, mu, nu [N, *spec.shape], `count`
+        [N] int32 (Adam's, never reset), clips `video` [N, ...] (packed or
+        not) and `labels` [N], `max_norm` [N] f32, `seeds` [N] int64 (the
+        rolls'), `active` [N] bool.  Returns ((delta, mu, nu, count) after
+        it, an inactive slot's unchanged, and the per-slot metrics [N] of
+        the pre-update delta), all tensors."""
+        d = delta.detach().requires_grad_(True)
+        total, terms = self._loss_terms(d, video, packed, labels, scalars, count,
+                                        slots=(max_norm, seeds))
+        (grad,) = torch.autograd.grad(total.sum(), d)
+        with torch.no_grad():
+            new = self._adam(delta, mu, nu, count, grad, scalars[SCALARS.index("learning_rate")])
+            keep = active.reshape(active.shape + (1,) * (delta.dim() - 1))
+            new = tuple(torch.where(keep if n.dim() > 1 else active, n, old)
+                        for n, old in zip(new, (delta, mu, nu, count)))
+            probs = terms.pop("probs").detach()
+            metric_delta = self._reg_delta(delta, scalars, max_norm)
+            metrics = {
+                "total_loss": total.detach(),
+                "thickness": torch.func.vmap(metrics_lib.thickness)(metric_delta),
+                "roughness": torch.func.vmap(metrics_lib.roughness)(metric_delta),
+                "is_adversarial": torch.func.vmap(partial(
+                    metrics_lib.is_adversarial, targeted=self.config.targeted,
+                    target_class=self.config.target_class,
+                ))(probs[:, None], labels[:, None]),
                 **{k: v.detach() for k, v in terms.items()},
             }
             if self.track_probs:

@@ -37,6 +37,19 @@ from the host.  Here each step shape is captured once with
 * **No fallback.**  A capture or a replay that fails raises.  The CPU runs the
   eager step (``AttackEngine._train_step``) because it is the CPU; on the
   card that eager step is only the reference the graph is held to.
+
+:class:`SlotGraph` is the vectorized sweep's counterpart of the JAX sweep's
+``jax.jit(lax.scan(body), donate)`` (``engine/vector_sweep.py:105,
+231-292``): one iteration of the slot loop (the stop rules' bookkeeping as
+masked tensor arithmetic, the slot step, the state written back in place, the
+iteration's outputs written into row ``row`` of ``[chunk, N, ...]`` buffers
+and ``row`` advanced) is captured once and replayed ``chunk`` times a chunk;
+the host reads the buffers once a chunk.  One iteration is captured, not a
+graph of ``chunk`` iterations (~1,740 launches each): its capture costs what
+a train step's does, whatever the chunk.  The state, the clips, labels and
+seeds are its static tensors, donated as the train step's are: the sweep
+refills and parks slots by writing into them in place between chunks, and
+the graph is never captured again.
 """
 
 from __future__ import annotations
@@ -107,8 +120,7 @@ class StepGraphs:
         entry.labels.copy_(labels)
         for _ in range(n):
             entry.graph.replay()
-        for name, fn in ops.kernel_wrappers():
-            fn.launches += n * entry.launches[name]
+        ops.add_launch_counts(entry.launches, n)
         first = self._step_value
         self._step_value = first + n
         new_state = type(state)(self.delta, self.mu, self.nu, self._step_value)
@@ -133,48 +145,115 @@ class StepGraphs:
                 dst.copy_(src)
             return metrics
 
-        saved = [t.clone() for t in static]
-        counts = ops.launch_counts()
-        try:
-            # warm-up on a side stream: cuDNN's plans, the kernels' first-launch
-            # set-up (shared-memory limits, occupancy), autograd's threads
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_STEPS):
-                    step()
-            torch.cuda.current_stream().wait_stream(side)
-            for dst, src in zip(static, saved):
-                dst.copy_(src)
-            _set_counts(counts)
+        def capture():
+            metrics = step()
+            layout, offset = [], 0
+            for name, t in metrics.items():
+                nbytes = t.numel() * t.element_size()
+                layout.append((name, offset, nbytes, t.dtype, tuple(t.shape)))
+                offset += -(-nbytes // 8) * 8
+            packed_metrics = torch.empty(offset, dtype=torch.uint8, device=video.device)
+            for (_, off, nbytes, dtype, shape), t in zip(layout, metrics.values()):
+                packed_metrics[off:off + nbytes].view(dtype).view(shape).copy_(t)
+            return packed_metrics, layout
 
-            graph = torch.cuda.CUDAGraph()
-            # torch.cuda.graph empties the allocator's cache as it enters:
-            # empty it first, so that the growth of the reserved memory is
-            # the graph's pool
-            torch.cuda.synchronize(video.device)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(video.device)
-            # thread_local: a runner's producer thread pins and copies the
-            # next batch meanwhile, on the default stream
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                metrics = step()
-                layout, offset = [], 0
-                for name, t in metrics.items():
-                    nbytes = t.numel() * t.element_size()
-                    layout.append((name, offset, nbytes, t.dtype, tuple(t.shape)))
-                    offset += -(-nbytes // 8) * 8
-                packed_metrics = torch.empty(offset, dtype=torch.uint8, device=video.device)
-                for (_, off, nbytes, dtype, shape), t in zip(layout, metrics.values()):
-                    packed_metrics[off:off + nbytes].view(dtype).view(shape).copy_(t)
-            pool_bytes = torch.cuda.memory_reserved(video.device) - reserved
-            launches = {name: n - counts[name] for name, n in ops.launch_counts().items()}
-        finally:
-            _set_counts(counts)
+        graph, (packed_metrics, layout), launches, pool_bytes = _capture(
+            step, capture, static, video.device)
         return _Graph(graph, video, labels, packed_metrics, layout, launches, pool_bytes,
                       time.perf_counter() - t0)
 
 
-def _set_counts(counts: Dict[str, int]) -> None:
-    for name, fn in ops.kernel_wrappers():
-        fn.launches = counts[name]
+def _capture(warm_up: Callable, capture: Callable, static, device: torch.device,
+             prepare: Optional[Callable] = None):
+    """Run `warm_up` WARMUP_STEPS times on a side stream, put the `static`
+    tensors it updates in place back as they were, call `prepare` (outside
+    the graph), and capture `capture` into a new graph: (the graph, what
+    `capture` returned, the kernel launches a replay makes by wrapper name,
+    the pool bytes the capture reserved).  The wrappers' counts are left as
+    they were."""
+    saved = [t.clone() for t in static]
+    counts = ops.launch_counts()
+    try:
+        # warm-up on a side stream: cuDNN's plans, the kernels' first-launch
+        # set-up (shared-memory limits, occupancy), autograd's threads
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                warm_up()
+        torch.cuda.current_stream().wait_stream(side)
+        for dst, src in zip(static, saved):
+            dst.copy_(src)
+        ops.set_launch_counts(counts)
+        if prepare is not None:
+            prepare()
+
+        graph = torch.cuda.CUDAGraph()
+        # torch.cuda.graph empties the allocator's cache as it enters: empty
+        # it first, so that the growth of the reserved memory is the graph's
+        # pool
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        # thread_local: a runner's producer thread pins and copies the next
+        # batch meanwhile, on the default stream
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = capture()
+        pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        launches = {name: n - counts[name] for name, n in ops.launch_counts().items()}
+    finally:
+        ops.set_launch_counts(counts)
+    return graph, out, launches, pool_bytes
+
+
+class SlotGraph:
+    """The vectorized sweep's slot loop as one captured iteration.
+
+    ``iterate(*static)`` is one iteration on the static tensors (the state
+    and the inputs, which it updates in place), returning its outputs ({name:
+    [N, ...] tensor}).  It is captured when the graph is made, with output
+    buffers of ``chunk`` rows; :meth:`run` copies a given tensor that is not
+    the static one into it, and replays."""
+
+    def __init__(self, iterate: Callable, static: Tuple[torch.Tensor, ...], chunk: int):
+        t0 = time.perf_counter()
+        self.static, self.chunk = tuple(static), chunk
+        device = static[0].device
+        self.row = torch.zeros(1, dtype=torch.int64, device=device)
+        self.out: Dict[str, torch.Tensor] = {}
+        kinds = {}
+
+        def warm_up():
+            kinds.update((name, (tuple(v.shape), v.dtype))
+                         for name, v in iterate(*self.static).items())
+
+        # the output buffers lie outside the graph's pool: a block the
+        # capture frees (an iteration's temporaries) is written again by
+        # every replay, which would overwrite the rows before it
+        def allocate():
+            self.out = {name: torch.empty((chunk,) + shape, dtype=dtype, device=device)
+                        for name, (shape, dtype) in kinds.items()}
+
+        def capture():
+            for name, v in iterate(*self.static).items():
+                self.out[name].index_copy_(0, self.row, v.unsqueeze(0))
+            self.row.add_(1)
+
+        self.graph, _, self.launches, self.pool_bytes = _capture(
+            warm_up, capture, self.static + (self.row,), device, allocate)
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, given: Tuple[torch.Tensor, ...], n: int) -> Dict[str, torch.Tensor]:
+        """n replays from the state and inputs `given` (copied into the static
+        tensors where they are others): the outputs' first n rows (views of
+        the graph's buffers, which the next run overwrites)."""
+        if n > self.chunk:
+            raise ValueError(f"a run of {n} iterations exceeds the graph's {self.chunk} rows")
+        for static, t in zip(self.static, given):
+            if t is not static:
+                static.copy_(t)
+        self.row.zero_()
+        for _ in range(n):
+            self.graph.replay()
+        ops.add_launch_counts(self.launches, n)
+        return {name: buf[:n] for name, buf in self.out.items()}

@@ -27,10 +27,30 @@ def kernel_wrappers():
     )
 
 
-def reset_launch_counts() -> None:
-    for _, fn in kernel_wrappers():
-        fn.launches = 0
+def launch_counters():
+    """(name, wrapper, attribute) of every launch count: each wrapper's
+    `launches`, then B7's launches with a delta a clip (its `clip_launches`,
+    the vectorized sweep's), counted apart too."""
+    wrappers = kernel_wrappers()
+    return tuple((name, fn, "launches") for name, fn in wrappers) + (
+        ("B7c emit_adv_mask, a delta a clip", dict(wrappers)["B7 emit_adv_mask"],
+         "clip_launches"),)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers()}
+    return {name: getattr(fn, attr) for name, fn, attr in launch_counters()}
+
+
+def set_launch_counts(counts: dict) -> None:
+    for name, fn, attr in launch_counters():
+        setattr(fn, attr, counts[name])
+
+
+def add_launch_counts(counts: dict, k: int = 1) -> None:
+    """k * counts (by name) added to the counts: a graph's k replays."""
+    for name, fn, attr in launch_counters():
+        setattr(fn, attr, getattr(fn, attr) + k * counts[name])
+
+
+def reset_launch_counts() -> None:
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))

@@ -54,8 +54,9 @@ SIGNATURES = {
     "fav_pool_pair_fwd": (_P,) * 3 + (_I,) * 4 + (_D, _P),
     # idx, dy, dx, N, Ho, Wo, C, dtype, stream
     "fav_pool_pair_bwd": (_P,) * 3 + (_I,) * 4 + (_D, _P),
-    # u8, dl, adv, mask2 (or null), n, row_len, T, CH, lo, hi, dtype, stream
-    "fav_emit_adv_mask": (_P,) * 4 + (_I,) * 4 + (_F, _F, _D, _P),
+    # u8, dl, adv, mask2 (or null), n, row_len, T, CH, clips (0: dl shared), lo, hi,
+    # dtype, stream
+    "fav_emit_adv_mask": (_P,) * 4 + (_I,) * 5 + (_F, _F, _D, _P),
     # u8, delta, flag, out, B, T, row_len, C, stream
     "fav_fused_apply_fwd": (_P,) * 4 + (_I,) * 4 + (_P,),
     # u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, stream

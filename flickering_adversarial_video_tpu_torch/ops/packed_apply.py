@@ -24,6 +24,12 @@ is shifted by (1-m) frames, multiplied by the mask and reduced over
 (B, H, W) in f32 -- the combined d(adv) tensor never exists.  Then the fold
 of pack_flicker_delta is transposed to d(delta) [T,1,1,C], and d(flag) is
 the flag-free sum.  Kernel and BN cotangents are not computed.
+
+The vectorized sweep's slots: with a delta [N,T,1,1,C] (one per clip of the
+batch of N) dl is [N,T',CH], which B7 reads a row a clip (the same kernel;
+the wrapper counts these launches apart too), the backward reduces each clip's
+blocks over (H, W) only, to d(delta) [N,T,1,1,C], and d(flag) is the sum
+over the clips.
 """
 
 from __future__ import annotations
@@ -39,11 +45,12 @@ EPS = 1e-3
 
 
 def pack_flicker_delta(delta: torch.Tensor) -> torch.Tensor:
-    """[T,1,1,C] -> [T/2,1,1,8C] in (parity_t, parity_h, parity_w, C) order;
-    the h/w parities are pure broadcast."""
-    t, _, _, c = delta.shape
-    d = delta.reshape(t // 2, 2, 1, 1, 1, 1, c).expand(t // 2, 2, 2, 2, 1, 1, c)
-    return d.reshape(t // 2, 1, 1, 8 * c)
+    """[..., T,1,1,C] -> [..., T/2,1,1,8C] in (parity_t, parity_h, parity_w,
+    C) order; the h/w parities are pure broadcast.  Leading axes (the slots)
+    are kept."""
+    *lead, t, _, _, c = delta.shape
+    d = delta.reshape(*lead, t // 2, 2, 1, 1, 1, 1, c).expand(*lead, t // 2, 2, 2, 2, 1, 1, c)
+    return d.reshape(*lead, t // 2, 1, 1, 8 * c)
 
 
 def clip_grad_mask2(pre: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -56,20 +63,27 @@ def clip_grad_mask2(pre: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 def emit_adv_mask_plain(packed_u8, dl, lo: float, hi: float, out_dtype, want_mask: bool = True):
     """The emitter in plain PyTorch: (adv in out_dtype, mask2 uint8 or None)
-    from the packed clip [B,T',H',W',CH] and dl [T',CH] f32 = flag*pack(delta)."""
-    pre = packed_u8.float() / 128.0 - 1.0 + dl.float()[:, None, None, :]
+    from the packed clip [B,T',H',W',CH] and dl f32 = flag*pack(delta), [T',CH]
+    (shared by the batch) or [B,T',CH] (one per clip)."""
+    dl = dl.float()
+    dl = dl[:, :, None, None, :] if dl.dim() == 3 else dl[:, None, None, :]
+    pre = packed_u8.float() / 128.0 - 1.0 + dl
     adv = pre.clamp(lo, hi).to(out_dtype)
     return adv, (clip_grad_mask2(pre, lo, hi) if want_mask else None)
 
 
 def emit_adv_mask(packed_u8, dl, lo: float, hi: float, out_dtype, want_mask: bool = True):
-    """B7: packed uint8 [B,T',H',W',CH], dl [T',CH] f32 -> (adv, mask2 or None)."""
+    """B7: packed uint8 [B,T',H',W',CH], dl f32 [T',CH] (shared by the
+    batch) or [B,T',CH] (one per clip) -> (adv, mask2 or None).  `launches`
+    counts every launch, `clip_launches` those with a dl a clip."""
     if packed_u8.dim() != 5 or packed_u8.dtype != torch.uint8:
         raise TypeError(f"the packed clip must be uint8 [B,T',H',W',CH], got "
                         f"{packed_u8.dtype} {tuple(packed_u8.shape)}")
     b, t, h, w, ch = packed_u8.shape
-    if tuple(dl.shape) != (t, ch):
-        raise ValueError(f"dl {tuple(dl.shape)} is not [{t},{ch}]")
+    per_clip = dl.dim() == 3
+    dl_shape = (b, t, ch) if per_clip else (t, ch)
+    if tuple(dl.shape) != dl_shape:
+        raise ValueError(f"dl {tuple(dl.shape)} is not {list(dl_shape)}")
     if not packed_u8.is_cuda:
         return emit_adv_mask_plain(packed_u8, dl, lo, hi, out_dtype, want_mask)
     if out_dtype not in kernels.DTYPE_CODE:
@@ -84,13 +98,16 @@ def emit_adv_mask(packed_u8, dl, lo: float, hi: float, out_dtype, want_mask: boo
     kernels.launch(
         "fav_emit_adv_mask", u8.data_ptr(), dl.data_ptr(), adv.data_ptr(),
         mask2.data_ptr() if want_mask else None, u8.numel(), h * w * ch, t, ch,
-        float(lo), float(hi), kernels.DTYPE_CODE[out_dtype], kernels.stream(),
+        b if per_clip else 0, float(lo), float(hi), kernels.DTYPE_CODE[out_dtype],
+        kernels.stream(),
     )
     emit_adv_mask.launches += 1
+    emit_adv_mask.clip_launches += per_clip
     return adv, mask2
 
 
 emit_adv_mask.launches = 0
+emit_adv_mask.clip_launches = 0
 
 
 class _FlickerStem(torch.autograd.Function):
@@ -99,8 +116,9 @@ class _FlickerStem(torch.autograd.Function):
                 want_grad):
         dpk = pack_flicker_delta(delta_applied.float())
         # dl folds the flag, so the emitter is a pure function of the batch;
-        # d(flag) in the backward needs dpk itself
-        dl = adv_flag.float() * dpk[:, 0, 0, :]
+        # d(flag) in the backward needs dpk itself; [T',CH], or [N,T',CH]
+        # for a delta a clip
+        dl = adv_flag.float() * dpk[..., 0, 0, :]
         adv, mask2 = emit_adv_mask(packed_u8, dl, lo, hi, out_dtype, want_mask=want_grad)
         y = stem_conv_bn_relu(adv, pk.to(out_dtype), mean, var, bias, EPS)
         if want_grad:
@@ -116,7 +134,13 @@ class _FlickerStem(torch.autograd.Function):
         g2 = masked_scale(g, y, var, EPS)
         part = catbwd_part(g2, pk_to_oidhw(pk), BWD_PADS)
         maskf = mask2.float() * 0.5
-        s_tc = torch.zeros((t, cin), dtype=torch.float32, device=y.device)
+        # a shared delta: s_tc [T', 8C], summed over (B, H, W); a delta a
+        # clip: [B, T', 8C], summed over (H, W) only
+        per_clip = dpk.dim() == 5
+        dims = (2, 3) if per_clip else (0, 2, 3)
+        lead = (y.shape[0],) if per_clip else ()
+        s_tc = torch.zeros(lead + (t, cin), dtype=torch.float32, device=y.device)
+        s_t = s_tc.movedim(-2, 0)  # a view, frames first
         for m in range(pk.shape[0]):
             blk = part[..., m * cin : (m + 1) * cin]
             s = 1 - m  # d(adv) of tap m at frame t is blk[t + s]
@@ -124,17 +148,18 @@ class _FlickerStem(torch.autograd.Function):
                 continue
             if s >= 0:
                 prod = blk[:, s:].float() * maskf[:, : t - s]
-                s_tc[: t - s] += prod.sum(dim=(0, 2, 3))
+                s_t[: t - s] += prod.sum(dim=dims).movedim(-2, 0)
             else:
                 prod = blk[:, : t + s].float() * maskf[:, -s:]
-                s_tc[-s:] += prod.sum(dim=(0, 2, 3))
+                s_t[-s:] += prod.sum(dim=dims).movedim(-2, 0)
         d_delta = d_flag = None
         if ctx.needs_input_grad[1]:
-            d_dpk = adv_flag.float() * s_tc  # [T', 8C]
+            d_dpk = adv_flag.float() * s_tc  # [(B,) T', 8C]
             c = cin // 8
-            d_delta = d_dpk.reshape(t, 2, 2, 2, c).sum(dim=(2, 3)).reshape(ctx.delta_shape)
+            d_delta = d_dpk.reshape(lead + (t, 2, 2, 2, c)).sum(dim=(-3, -2)).reshape(
+                ctx.delta_shape)
         if ctx.needs_input_grad[2]:
-            d_flag = (s_tc * dpk[:, 0, 0, :]).sum().reshape(adv_flag.shape)
+            d_flag = (s_tc * dpk[..., 0, 0, :]).sum().reshape(adv_flag.shape)
         return None, d_delta, d_flag, None, None, None, None, None, None, None, None
 
 
@@ -143,7 +168,8 @@ def flicker_stem(
     input_min: float = -1.0, input_max: float = 1.0, out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """packed_u8 [B,T',H',W',8C] uint8 (host- or device-packed); delta_applied
-    the value-clipped (and frame-masked) delta [T,1,1,C]; adv_flag a 0-d
+    the value-clipped (and frame-masked) delta [T,1,1,C], or [B,T,1,1,C] (a
+    delta a clip: the vectorized sweep's slots); adv_flag a 0-d
     tensor; pk the packed stem kernel.  Returns the stem output
     [B,T',H',W',Cout] in out_dtype."""
     want_grad = torch.is_grad_enabled() and (delta_applied.requires_grad or adv_flag.requires_grad)

@@ -5,9 +5,12 @@ directory, skip clips the clean model misclassifies, attack each until
 fooled (stop rule `step > MAX_NUM_STEP and is_adversarial`), and dump a pkl
 with the full per-step history under the reference's filename convention.
 
-Not ported yet, each raising: several clips in flight (``slots > 1`` or the
-YAML key ``SLOTS``; ROADMAP.md queue A item 10's rest), sharding them over a mesh
-(``use_mesh``; item 11) and the live dashboard (``dashboard_path``; item 13).
+Several clips in flight (``slots > 1``, ``--slots`` or the YAML key
+``SLOTS``) run the vectorized sweep (``engine/vector_sweep.py``), with the
+same per-clip seeds (the clip's index), stop rule, pkl schema and file names
+as one clip at a time.  Not ported yet, each raising: sharding the slots over
+a mesh (``use_mesh``; ROADMAP.md queue A item 11) and the live dashboard
+(``dashboard_path``; item 13).
 
 Usage: python -m flickering_adversarial_video_tpu_torch.runners.single_video [run_config.yml]
 """
@@ -19,6 +22,7 @@ import sys
 
 from ..data.npy import list_npy_videos, load_npy_clip, parse_label_from_filename
 from ..engine.loops import flags_from_config, single_video_attack
+from ..engine.vector_sweep import vector_single_video_attacks
 from ..utils.config import load_config
 from ..viz.results import save_result_pkl
 from .common import build_engine
@@ -32,11 +36,6 @@ def run(cfg, *, frames: int = 90, size=None, stop_rule: str = "reference", max_v
     # an explicit slots beats the YAML key; the default (1) defers to it
     if slots == 1:
         slots = int(attack_cfg.get("SLOTS", 1))
-    if slots > 1:
-        raise NotImplementedError(
-            "SLOTS > 1 (the vectorized sweep, engine/vector_sweep.py) is ROADMAP.md queue A "
-            "item 10's rest"
-        )
     if use_mesh:
         raise NotImplementedError("the device mesh is ROADMAP.md queue A item 11")
     if dashboard_path:
@@ -54,6 +53,9 @@ def run(cfg, *, frames: int = 90, size=None, stop_rule: str = "reference", max_v
 
     written = []
     videos = list_npy_videos(npy_path)[:max_videos]
+    if slots > 1:
+        return _run_vectorized(engine, labels, attack_cfg, flags, videos, result_path,
+                               frames=frames, slots=slots, stop_rule=stop_rule)
     for k, video_path in enumerate(videos):
         clip = load_npy_clip(video_path, frames=frames)
         correct_cls = parse_label_from_filename(video_path)
@@ -77,14 +79,49 @@ def run(cfg, *, frames: int = 90, size=None, stop_rule: str = "reference", max_v
         if res is None:
             print(f"skip video {video_path}: clean model misclassifies")
             continue
-        res["correct_cls"] = correct_cls
-        path = save_result_pkl(res, result_path, correct_cls)
-        written.append(path)
-        print(
-            f"[{k}] {correct_cls}: fooled={res['is_adversarial']} "
-            f"steps={res['total_steps']} th={res['fatness'][-1]:.2f}% "
-            f"rg={res['smoothness'][-1]:.2f}% ({res['steps_per_sec']:.2f} steps/s)"
-        )
+        written.append(_save(res, result_path, correct_cls, k))
+    return written
+
+
+def _save(res, result_path, correct_cls, k) -> str:
+    res["correct_cls"] = correct_cls
+    path = save_result_pkl(res, result_path, correct_cls)
+    print(
+        f"[{k}] {correct_cls}: fooled={res['is_adversarial']} "
+        f"steps={res['total_steps']} th={res['fatness'][-1]:.2f}% "
+        f"rg={res['smoothness'][-1]:.2f}% ({res['steps_per_sec']:.2f} steps/s)"
+    )
+    return path
+
+
+def _run_vectorized(engine, labels, attack_cfg, flags, videos, result_path, *, frames, slots,
+                    stop_rule):
+    """`slots` clips in flight (``vector_sweep.vector_single_video_attacks``):
+    the sequential path's per-clip seeds (the enumeration index), stop rule,
+    pkl schema and file names."""
+    clips, true_labels, names, seeds = [], [], [], []
+    for k, video_path in enumerate(videos):
+        correct_cls = parse_label_from_filename(video_path)
+        if correct_cls not in labels:
+            print(f"skip {video_path}: unknown class {correct_cls!r}")
+            continue
+        clips.append(load_npy_clip(video_path, frames=frames))
+        true_labels.append(labels.index(correct_cls))
+        names.append(correct_cls)
+        seeds.append(k)
+    target_label = None
+    if attack_cfg.TARGETED_ATTACK:
+        target_label = labels.index(attack_cfg.TARGETED_CLASS)
+    results = vector_single_video_attacks(
+        engine, clips, true_labels, flags, slots=slots, max_step=int(attack_cfg.MAX_NUM_STEP),
+        stop_rule=stop_rule, target_label=target_label, seeds=seeds,
+    )
+    written = []
+    for res, correct_cls, k in zip(results, names, seeds):
+        if res is None:
+            print(f"skip video {k} ({correct_cls}): clean model misclassifies")
+            continue
+        written.append(_save(res, result_path, correct_cls, k))
     return written
 
 
@@ -101,6 +138,10 @@ def main(argv=None):
         help="'early' stops at first fooling (sweep/rehearsal throughput)",
     )
     p.add_argument("--max-videos", type=int, default=None)
+    p.add_argument("--slots", type=int, default=1,
+                   help="clips attacked at once (the vectorized sweep; also YAML SLOTS)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the slots over the devices (ROADMAP.md queue A item 11)")
     p.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
     cfg = load_config(args.config)
@@ -110,6 +151,8 @@ def main(argv=None):
         size=args.size,
         stop_rule=args.stop_rule,
         max_videos=args.max_videos,
+        slots=args.slots,
+        use_mesh=args.mesh,
         device=args.device,
     )
 

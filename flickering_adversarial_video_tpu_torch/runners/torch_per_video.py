@@ -9,9 +9,10 @@ max_norm (``engine/sweep.py``).  Videos are decoded with OpenCV
 (``data/video_dataset.py``), which the port's card lacks: there, stub
 ``VideoDataset._decode``.
 
-Not ported yet, each raising: several videos in flight (``--slots`` > 1,
-the vectorized sweep; ROADMAP.md queue A item 10's rest) and the device mesh
-(``--mesh``; item 11).
+``--slots N`` > 1 puts N videos in flight (the vectorized sweep,
+``engine/vector_sweep.vector_fit_many_videos``), with the same seeds, ledger
+and result schema as one at a time, so either resumes the other.  Not ported
+yet, raising: the device mesh (``--mesh``; ROADMAP.md queue A item 11).
 
 Usage:
   python -m flickering_adversarial_video_tpu_torch.runners.torch_per_video \\
@@ -31,6 +32,7 @@ from ..attack import TorchStyleFlickerSpec
 from ..data.video_dataset import VideoDataset, VideoRecord, records_from_folders
 from ..engine import AttackConfig, AttackEngine, RuntimeFlags
 from ..engine.sweep import fit_many_videos
+from ..engine.vector_sweep import vector_fit_many_videos
 from ..utils.labels import load_label_map, warn_if_placeholder
 from .common import build_victim
 
@@ -64,10 +66,6 @@ def run(
 ):
     """The sweep on `device` (CUDA unless the caller asks for "cpu");
     returns its counts and each attacked video's (result path, fooled)."""
-    if slots > 1:
-        raise NotImplementedError(
-            "slots > 1 (the vectorized sweep, engine/vector_sweep.py) is ROADMAP.md queue A "
-            "item 10's rest")
     if use_mesh:
         raise NotImplementedError("the device mesh is ROADMAP.md queue A item 11")
     loss_cfg = loss_cfg or {}
@@ -91,6 +89,12 @@ def run(
     )
     ds = VideoDataset(records, sample_length=sample_length, input_size=input_size,
                       random_offset=False, random_crop=False, random_flip=False)
+    if slots > 1:
+        return vector_fit_many_videos(
+            engine, ds.batches(1, drop_remainder=False, shuffle=False), flags,
+            model_dir=model_dir, label_names=label_names, slots=slots, n_iter=n_iter,
+            max_norm=l_inf_norm, max_videos=max_videos,
+        )
     return fit_many_videos(
         engine,
         ds.batches(1, drop_remainder=False, shuffle=False),
@@ -114,8 +118,7 @@ def main(argv=None):
     p.add_argument("--num-classes", type=int, default=None,
                    help="head width (359/487 for ig65m r2plus1d_34; default: the checkpoint's)")
     p.add_argument("--slots", type=int, default=1,
-                   help="videos attacked at once (only 1 is ported: ROADMAP.md queue A item "
-                   "10's rest)")
+                   help="videos attacked at once (the vectorized sweep)")
     p.add_argument("--mesh", action="store_true",
                    help="shard the slots over the devices (ROADMAP.md queue A item 11)")
     p.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")

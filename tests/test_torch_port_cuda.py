@@ -387,10 +387,87 @@ class TestKernelsOnCard:
         fused_apply.fused_normalize_perturb(cu[0], d, cu[2]).backward(g.cuda())
         assert torch.equal(d.grad, got)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    # whole vectors in every clip / clips of 3*5*3*24 elements: one at a time
+    @pytest.mark.parametrize("shape", [(3, 4, 6, 8, 24), (2, 3, 5, 3, 24)])
+    def test_emit_b7_per_clip_bit_equal(self, dtype, shape):
+        """B7's per-clip form (dl [B,T',CH]) against its plain version, with
+        a bound hit in the second clip, and against the shared form where
+        every clip has one dl."""
+        gen = torch.Generator().manual_seed(2)
+        u8 = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+        u8[1, 0, 0, 0, 0] = 0
+        dl = (torch.rand(shape[0], shape[1], 24, generator=gen) - 0.5) * 0.6
+        dl[1, :, 0] = 0.0
+        for want_mask in (True, False):
+            n = packed_apply.emit_adv_mask.clip_launches
+            adv, mask = packed_apply.emit_adv_mask(u8.cuda(), dl.cuda(), -1.0, 1.0, dtype,
+                                                   want_mask)
+            assert packed_apply.emit_adv_mask.clip_launches == n + 1
+            wadv, wmask = packed_apply.emit_adv_mask_plain(u8, dl, -1.0, 1.0, dtype, want_mask)
+            assert torch.equal(adv.cpu(), wadv)
+            assert (mask is None and wmask is None) or torch.equal(mask.cpu(), wmask)
+        assert (packed_apply.emit_adv_mask_plain(u8, dl, -1.0, 1.0, dtype)[1][1] == 1).any()
+        shared = packed_apply.emit_adv_mask(u8.cuda(), dl[0].cuda(), -1.0, 1.0, dtype)
+        clips = packed_apply.emit_adv_mask(u8.cuda(), dl[:1].expand_as(dl).cuda(), -1.0, 1.0,
+                                           dtype)
+        assert torch.equal(shared[0], clips[0]) and torch.equal(shared[1], clips[1])
 
 # the graphed train step at a small I3D: B=2, T=8, 32x32, 11 classes, bf16
 G_CLASSES, G_FRAMES = 11, 8
 G_STEPS = ("packed", "fused", "float")  # input head B7 + B1 / kernel B8 / a float clip
+
+
+@pytest.mark.cuda
+class TestSlotGraph:
+    """The vectorized sweep's slot loop as a CUDA graph against the same
+    iterations run eagerly, bit for bit: the state and every output."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU and nvcc")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @pytest.mark.parametrize("stop", ["escalate", "reference"])
+    def test_graphed_chunk_equals_eager_chunk(self, stop):
+        from flickering_adversarial_video_tpu_torch.engine.vector_sweep import VectorSweepEngine
+
+        model = InceptionI3D(G_CLASSES, torch.bfloat16, device="cuda")
+        model.load_state_dict(init_i3d_state(3, G_CLASSES))
+        engine = AttackEngine(model, FlickerSpec(frames=G_FRAMES), AttackConfig(),
+                              track_probs=False)
+        rng = np.random.default_rng(4)
+        video = torch.from_numpy(rng.integers(0, 256, (3, G_FRAMES, 32, 32, 3),
+                                              dtype=np.uint8)).cuda()
+        videos, packed, labels = engine.prepare_batch(
+            {"video": video, "labels": torch.tensor([1, 2, 3]).cuda()})
+        assert packed
+        seeds = torch.tensor([0, 1, 2], device="cuda")
+        runs = []
+        for eager in (False, True):
+            vse = VectorSweepEngine(engine, 3, n_iter=2, stop=stop)
+            state = vse.init_slots()
+            for i, s in enumerate((0, 1)):
+                vse.refill_slot(state, i, s, 0.2)
+            vse.park_slot(state, 2)
+            ops.reset_launch_counts()
+            ys = []
+            for _ in range(2):  # a refill between two chunks
+                state, y = vse.run_chunk(state, videos, labels, seeds, RuntimeFlags(), 3,
+                                         packed=True, eager=eager)
+                ys.append({k: v.clone() for k, v in y.items()})
+                vse.refill_slot(state, 1, 5, 0.2)
+            runs.append((tuple(t.clone() for t in state.tensors()), ys, ops.launch_counts()))
+        (gs, gys, gn), (es, eys, en) = runs
+        for a, b in zip(gs, es):
+            assert torch.equal(a, b)
+        for a, b in zip(gys, eys):
+            assert a.keys() == b.keys()
+            for k in a:
+                assert torch.equal(a[k], b[k]), k
+        assert gn == en and gn["B7c emit_adv_mask, a delta a clip"] == gn["B7 emit_adv_mask"] == 6
 
 
 @pytest.mark.cuda

@@ -318,8 +318,8 @@ class TestSingleVideoRunner:
         assert "does not exist" in capsys.readouterr().out
 
     @pytest.mark.parametrize("kw,over,item", [
-        (dict(slots=2), {}, "item 10"),
-        ({}, {"SLOTS": 2}, "item 10"),
+        (dict(slots=2, use_mesh=True), {}, "item 11"),
+        (dict(dashboard_path="d.png"), {"SLOTS": 2}, "item 13"),
         (dict(use_mesh=True), {}, "item 11"),
         (dict(dashboard_path="d.png"), {}, "item 13"),
     ])

@@ -634,7 +634,7 @@ class TestTorchRunners:
             module.main(["--help"])
         assert e.value.code == 0 and "--device" in capsys.readouterr().out
 
-    @pytest.mark.parametrize("kw,item", [(dict(slots=2), "item 10's rest"),
+    @pytest.mark.parametrize("kw,item", [(dict(slots=2, use_mesh=True), "item 11"),
                                          (dict(use_mesh=True), "item 11")])
     def test_unported_options_raise(self, kw, item):
         with pytest.raises(NotImplementedError, match=item):
