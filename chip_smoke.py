@@ -4,7 +4,8 @@
 
 Drives the port's main paths on full-width I3D (400 classes, every Mixed
 block, bf16, random weights from a numpy seed), the torch world's video
-ResNets (phase 16) and the vectorized per-video sweep (phase 17), after
+ResNets (phase 16), the vectorized per-video sweep (phase 17) and data
+parallelism over ranks (phase 18), after
 building the port's CUDA
 kernels from ``flickering_adversarial_video_tpu_torch/csrc``: the universal
 flickering attack on B=8 uint8 clips of 64x224x224 (the attack step through
@@ -197,7 +198,30 @@ which fails the run:
    1% of its movement, losses within 3e-5, exact counts: one chunk of 64
    slot steps and 4 clean forwards); and ``runners.torch_per_video`` with
    slots=4 on phase 16's sweep (its counts, files and schema, a rerun skipped
-   by the ledger, no kernel of the port).
+   by the ledger, no kernel of the port);
+18. data parallel over ranks (``parallel/mesh.py``): (a) world 1 over NCCL
+   in this process (a ``file://`` store): the universal runner on phase 7's
+   shards for its 12 steps through the group, the train step's all-reduce
+   captured in its graph (a device all-reduce called inside a capture),
+   history and final delta bit-equal to phase 7's run, launch counts as
+   phase 3's per-step counts; the graphed B=8 step timed with and without
+   the world-1 all-reduce (in turns, bit-equal deltas); the universal CLI
+   once under ``python -m torch.distributed.run --standalone
+   --nproc-per-node 1`` (torchrun's environment: "rank 0 of 1 (nccl)", 2
+   steps, res.pkl); (b) two spawned ranks on the one card over gloo with
+   eager steps (NCCL refuses two ranks on one card): I3D at B=8 uint8 clips
+   of 64x224x224, 4 a rank, 3 steps from a drawn delta with USE_LOGITS and
+   beta0 setting the adversarial and regularizer gradients' mean sizes
+   equal, against one process's eager steps on the same global batch, in
+   bf16 and in f32: delta bit-equal across the ranks, the mean |delta
+   difference| over the mean movement and the losses within DP_LIMITS, B1-B7
+   launched on every rank (``scripts/torch_parallel_fault.py`` shows planted
+   reduction faults failing these limits); with two or more cards the same
+   over NCCL with graphed steps, else a line saying why not; (c)
+   ``torch_per_video --slots 4 --mesh`` over two spawned ranks (gloo, 2
+   slots a rank) on phase 16's videos: counts, files, steps, escalations and
+   verdicts those of phase 17e's run in one process.  Spawned ranks run
+   under their own time limit (DP_JOIN_S) and are killed past it.
 
 Prints the kernel table as one JSON line (a kernel's launches: those that ran
 on the device in phase 3's traced run of its path; B7c's, B7's kernel at the
@@ -621,9 +645,7 @@ def torch_world_phase(tmp: str, dev) -> dict:
     # video), which the real temporal sampling, resize (a no-op at 128) and
     # crop to 112 consume; each video labelled with the victim's clean
     # prediction of its center crop (the valid phase's clip)
-    def decoded(path):
-        seed = zlib.crc32(os.path.basename(path).encode())
-        return np.random.default_rng(seed).integers(0, 256, TW_FRAMES + (3,), dtype=np.uint8)
+    decoded = stub_decode
 
     def clean_labels(model, paths):
         """The victim's clean predictions of the center-crop clips of `paths`."""
@@ -1193,6 +1215,433 @@ def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
             "launches": device["B7"], "max_abs_err": b7c_err, "ms": ms7, "plain_ms": plain7,
             "bound_ms": bound7, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+
+
+# phase 18, data parallel over ranks (parallel/mesh.py): (a) world 1 over
+# NCCL, in this process, through the universal runner on phase 7's shards;
+# (b) two ranks on the one card over gloo with eager steps, held against one
+# process on the same global batch; (c) torch_per_video --slots 4 --mesh at
+# two ranks against phase 17e
+DP_W, DP_STEPS, DP_TIME_ITERS = 2, 3, 10
+DP_INIT_SCALE = 0.005   # 18b's drawn initial delta
+DP_JOIN_S = 420         # a spawned group's own time limit
+# 18b's limits against one process on the global batch, by compute dtype:
+# the mean |delta - one process's| over the mean movement of one process's
+# delta, and each step's losses relative.  In bf16 the split changes cuDNN's
+# algorithms and the logits' rounding, and Adam turns gradient components
+# near cancellation into whole steps.  Sound runs on an H100 read 5.0% and
+# 5.7e-6 in bf16, 0.13% and 7.9e-8 in f32; the planted faults of
+# scripts/torch_parallel_fault.py 33-40% in both (and the averaged hinge's
+# losses 0.5), so every fault fails both dtypes' limits (PERF.md).
+DP_LIMITS = {"bfloat16": (0.15, 1e-4), "float32": (0.01, 1e-5)}
+
+
+def stub_decode(path):
+    """Seeded uint8 frames of TW_FRAMES for a video path (the card has no
+    cv2): phase 16's decoder, here so that spawned ranks can use it too."""
+    import numpy as np
+
+    seed = zlib.crc32(os.path.basename(path).encode())
+    return np.random.default_rng(seed).integers(0, 256, TW_FRAMES + (3,), dtype=np.uint8)
+
+
+def _rank_entry(rank, tmp, tag, work, args):
+    """A spawned rank: `work(rank, tmp, *args)`'s result saved to
+    <tmp>/<tag>_rank<r>.pt, a traceback to <tag>_rank<r>.err on failure."""
+    sys.path.insert(0, HERE)
+    try:
+        import torch
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.save(work(rank, tmp, *args), os.path.join(tmp, f"{tag}_rank{rank}.pt"))
+    except BaseException:
+        import traceback
+
+        with open(os.path.join(tmp, f"{tag}_rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(tmp, tag, work, args, world=DP_W):
+    """Run `work` on `world` spawned ranks under DP_JOIN_S; their results,
+    in rank order.  Fails on a hang (the ranks are killed) or an error."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry, args=(r, tmp, tag, work, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_JOIN_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(30)
+    errs = "".join(open(os.path.join(tmp, f"{tag}_rank{r}.err")).read() for r in range(world)
+                   if os.path.exists(os.path.join(tmp, f"{tag}_rank{r}.err")))
+    if hung or any(p.exitcode != 0 for p in procs):
+        fail(f"{tag}: {len(hung)} ranks hung past {DP_JOIN_S} s, exit codes "
+             f"{[p.exitcode for p in procs]}\n{errs}")
+        raise SystemExit(1)
+    return [torch.load(os.path.join(tmp, f"{tag}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def dp_world1_phase(tmp, dev, shard_dir, phase7):
+    """18a: world 1 over NCCL in this process (a file:// store): the
+    universal runner on phase 7's shards for its steps, the train step's
+    collective captured in the graph, bit-equal to phase 7's run (history
+    and final delta), its launch counts as phase 3's; the graphed B=8 step
+    timed with and without its all-reduce; then the CLI once under
+    ``torch.distributed.run --nproc-per-node 1`` (torchrun's environment)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import yaml
+
+    from flickering_adversarial_video_tpu_torch import ops
+    from flickering_adversarial_video_tpu_torch.data import pack_video_np
+    from flickering_adversarial_video_tpu_torch.engine.checkpoint import AttackCheckpointer
+    from flickering_adversarial_video_tpu_torch.engine.loops import flags_from_config
+    from flickering_adversarial_video_tpu_torch.parallel import mesh as mesh_lib
+    from flickering_adversarial_video_tpu_torch.runners import common, universal
+    from flickering_adversarial_video_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(HERE, "configs", "run_config.yml"))
+    ac = cfg.UNIVERSAL_ATTACK
+    ac.TF_RECORDS_TRAIN_PATH = ac.TF_RECORDS_VAL_PATH = [shard_dir]
+    ac.NUM_OF_TRAIN_TF_RECORDS = ac.NUM_OF_VAL_TF_RECORDS = SHARDS
+    ac.BATCH_SIZE, ac.MAX_NUM_STEP = B, RUNNER_STEPS
+    ac.PKL_RESULT_PATH = os.path.join(tmp, "dp_world1")
+    mesh_lib.initialize_distributed(init_method=f"file://{os.path.join(tmp, 'dp_world1.store')}",
+                                    rank=0, world_size=1)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"18a: the group's backend is {dist.get_backend()}, not NCCL")
+        real, calls = dist.all_reduce, []
+
+        def spy(tensor, *a, **kw):
+            calls.append((torch.cuda.is_current_stream_capturing(), tensor.device.type))
+            return real(tensor, *a, **kw)
+
+        said = io.StringIO()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with mock.patch.object(dist, "all_reduce", spy), contextlib.redirect_stdout(said):
+            out = universal.run(cfg, frames=T, max_steps=RUNNER_STEPS)
+            torch.cuda.synchronize()
+        got = read_counts(ops)
+        hist, want_hist = out["history"], phase7["history"]
+        n_eval = len(hist["fool_rate_steps"]) * SHARDS
+        want = {k: RUNNER_STEPS * TRAIN_COUNTS[k] + n_eval * EVAL_COUNTS[k] for k in NAMES}
+        same_hist = ({k: v for k, v in hist.items() if k != "perturbation"}
+                     == {k: v for k, v in want_hist.items() if k != "perturbation"}
+                     and len(hist["perturbation"]) == len(want_hist["perturbation"])
+                     and all(np.array_equal(a, b) for a, b in zip(hist["perturbation"],
+                                                                  want_hist["perturbation"])))
+        same_delta = torch.equal(out["state"].delta, phase7["delta"])
+        captured = sum(1 for capturing, where in calls if capturing and where == "cuda")
+        ckpts = AttackCheckpointer(os.path.join(universal.model_dir_name(ac), "ckpt")).steps()
+        dp_line = [ln for ln in said.getvalue().splitlines() if "data parallel" in ln]
+        print(f"[parallel] 18a world 1 over NCCL: universal runner {RUNNER_STEPS} steps on phase "
+              f"7's shards ({dp_line}): "
+              f"history {'bit-equal' if same_hist else 'DIFFERS from'} phase 7's, final delta "
+              f"{'bit-equal' if same_delta else 'DIFFERS'}; device all-reduces called in a "
+              f"capture {captured}, outside {sum(1 for c, w in calls if not c and w == 'cuda')}; "
+              f"checkpoints {ckpts}; launches {got} (expected {want})", flush=True)
+        if not (same_hist and same_delta) or got != want or captured < 1 or (
+                RUNNER_STEPS not in ckpts) or not dp_line:
+            fail("18a: world 1 over NCCL is not phase 7's run, or its collective was not "
+                 "captured, or the launch counts or checkpoints differ")
+
+        # the graphed B=8 step with and without the all-reduce, in turns
+        with contextlib.redirect_stdout(io.StringIO()):
+            meshed, _ = common.build_engine(ac, cfg.MODEL, frames=T, track_probs=False)
+            plain, _ = common.build_engine(ac, cfg.MODEL, frames=T, track_probs=False,
+                                           use_mesh=False)
+        if meshed.mesh is None or plain.mesh is not None:
+            fail("18a: build_engine did not give the meshed engine its mesh")
+        clips = np.random.default_rng(SEED).integers(0, 256, (B, T, SIZE, SIZE, 3), np.uint8)
+        batch = {"video_packed": torch.from_numpy(pack_video_np(clips)).to(dev),
+                 "labels": torch.zeros(B, dtype=torch.int64, device=dev)}
+        flags = flags_from_config(ac)
+        states = {}
+        for name, eng in (("plain", plain), ("meshed", meshed)):
+            states[name] = eng.train_steps(eng.init_state(), batch, flags, 1)  # captures
+        ms = {"plain": [], "meshed": []}
+        for name in ("plain", "meshed", "meshed", "plain"):
+            eng = plain if name == "plain" else meshed
+
+            def steps(eng=eng, name=name):
+                states[name] = eng.train_steps(states[name], batch, flags, DP_TIME_ITERS)
+
+            ms[name].append(cuda_ms(torch, steps, iters=1, warmup=1) / DP_TIME_ITERS)
+        same = torch.equal(states["plain"].delta, states["meshed"].delta)
+        print(f"[time] 18a graphed train step at B={B}, T={T} ({DP_TIME_ITERS} replays a call, "
+              f"in turns plain, meshed, meshed, plain): without the all-reduce "
+              f"{ms['plain'][0]:.3f} / {ms['plain'][1]:.3f} ms, with the world-1 NCCL all-reduce "
+              f"in the graph {ms['meshed'][0]:.3f} / {ms['meshed'][1]:.3f} ms; cost "
+              f"{np.mean(ms['meshed']) - np.mean(ms['plain']):+.3f} ms a step; the two deltas "
+              f"{'bit-equal' if same else 'DIFFER'}", flush=True)
+        if not same:
+            fail("18a: the meshed step at world 1 is not the plain step bit for bit")
+        del meshed, plain, states, batch
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # the CLI under torchrun, one rank: torchrun's environment path
+    ac.PKL_RESULT_PATH = os.path.join(tmp, "dp_cli")
+    ac.MAX_NUM_STEP = 2
+    yml = os.path.join(tmp, "dp_cli.yml")
+    with open(yml, "w") as f:
+        yaml.safe_dump(json.loads(json.dumps(cfg)), f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           "-m", "flickering_adversarial_video_tpu_torch.runners.universal", yml,
+           "--frames", str(T)]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in run.stdout.splitlines() if "data parallel" in ln or "done:" in ln]
+    res = os.path.join(universal.model_dir_name(ac), "res.pkl")
+    print(f"[parallel] 18a CLI under torch.distributed.run --nproc-per-node 1: exit "
+          f"{run.returncode}; {lines}; res.pkl {'written' if os.path.exists(res) else 'MISSING'} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if (run.returncode != 0 or not os.path.exists(res)
+            or not any("rank 0 of 1 (nccl)" in ln for ln in lines)
+            or not any("done: steps=2" in ln for ln in lines)):
+        fail(f"18a: the CLI under torchrun\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    print(f"[time] phase 18a {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _dp_model(dev, dtype):
+    """Phase 3's victim: I3D, 400 classes, seed-0 weights, compute `dtype`."""
+    import torch
+
+    from flickering_adversarial_video_tpu_torch.convert import init_i3d_state
+    from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
+
+    model = InceptionI3D(CLASSES, getattr(torch, dtype), device=dev)
+    model.load_state_dict(init_i3d_state(SEED))
+    return model
+
+
+def _dp_clips():
+    import numpy as np
+
+    return np.random.default_rng(SEED + 18).integers(0, 256, (B, T, SIZE, SIZE, 3), np.uint8)
+
+
+def _dp_steps(engine, batch, d0, flags):
+    """DP_STEPS train steps from d0: (final delta, each step's losses, ms a
+    step by the host clock)."""
+    import torch
+
+    from flickering_adversarial_video_tpu_torch.engine import AttackState
+
+    d = torch.from_numpy(d0).to(engine.device)
+    state = AttackState(d, torch.zeros_like(d), torch.zeros_like(d), 0)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_STEPS):
+        state, m = engine.train_step(state, batch, flags)
+        losses.append((float(m["total_loss"]), float(m["adv_loss"])))
+    torch.cuda.synchronize()
+    return (state.delta.cpu().numpy(), losses,
+            (time.perf_counter() - t0) * 1e3 / DP_STEPS)
+
+
+def _dp_rank(rank, tmp, backend, device, dtype, labels, d0, beta0, plant):
+    """18b on one rank: the global batch's shard, DP_STEPS steps, on
+    `device` (gloo: the one card) or the rank's own card (NCCL)."""
+    import numpy as np
+    import torch
+
+    from flickering_adversarial_video_tpu_torch import ops
+    from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
+    from flickering_adversarial_video_tpu_torch.engine import (
+        AttackConfig, AttackEngine, RuntimeFlags)
+    from flickering_adversarial_video_tpu_torch.parallel import mesh as mesh_lib
+
+    if plant is not None:
+        plant()
+    dev = torch.device("cuda", rank) if backend == "nccl" else torch.device(device)
+    mesh_lib.initialize_distributed(backend, f"file://{os.path.join(tmp, 'dp2.store')}", rank,
+                                    DP_W)
+    mesh = mesh_lib.make_mesh(dev)
+    engine = AttackEngine(_dp_model(dev, dtype), FlickerSpec(T), AttackConfig(use_logits=True),
+                          track_probs=False, mesh=mesh, eager=backend != "nccl")
+    batch = engine.shard({"video": _dp_clips(), "labels": np.asarray(labels, np.int64)})
+    ops.reset_launch_counts()
+    out = _dp_steps(engine, batch, d0, RuntimeFlags(beta0=beta0))
+    result = {"delta": out[0], "losses": out[1], "ms": out[2], "counts": read_counts(ops),
+              "graphed": engine.graphed, "mesh": (mesh.rank, mesh.world, mesh.backend)}
+    torch.distributed.destroy_process_group()
+    return result
+
+
+def dp_gloo_phase(tmp, dev, plant=None):
+    """18b: two ranks on the one card over gloo (NCCL refuses two ranks on
+    one card), spawned, eager steps: I3D at B=8 of 64x224x224 uint8 clips, 4
+    a rank, DP_STEPS steps from a drawn delta, against one process's eager
+    steps on the same global batch, in bf16 and in f32 (DP_LIMITS).
+    USE_LOGITS, so that the adversarial gradient lies above the backward's
+    rounding (the probabilities of the seeded victim saturate), and beta0
+    such that the regularizers' gradient and the adversarial one are of one
+    size at the start, so that a fault in either shows.  `plant`, run first
+    in each rank, plants a fault (scripts/torch_parallel_fault.py).  On two
+    or more cards the same over NCCL with graphed steps.  Returns the
+    readings by (backend, dtype)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    readings = {}
+    for dtype in DP_LIMITS:
+        readings.update(_dp_gloo_dtype(tmp, dev, dtype, plant))
+    if torch.cuda.device_count() < DP_W:
+        print(f"[parallel] 18b over NCCL with graphs: not run ({torch.cuda.device_count()} card; "
+              f"NCCL takes one card a rank)", flush=True)
+    print(f"[time] phase 18b {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return readings
+
+
+def _dp_gloo_dtype(tmp, dev, dtype, plant):
+    import numpy as np
+    import torch
+
+    from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
+    from flickering_adversarial_video_tpu_torch.engine import (
+        AttackConfig, AttackEngine, RuntimeFlags)
+    from flickering_adversarial_video_tpu_torch.engine.sweep import draw_init_delta
+
+    engine = AttackEngine(_dp_model(dev, dtype), FlickerSpec(T), AttackConfig(use_logits=True),
+                          track_probs=False, eager=True)
+    video = torch.from_numpy(_dp_clips()).to(dev)
+    zeros = torch.zeros(B, dtype=torch.int64, device=dev)
+    labels = engine.forward(None, {"video": video, "labels": zeros},
+                            adversarial=False).argmax(-1).cpu().numpy()
+    batch = {"video": video, "labels": torch.from_numpy(labels).to(dev)}
+    d0 = draw_init_delta((T, 1, 1, 3), SEED + 18, DP_INIT_SCALE).numpy()
+    # beta0: the two gradients' mean sizes equal at d0
+    clip, packed, lab = engine.prepare_batch(batch)
+    d = torch.from_numpy(d0).to(dev).requires_grad_(True)
+    _, terms = engine._loss_terms(d, clip, packed, lab, engine._step_scalars(RuntimeFlags()),
+                                  torch.zeros((), dtype=torch.int32, device=dev))
+    g_adv = torch.autograd.grad(terms["adv_loss"], d, retain_graph=True)[0].abs().mean().item()
+    g_reg = torch.autograd.grad(terms["weighted_reg"], d)[0].abs().mean().item()
+    beta0 = g_adv / g_reg
+    want, want_losses, one_ms = _dp_steps(engine, batch, d0, RuntimeFlags(beta0=beta0))
+    del engine, video, batch, clip, d, terms
+    torch.cuda.empty_cache()
+    moved = float(np.abs(want - d0).mean())
+    share_limit, loss_limit = DP_LIMITS[dtype]
+    readings = {}
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= DP_W else [])
+    for backend in backends:
+        ranks = spawn_ranks(tmp, f"dp2_{backend}_{dtype}", _dp_rank,
+                            (backend, str(dev), dtype, labels.tolist(), d0, beta0, plant))
+        got = ranks[0]["delta"]
+        equal = all(np.array_equal(r["delta"], got) for r in ranks)
+        share = float(np.abs(got - want).mean()) / moved
+        rel = max(abs(g - w) / abs(w) for r in ranks for gs, ws in zip(r["losses"], want_losses)
+                  for g, w in zip(gs, ws))
+        counts_ok = all(r["counts"] == scaled(TRAIN_COUNTS, DP_STEPS) for r in ranks)
+        readings[(backend, dtype)] = {"share": share, "loss_rel": rel, "equal": equal,
+                                      "max_abs": float(np.abs(got - want).max()),
+                                      "beta0": beta0, "moved": moved}
+        print(f"[parallel] 18b {DP_W} ranks over {backend} "
+              f"({'graphed' if ranks[0]['graphed'] else 'eager'} steps), I3D {dtype} B={B} "
+              f"({B // DP_W} a rank) of {T}x{SIZE}x{SIZE}, USE_LOGITS, beta0 {beta0:.6g} "
+              f"(|d adv| {g_adv:.4g}, |d reg| {g_reg:.4g} a unit beta0 at the drawn delta), "
+              f"{DP_STEPS} steps against one process: delta bit-equal across ranks {equal}; mean "
+              f"|delta - one process's| {share:.3%} of its mean movement {moved:.4g} (limit "
+              f"{share_limit:.0%}; max {readings[(backend, dtype)]['max_abs']:.3g}); losses "
+              f"within {rel:.3g} relative (limit {loss_limit:g}); launches a rank "
+              f"{ranks[0]['counts']} (each rank's steps: B1-B7 on every rank); ms a step "
+              f"{[round(r['ms'], 1) for r in ranks]} (one process {one_ms:.1f}; two ranks "
+              f"time-slice one card: a correctness run, not a scaling number)", flush=True)
+        if not (equal and share <= share_limit and rel <= loss_limit and counts_ok):
+            fail(f"18b over {backend} in {dtype}: the ranks' delta or losses against one "
+                 f"process, delta across the ranks, or the launch counts")
+    return readings
+
+
+def _dp_sweep_rank(rank, tmp, kw, plant=None):
+    """18c on one rank: torch_per_video --slots 4 --mesh."""
+    import torch
+
+    from flickering_adversarial_video_tpu_torch import ops
+    from flickering_adversarial_video_tpu_torch.data import VideoDataset
+    from flickering_adversarial_video_tpu_torch.parallel import mesh as mesh_lib
+    from flickering_adversarial_video_tpu_torch.runners import torch_per_video
+
+    if plant is not None:
+        plant()
+    mesh_lib.initialize_distributed("gloo", f"file://{os.path.join(tmp, 'dp3.store')}", rank,
+                                    DP_W)
+    ops.reset_launch_counts()
+    with mock.patch.object(VideoDataset, "_decode", lambda self, path: stub_decode(path)), \
+            contextlib.redirect_stdout(io.StringIO()):
+        out = torch_per_video.run(slots=4, use_mesh=True, **kw)
+    counts = read_counts(ops)
+    torch.distributed.destroy_process_group()
+    return {"out": out, "counts": counts}
+
+
+def dp_sweep_phase(tmp, dev, sweep_run, plant=None):
+    """18c: ``torch_per_video --slots 4 --mesh`` at two ranks over gloo on
+    phase 16's videos: each rank 2 slots over its videos, no collective in
+    the step; its counts, files, steps, escalations and verdicts those of
+    phase 17e's ``--slots 4`` in one process."""
+    import numpy as np
+
+    from flickering_adversarial_video_tpu_torch.engine import sweep
+
+    t_phase = time.perf_counter()
+    sr = sweep_run
+    mesh_dir, one_dir = sr["dir"] + "_mesh", sr["dir"] + "_slots"
+    kw = dict(model_name=sr["variant"], records=sr["records"], label_names=sr["labels"],
+              ckpt_path=sr["ckpt"], n_iter=TW_SWEEP_ITERS, model_dir=mesh_dir,
+              sample_length=sr["frames"], input_size=RESNET_SIZE, device=str(dev))
+    ranks = spawn_ranks(tmp, "dp3", _dp_sweep_rank, (kw, plant))
+    out = ranks[0]["out"]
+    stats = {k: v for k, v in out.items() if k != "results"}
+    want_stats = {k: v for k, v in sr["first"].items() if k != "results"}
+
+    def load(d):
+        return [np.load(sweep.result_path_for(d, r.path, sr["labels"][r.label]),
+                        allow_pickle=True).tolist() for r in sr["records"][:2]]
+
+    got, want = load(mesh_dir), load(one_dir)
+    files = sorted(os.listdir(mesh_dir)) == sorted(os.listdir(one_dir))
+    # what 17e holds against the sequential sweep: steps, escalations and the
+    # verdict (the step at which a clip near its decision boundary first
+    # fools may move with bf16 rounding at 2 slots a rank against 4)
+    same = [(len(g["loss/total"]), g["escalations"], bool(np.any(g["is_adversarial"])))
+            == (len(w["loss/total"]), w["escalations"], bool(np.any(w["is_adversarial"])))
+            for g, w in zip(got, want)]
+    loss = max(float(np.max(np.abs(np.asarray(g["loss/total"]) - w["loss/total"])))
+               for g, w in zip(got, want))
+    pert = max(float(np.max(np.abs(np.asarray(g["perturbation"]) - np.asarray(w["perturbation"]))))
+               for g, w in zip(got, want))
+    zero = {name: 0 for name in NAMES}
+    ok = (all(r["out"] == out for r in ranks) and stats == want_stats and files and all(same)
+          and all(r["counts"] == zero for r in ranks))
+    print(f"[parallel] 18c torch_per_video --slots 4 --mesh, {DP_W} ranks over gloo on "
+          f"{sr['variant']} (phase 16's videos, 2 slots a rank): {stats} (phase 17e {want_stats}, "
+          f"every rank's alike: {all(r['out'] == out for r in ranks)}); files "
+          f"{'as 17e' if files else 'DIFFER'}; per video steps, escalations, verdicts as 17e "
+          f"{same}; max |loss - 17e's| {loss:.3g}, max |perturbation - 17e's| {pert:.3g}; the "
+          f"port's kernels launched {[r['counts'] for r in ranks]} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    if not ok:
+        fail("18c: torch_per_video --slots 4 --mesh is not phase 17e's sweep")
 
 
 def main() -> None:
@@ -3035,6 +3484,13 @@ def main() -> None:
         # ---- 17. the vectorized per-video sweep -------------------------------------------
         torch.cuda.empty_cache()
         table.append(vector_sweep_phase(tmp, dev, sweep_run))
+
+        # ---- 18. data parallel over ranks -------------------------------------------------
+        torch.cuda.empty_cache()
+        dp_world1_phase(tmp, dev, shard_dir, {"history": default_hist, "delta": delta12})
+        torch.cuda.empty_cache()
+        dp_gloo_phase(tmp, dev)
+        dp_sweep_phase(tmp, dev, sweep_run)
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -3,5 +3,6 @@
 The universal flickering attack on I3D: attack math (attack/), the stem
 packing, input head, conv units and pools with their hand-written CUDA
 kernels (ops/, csrc/), InceptionI3D (models/), the Flax weight bridge
-(convert/) and the attack engine (engine/).  Imports torch, never jax.
+(convert/), the attack engine (engine/) and data parallelism over
+torch.distributed ranks (parallel/).  Imports torch, never jax.
 """

@@ -4,7 +4,9 @@ untargeted, on probabilities or logits.
 Port of the JAX package's ``attack/losses.py``, quirks kept: the max
 non-label statistic is max(x - one_hot(label)), and the logit-mode margins
 are log(1 + m / label_prob) (targeted) and log(1 + m / (1e-5 +
-max_non_label_prob)) (untargeted).
+max_non_label_prob)) (untargeted).  The hinge sums its per-example terms over
+the batch and CE takes their mean (:func:`batch_reduction`), which a batch
+split over ranks must respect.
 """
 
 from __future__ import annotations
@@ -77,6 +79,12 @@ def ce_attack_loss(
     aux = {"prob_to_min": prob_to_min, "prob_to_max": prob_to_max,
            "per_example": per_example, "probs": s.probs}
     return per_example.mean(), aux
+
+
+def batch_reduction(improve_loss: bool) -> str:
+    """How :func:`adversarial_loss` reduces its per-example terms over the
+    batch: ``"sum"`` (the improved hinge) or ``"mean"`` (CE)."""
+    return "sum" if improve_loss else "mean"
 
 
 def adversarial_loss(

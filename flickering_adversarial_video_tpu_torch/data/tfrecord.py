@@ -286,8 +286,14 @@ def tfrecord_batches(
     use_native: bool = True,
     prepack: bool = False,
     pin_memory: bool = False,
+    host_id: int = 0,
+    num_hosts: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield {'video': uint8 [B,T,H,W,C], 'labels': int64 [B]} batches.
+
+    Over ranks (``parallel/mesh.py``): rank `host_id` of `num_hosts` reads
+    ``shards[host_id::num_hosts]``, as each JAX host does, and batches of
+    its own records; the global batch is the ranks' batches in rank order.
 
     `frames` crops to the trailing `frames` frames and skips clips that are
     shorter, whatever `prepack` says, so that toggling PREPACK_INPUT never
@@ -319,7 +325,7 @@ def tfrecord_batches(
         if frames % 2 or height % 2 or width % 2:
             raise ValueError("prepack needs even frames/height/width")
     key = "video_packed" if prepack else "video"
-    shards = list(shards)
+    shards = list(shards)[host_id::num_hosts]
 
     if use_native:
         from .native_reader import NativeTFRecordReader

@@ -61,6 +61,25 @@ the thickness/roughness metrics act on delta clipped to +-max_norm
 ``train_eval_step`` is the train step and the fooling counters of the same
 batch in one program (one graph on CUDA), as the epoch fit uses it.
 
+Data parallel over ranks (``mesh=``, a ``parallel.mesh.Mesh`` with a
+group; the JAX engine's ``mesh=`` with its batch sharded and its state
+replicated): each rank steps on its own slice of the global batch (``shard``
+cuts one), with delta, the moments and the victim whole.  After the backward
+one collective sums, over the ranks, d(delta) and the batch's statistics
+(``_reduce``): the adversarial term's share of each rank (the hinge's sum
+over its clips; CE's mean over them over W, since CE is a mean over the
+global batch), the prob_to_* means over W, the clips not fooled and each
+rank's probabilities in its own rows.  The regularizers act on the one
+replicated delta, so only rank 0's backward takes them: d(delta) counts them
+once.  Adam then runs on every rank alike, so delta stays equal on every
+rank, and the metrics are the global batch's (``is_adversarial`` an AND over
+the ranks).  The eval step and ``forward`` stay on the rank's own clips
+(``loops.evaluate_fooling`` sums the counts once, at the end), and the slot
+step has no collective (the sweeps split the slots over ranks instead).  On
+CUDA the collective is captured in the step's graph, which needs NCCL: a
+gloo group on the card runs the eager step when the caller asks for it
+(``eager=True``), and is refused otherwise.
+
 The runtime flags (``RuntimeFlags``, Python scalars per call) enter the
 train, eval and forward steps through one static f32 device buffer, written
 only when they change, so a step reads no host value.  On CUDA
@@ -87,6 +106,7 @@ from ..attack import regularizers as reg_lib
 from ..ops.fused_apply import fused_normalize_perturb
 from ..ops.packed_apply import flicker_stem
 from ..ops.space_to_depth import pack_input
+from ..parallel import mesh as mesh_lib
 from .step_graph import StepGraphs
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -171,11 +191,13 @@ class AttackEngine:
     (whose ``stem_params``/``trunk`` open the packed input head), a
     ``VideoResNet`` (mean/std world), or any module mapping a normalized clip
     [B,T,H,W,C] to logits (generic path).  On CUDA the train step is a CUDA
-    graph."""
+    graph, unless `eager`.  `mesh` (a ``parallel.mesh.Mesh`` with a group)
+    makes the engine one rank of a data-parallel run; without a group it is
+    ignored (world 1 is today's path)."""
 
     def __init__(
         self, model: torch.nn.Module, spec, config: AttackConfig = AttackConfig(),
-        track_probs: bool = True,
+        track_probs: bool = True, mesh: Optional[mesh_lib.Mesh] = None, eager: bool = False,
     ):
         if config.reg_weighting not in ("tf", "torch"):
             raise ValueError(f"reg_weighting {config.reg_weighting!r}")
@@ -199,6 +221,12 @@ class AttackEngine:
         self.config = config
         self.track_probs = track_probs
         self.device = next(iter(model.state_dict().values())).device
+        self.mesh = mesh if mesh is not None and mesh.group is not None else None
+        if self.mesh is not None and self.device.type == "cuda" and not eager and (
+                self.mesh.backend != "nccl"):
+            raise ValueError(
+                f"a {self.mesh.backend} group cannot be captured in the step's CUDA graph: use "
+                "NCCL (one card a rank), or pass eager=True for eager steps")
         self._mask = None
         if config.frame_window is not None:
             start, end = config.frame_window
@@ -217,15 +245,28 @@ class AttackEngine:
         self._seed = torch.zeros((), dtype=torch.int64, device=self.device)
         self._seed_value: Optional[int] = None
         self._eval_counter = torch.zeros((), dtype=torch.int32, device=self.device)
-        self._graphs = StepGraphs(spec.shape, self.device) if self.device.type == "cuda" else None
+        self._graphs = (StepGraphs(spec.shape, self.device)
+                        if self.device.type == "cuda" and not eager else None)
 
     # ---------- state and batches ----------
 
+    @property
+    def graphed(self) -> bool:
+        """Does the train step replay CUDA graphs?"""
+        return self._graphs is not None
+
     def init_state(self, generator: Optional[torch.Generator] = None) -> AttackState:
         """A fresh state; a mean/std spec draws its initial delta from
-        `generator` (seeded 0 when None)."""
+        `generator` (seeded 0 when None).  With a mesh, rank 0's delta on
+        every rank (a collective: every rank calls it)."""
         delta = pert_lib.init_delta(self.spec, device=self.device, generator=generator)
+        delta = mesh_lib.put_replicated(self.mesh, delta)
         return AttackState(delta, torch.zeros_like(delta), torch.zeros_like(delta), 0)
+
+    def shard(self, batch: Dict) -> Dict:
+        """This rank's slice of a global batch (the batch itself without a
+        mesh), as the JAX engine's ``shard`` places it."""
+        return mesh_lib.shard_batch(self.mesh, batch)
 
     def reset_delta(self, state: AttackState,
                     generator: Optional[torch.Generator] = None) -> AttackState:
@@ -472,10 +513,18 @@ class AttackEngine:
         metrics, all tensors)."""
         d = delta.detach().requires_grad_(True)
         total, terms = self._loss_terms(d, video, packed, labels, scalars, step)
+        if self.mesh is not None:
+            total = self._rank_loss(terms)
         (grad,) = torch.autograd.grad(total, d)
         with torch.no_grad():
-            new = self._adam(delta, mu, nu, step, grad, scalars[SCALARS.index("learning_rate")])
             probs = terms.pop("probs").detach()
+            fooled = metrics_lib.is_adversarial(
+                probs, labels, targeted=self.config.targeted,
+                target_class=self.config.target_class,
+            )
+            if self.mesh is not None:
+                grad, total, probs, fooled = self._reduce(grad, terms, probs, fooled)
+            new = self._adam(delta, mu, nu, step, grad, scalars[SCALARS.index("learning_rate")])
             metric_delta = self._reg_delta(delta, scalars)
             metrics = {
                 "total_loss": total.detach(),
@@ -483,15 +532,42 @@ class AttackEngine:
                 "roughness": metrics_lib.roughness(metric_delta),
                 "delta_max": delta.max(),
                 "delta_min": delta.min(),
-                "is_adversarial": metrics_lib.is_adversarial(
-                    probs, labels, targeted=self.config.targeted,
-                    target_class=self.config.target_class,
-                ),
+                "is_adversarial": fooled,
                 **{k: v.detach() for k, v in terms.items()},
             }
             if self.track_probs:
                 metrics["probs"] = probs
         return new, metrics
+
+    def _rank_loss(self, terms) -> torch.Tensor:
+        """What this rank's backward runs on: its share of the global
+        batch's adversarial term (the hinge's sum over its clips; CE's mean
+        over them over W), and on rank 0 alone the weighted regularizers of
+        the replicated delta.  Sets ``terms["adv_loss"]`` to the share."""
+        adv = terms["adv_loss"]
+        if losses_lib.batch_reduction(self.config.improve_loss) == "mean":
+            adv = adv / self.mesh.world
+        terms["adv_loss"] = adv
+        return adv + terms["weighted_reg"] if self.mesh.rank == 0 else adv
+
+    def _reduce(self, grad, terms, probs, fooled):
+        """Sum over the ranks, in one collective, d(delta), the adversarial
+        term's shares, the prob_to_* means over W, the clips not fooled, and
+        each rank's probabilities in its own rows of [W*b, K]: (d(delta), the
+        global total loss, the global probabilities, fooled on every rank);
+        ``terms`` takes the global adv_loss and prob_to_* means."""
+        w, r = self.mesh.world, self.mesh.rank
+        n = grad.numel()
+        rows = probs.new_zeros((w,) + tuple(probs.shape))
+        rows[r] = probs
+        stats = torch.stack([terms["adv_loss"].detach(), terms["prob_to_min"] / w,
+                             terms["prob_to_max"] / w, (~fooled).float()])
+        buf = mesh_lib.all_reduce(self.mesh, torch.cat(
+            [grad.reshape(-1), stats, rows.reshape(-1)]))
+        adv, to_min, to_max, not_fooled = buf[n:n + 4].unbind()
+        terms.update(adv_loss=adv, prob_to_min=to_min, prob_to_max=to_max)
+        return (buf[:n].view_as(grad), adv + terms["weighted_reg"],
+                buf[n + 4:].view(w * probs.shape[0], probs.shape[1]), not_fooled == 0)
 
     def _slot_step(self, delta, mu, nu, count, video, packed, labels, scalars, max_norm, seeds,
                    active):
@@ -537,11 +613,18 @@ class AttackEngine:
         with torch.no_grad():
             clean = torch.softmax(
                 self._logits(None, video, packed, scalars, self._eval_counter), dim=-1)
-            metrics["miss"], metrics["valid"] = metrics_lib.fooling_counts(
-                metrics["probs"], clean, labels, targeted=self.config.targeted,
+            adv = metrics["probs"]
+            if self.mesh is not None:  # this rank's rows of the global probabilities
+                b = labels.shape[0]
+                adv = adv[self.mesh.rank * b:(self.mesh.rank + 1) * b]
+            counts = metrics_lib.fooling_counts(
+                adv, clean, labels, targeted=self.config.targeted,
                 target_class=self.config.target_class,
                 exclude_misclassify=self.config.exclude_misclassify,
             )
+            if self.mesh is not None:
+                counts = mesh_lib.all_reduce(self.mesh, torch.stack(counts)).unbind()
+            metrics["miss"], metrics["valid"] = counts
         return new, metrics
 
     def _eager(self, body, state: AttackState, video, packed, labels, flags: RuntimeFlags,

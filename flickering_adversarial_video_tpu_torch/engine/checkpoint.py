@@ -5,7 +5,8 @@ with ``torch.save`` in place of orbax: only the attack state is
 checkpointed -- (delta, mu, nu, step) -- into step-numbered files
 ``ckpt_<step>.pt``, each written to a temporary name and renamed, the oldest
 pruned beyond `max_to_keep`.  The victim's weights are immutable inputs, so
-a fresh AttackState IS the zero-perturbation warm start.
+a fresh AttackState IS the zero-perturbation warm start.  Over ranks, rank 0
+saves (its state is every rank's) and every rank restores the same file.
 """
 
 from __future__ import annotations
@@ -22,11 +23,13 @@ _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
 class AttackCheckpointer:
-    """save/restore/latest over a directory of step-numbered checkpoints."""
+    """save/restore/latest over a directory of step-numbered checkpoints;
+    `rank` other than 0 restores but does not save."""
 
-    def __init__(self, directory: str, max_to_keep: int = 5):
+    def __init__(self, directory: str, max_to_keep: int = 5, rank: int = 0):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.rank = rank
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -37,6 +40,8 @@ class AttackCheckpointer:
         return sorted(int(m.group(1)) for m in found if m)
 
     def save(self, state: AttackState) -> None:
+        if self.rank != 0:
+            return
         path = self._path(int(state.step))
         tmp = f"{path}.tmp.{os.getpid()}"
         torch.save(state.state_dict(), tmp)

@@ -14,6 +14,16 @@ never-fooled case); the universal attack is step-driven with periodic eval
 and checkpoints (the tf.estimator cadence of the reference); class-gen takes
 an epoch as one pass over the train shards and evaluates and checkpoints at
 epoch ends.
+
+Over ranks (an engine with a mesh, ``parallel/mesh.py``): each rank reads its
+own shards, so its streams end at their own times.  The batched loop asks
+every rank, before each step, whether it still has a batch (a host
+collective), and an epoch ends when any rank's stream ends, so that no rank
+waits in the step's collective for a batch that will not come; the fooling
+eval sums the ranks' counts once, at its end, since their validation streams
+give different numbers of batches.  Checkpoints and scalars are rank 0's
+(the runners give the other ranks no writer and a checkpointer that does not
+save).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import torch
 from torch.profiler import record_function
 
 from ..data.video_dataset import PrefetchIterator
+from ..parallel import mesh as mesh_lib
 from .attack_step import AttackEngine, AttackState, RuntimeFlags
 
 LOGGED = ("total_loss", "adv_loss", "reg_loss", "norm_reg", "diff_norm_reg",
@@ -65,7 +76,8 @@ def evaluate_fooling(
 ) -> Dict[str, float]:
     """Fooling rate over a validation stream with exclude-misclassified
     accounting: miss_rate = sum(miss)/sum(valid).  `seed` draws the cyclic
-    rolls of the eval steps."""
+    rolls of the eval steps.  With a mesh, `batches` is the rank's stream and
+    the counts are summed over the ranks once, at the end."""
     miss = torch.zeros((), dtype=torch.int64, device=engine.device)
     valid = torch.zeros_like(miss)
     n_batches = 0
@@ -74,6 +86,9 @@ def evaluate_fooling(
         miss += out["miss"]
         valid += out["valid"]
         n_batches += 1
+    if engine.mesh is not None:
+        miss, valid, n_batches = mesh_lib.all_reduce(engine.mesh, torch.stack(
+            [miss, valid, torch.full_like(miss, n_batches)])).tolist()
     miss, valid = int(miss), int(valid)
     return {
         "miss_rate": miss / max(valid, 1),
@@ -274,7 +289,10 @@ def batched_attack_loop(
 
     def produce():
         """Parse + pack + move to the device on the producer thread, so the
-        host pipeline overlaps the device's steps."""
+        host pipeline overlaps the device's steps (on the engine's card: the
+        thread's current card is its own)."""
+        if engine.device.type == "cuda" and engine.device.index is not None:
+            torch.cuda.set_device(engine.device)
         for batch in train_batches_fn():
             if targeted_label is not None:
                 batch = {**batch, "labels": np.full_like(batch["labels"], targeted_label)}
@@ -287,7 +305,11 @@ def batched_attack_loop(
         batches_this_epoch = 0
         batches = PrefetchIterator(produce(), depth=2)
         try:
-            for batch_on_device in batches:
+            while True:
+                batch_on_device = next(batches, None)
+                # an epoch ends when any rank's stream ends
+                if not mesh_lib.all_ranks(engine.mesh, batch_on_device is not None):
+                    break
                 batches_this_epoch += 1
                 if step >= max_steps:
                     break

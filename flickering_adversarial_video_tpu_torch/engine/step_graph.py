@@ -31,6 +31,11 @@ from the host.  Here each step shape is captured once with
 * **Metrics** are written inside the graph into one packed byte buffer, and
   copied out after the replay in one copy, so that the returned metrics do
   not alias the next replay's.
+* **Collectives.**  With a mesh (``parallel/mesh.py``) the step's one
+  all-reduce is captured with the rest, which NCCL allows once its
+  communicator exists: the warm-up's steps make the first collective, before
+  the capture, and every replay runs it again.  A gloo group cannot be
+  captured; the engine refuses it on the card unless asked for eager steps.
 * **Launch counts.**  The ``ops`` wrappers count on the host.  A capture
   counts its launches once (the warm-up's are taken back), and each replay
   adds them.

@@ -33,6 +33,14 @@ eagerly.  The state and the slot inputs are the graph's static tensors:
 refills and parks write into them in place, and ``run_chunk`` donates the
 state handed to it (clone what you keep).  The per-slot trajectories are the
 sequential sweep's, up to the batched forward's float reassociation.
+
+Over ranks (``mesh=``, the JAX sweep's slot axis sharded over its device
+mesh, :94-117): `slots` must be a multiple of the mesh's W, and each rank
+runs slots / W of them over its own share of the videos, with no collective
+(a slot touches only its own clip and delta).  The caller deals the videos:
+rank r gets videos r, r + W, r + 2W, ... of the whole list, and video j of
+its share keeps the seed of its place in the whole list (r + W j), so its
+initial draw and result do not depend on W.
 """
 
 from __future__ import annotations
@@ -99,14 +107,15 @@ class VectorSweepEngine:
         hard_cap: Optional[int] = None,
         record_delta: bool = True,
     ):
-        if mesh is not None:
-            raise NotImplementedError("the device mesh is ROADMAP.md queue A item 11")
         if stop not in STOP_RULES:
             raise ValueError(f"unknown stop rule {stop!r}: choose from {STOP_RULES}")
         if slots < 1:
             raise ValueError(f"slots must be positive, got {slots}")
+        world = 1 if mesh is None else mesh.world
+        if slots % world:
+            raise ValueError(f"slots ({slots}) must be a multiple of the mesh size ({world})")
         self.engine = engine
-        self.slots = slots
+        self.slots = slots // world  # this rank's
         self.n_iter = n_iter
         self.escalation = escalation
         self.max_chances = max_chances
@@ -219,7 +228,7 @@ class VectorSweepEngine:
         scalars = self.engine._step_scalars(flags, None)
         given = state.tensors() + (videos, labels, seeds)
         iterate = partial(self._iterate, packed, scalars)
-        if eager or self.engine.device.type != "cuda":
+        if eager or not self.engine.graphed:
             outs = [iterate(*given) for _ in range(chunk)]
             return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
         if self._graph is None:
@@ -261,6 +270,11 @@ def _place(engine: AttackEngine, inputs, i: int, batch: Dict[str, torch.Tensor],
     seeds[i] = seed
 
 
+def _global_index(mesh, j: int) -> int:
+    """The place in the whole list of video j of this rank's share."""
+    return j if mesh is None else mesh.rank + mesh.world * j
+
+
 def _host(ys: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in ys.items()}
 
@@ -285,10 +299,13 @@ def vector_single_video_attacks(
 
     Same semantics and result schema as ``loops.single_video_attack`` (the
     reference's res_dict), clip k with seed ``seeds[k]`` (default k, the
-    sequential runner's); one result a clip, None where the clean model
-    misclassifies it."""
+    sequential runner's; with a mesh, `clips` is this rank's share and the
+    default its places in the whole list); one result a clip, None where the
+    clean model misclassifies it."""
     dev = engine.device
-    seeds = list(range(len(clips))) if seeds is None else list(seeds)
+    if seeds is None:
+        seeds = [_global_index(mesh, k) for k in range(len(clips))]
+    seeds = list(seeds)
     vse = VectorSweepEngine(engine, slots, n_iter=max_step, stop=stop_rule, hard_cap=hard_cap,
                             mesh=mesh, record_delta=track_history)
     chunk = vse.chunk_that_fits(chunk)
@@ -313,8 +330,8 @@ def vector_single_video_attacks(
     if first is None:
         return out
     state = vse.init_slots()
-    inputs = _slot_inputs(engine, slots, first[2])
-    slot_meta: List[Optional[Dict[str, Any]]] = [None] * slots
+    inputs = _slot_inputs(engine, vse.slots, first[2])
+    slot_meta: List[Optional[Dict[str, Any]]] = [None] * vse.slots
 
     def fill(i, cand):
         if cand is None:
@@ -331,7 +348,7 @@ def vector_single_video_attacks(
         vse.refill_slot(state, i, seeds[k], float(flags.max_norm))
 
     fill(0, first)
-    for i in range(1, slots):
+    for i in range(1, vse.slots):
         fill(i, next_candidate())
 
     while any(m is not None for m in slot_meta):
@@ -412,7 +429,9 @@ def vector_fit_many_videos(
 ) -> Dict[str, Any]:
     """``sweep.fit_many_videos`` with `slots` videos in flight: the same
     ledger, skips, placeholder and result schema, video i with seed i (the
-    sequential convention), so either sweep resumes the other."""
+    sequential convention), so either sweep resumes the other.  With a mesh,
+    `batches` is this rank's share, i its place in the whole stream, and
+    `max_videos` counts the whole stream."""
     os.makedirs(model_dir, exist_ok=True)
     dev = engine.device
     vse = VectorSweepEngine(engine, slots, n_iter=n_iter, escalation=escalation,
@@ -429,13 +448,13 @@ def vector_fit_many_videos(
         the ledger and the clean check."""
         nonlocal vid_counter
         while True:
-            if max_videos is not None and vid_counter + 1 >= max_videos:
+            if max_videos is not None and _global_index(mesh, vid_counter + 1) >= max_videos:
                 return None
             batch = next(batch_iter, None)
             if batch is None:
                 return None
             vid_counter += 1
-            seed = vid_counter
+            seed = _global_index(mesh, vid_counter)
             label = int(np.asarray(batch["labels"])[0])
             path = batch.get("paths", [f"video{seed}"])[0]
             dest = sweep_lib.result_path_for(model_dir, path, label_names[label])
@@ -462,8 +481,8 @@ def vector_fit_many_videos(
     if first is None:
         return {**stats, "results": results}
     state = vse.init_slots()
-    inputs = _slot_inputs(engine, slots, first[1])
-    slot_meta: List[Optional[Dict[str, Any]]] = [None] * slots
+    inputs = _slot_inputs(engine, vse.slots, first[1])
+    slot_meta: List[Optional[Dict[str, Any]]] = [None] * vse.slots
 
     def fill(i, cand):
         if cand is None:
@@ -477,7 +496,7 @@ def vector_fit_many_videos(
         vse.refill_slot(state, i, seed, max_norm)
 
     fill(0, first)
-    for i in range(1, slots):
+    for i in range(1, vse.slots):
         fill(i, next_candidate())
 
     # the history keys (sweep.HISTORY) and the slot metrics they read

@@ -3,7 +3,9 @@
 Port of the JAX package's ``runners/class_gen.py``: one delta fooling every
 video of one Kinetics class: an epoch loop over the class's tfrecord shards
 with the exclude-misclassified fooling eval, a checkpoint at every epoch end
-and a pkl dump, resuming from the latest checkpoint.
+and a pkl dump, resuming from the latest checkpoint.  Data parallel under
+torchrun as the universal runner (rank 0 writes the checkpoints, the scalars
+and res.pkl).
 
 Usage: python -m flickering_adversarial_video_tpu_torch.runners.class_gen [run_config.yml]
 """
@@ -39,10 +41,11 @@ def run(cfg, *, frames: int = 90, size=None, max_steps=None, device=None):
     )
     batch_size = int(attack_cfg.BATCH_SIZE)
 
+    rank = 0 if engine.mesh is None else engine.mesh.rank
     result_path = attack_cfg.PKL_RESULT_PATH
     os.makedirs(result_path, exist_ok=True)
-    ckpt = AttackCheckpointer(os.path.join(result_path, "ckpt"))
-    writer = ScalarWriter(os.path.join(result_path, "train"))
+    ckpt = AttackCheckpointer(os.path.join(result_path, "ckpt"), rank=rank)
+    writer = ScalarWriter(os.path.join(result_path, "train")) if rank == 0 else None
 
     state = engine.init_state()
     start_step = 0
@@ -75,6 +78,8 @@ def run(cfg, *, frames: int = 90, size=None, max_steps=None, device=None):
         targeted_label=targeted_label,
         start_step=start_step,
     )
+    if rank != 0:
+        return out
     writer.close()
 
     h = out["history"]

@@ -1,6 +1,6 @@
 """Shared runner plumbing: victim construction + engine wiring from config.
 
-Port of the JAX package's ``runners/common.py`` on one device, for I3D (the
+Port of the JAX package's ``runners/common.py``, for I3D (the
 tanh world) and the four video ResNets (the mean/std world: r3d_18, mc3_18,
 r2plus1d_18, r2plus1d_34).  An I3D checkpoint is a DeepMind TF checkpoint
 (its prefix; converted on load by the port's own bundle reader, no
@@ -10,6 +10,12 @@ dict that ``convert.cli`` wrote; a video ResNet's is a torchvision state
 dict (``.pt``/``.pth``) or a ``.msgpack`` of the JAX VideoResNet's
 variables.  A missing one gives seeded random weights with a loud warning
 (the attack machinery is weight-agnostic).
+
+Under torchrun (W ranks, ``parallel/mesh.py``) ``build_engine`` gives the
+engine the run's mesh, as the JAX package's builds its device mesh: each rank
+takes ``BATCH_SIZE / W`` clips a step from its own shards.  A ``BATCH_SIZE``
+that W does not divide raises (the JAX package shrinks its mesh to a divisor
+instead; a launched group cannot shrink).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from ..attack import FlickerSpec, SparseSpec, TorchStyleFlickerSpec
 from ..convert import EVAL_TYPES, init_i3d_state, load_weights, video_resnet_state_dict
 from ..engine import AttackConfig, AttackEngine
 from ..models.registry import MODEL_REGISTRY, create_model
+from ..parallel import mesh as mesh_lib
 from ..utils.labels import load_label_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -114,6 +121,8 @@ def build_engine(
     attack_kind: str = "flickering",
     track_probs: bool = True,
     device=None,
+    use_mesh: bool = True,
+    batch_size: Optional[int] = None,
 ) -> Tuple[AttackEngine, List[str]]:
     """AttackEngine + label list from run_config.yml sections.  attack_kind
     'sparse' gives the L1,2 attack's full delta (``SparseSpec`` of the clip's
@@ -122,7 +131,10 @@ def build_engine(
     (``MODEL_NAME`` r3d_18, mc3_18, r2plus1d_18, r2plus1d_34) attacks in the
     mean/std world: ``TorchStyleFlickerSpec(max_norm=L_INF_NORM)``, the
     torch weighting of the regularizers, and no frame window (the engine
-    refuses ``ATTACK_FRAME_WINDOW``, as the JAX engine)."""
+    refuses ``ATTACK_FRAME_WINDOW``, as the JAX engine).  With `use_mesh`,
+    a run of several ranks (torchrun, or a joined group) makes the engine a
+    rank of it; `batch_size` (default ``BATCH_SIZE``), the global batch, must
+    split evenly over them."""
     model_name = attack_cfg.get("MODEL_NAME", "i3d")
     if model_name not in MODEL_REGISTRY:
         raise ValueError(f"MODEL_NAME {model_name!r}: choose from {sorted(MODEL_REGISTRY)}")
@@ -177,7 +189,17 @@ def build_engine(
         spec = SparseSpec(frames=frames, height=size, width=size)
     else:
         spec = FlickerSpec(frames=frames)
-    engine = AttackEngine(model, spec, cfg, track_probs=track_probs)
+    mesh = None
+    if use_mesh and mesh_lib.launched():
+        mesh = mesh_lib.make_mesh(device)
+        bs = batch_size or int(attack_cfg.get("BATCH_SIZE", 1))
+        if bs % mesh.world:
+            raise ValueError(f"BATCH_SIZE {bs} does not split over the {mesh.world} ranks: "
+                             f"make it a multiple of {mesh.world}")
+    engine = AttackEngine(model, spec, cfg, track_probs=track_probs, mesh=mesh)
+    if mesh is not None:
+        print(f"data parallel: rank {mesh.rank} of {mesh.world} ({mesh.backend}), "
+              f"{bs // mesh.world} clips a step on {engine.device}")
     return engine, labels
 
 
@@ -201,6 +223,9 @@ def make_shard_batches(
     shards are read by the native reader (the pipeline's default), into
     pinned buffers when the engine is on CUDA.
 
+    With a mesh each rank reads ``shards[rank::W]`` and takes `batch_size`
+    / W clips a batch.
+
     `tfrecord_batches_fn` is passed in (the runner's module-level symbol) so
     tests can monkeypatch it per runner."""
     size_eff = size or 224
@@ -213,10 +238,14 @@ def make_shard_batches(
     if prepack:
         print("input pipeline: host-prepacked space-to-depth uint8")
 
+    mesh = engine.mesh
+    split = {} if mesh is None else dict(host_id=mesh.rank, num_hosts=mesh.world)
+    local = batch_size if mesh is None else batch_size // mesh.world
+
     def batches(shards):
         return tfrecord_batches_fn(
-            shards, batch_size, frames=frames, height=size_eff,
-            width=size_eff, prepack=prepack, pin_memory=engine.device.type == "cuda",
+            shards, local, frames=frames, height=size_eff,
+            width=size_eff, prepack=prepack, pin_memory=engine.device.type == "cuda", **split,
         )
 
     return batches, prepack

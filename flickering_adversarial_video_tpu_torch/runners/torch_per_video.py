@@ -11,8 +11,14 @@ max_norm (``engine/sweep.py``).  Videos are decoded with OpenCV
 
 ``--slots N`` > 1 puts N videos in flight (the vectorized sweep,
 ``engine/vector_sweep.vector_fit_many_videos``), with the same seeds, ledger
-and result schema as one at a time, so either resumes the other.  Not ported
-yet, raising: the device mesh (``--mesh``; ROADMAP.md queue A item 11).
+and result schema as one at a time, so either resumes the other.  ``--mesh``
+splits them over the ranks of a torchrun launch (``engine/vector_sweep.py``):
+rank r attacks videos r, r + W, ... of the split with slots / W slots, each
+video with its seed, and writes its own result files, so the ledger holds one
+file a video whichever rank attacked it and a rerun (at any W) skips every
+video any rank finished; the counts and results returned are every rank's.
+At one rank ``--mesh`` changes nothing, at one slot it is ignored (the JAX
+package's rule), and a run of several ranks without the split is refused.
 
 Usage:
   python -m flickering_adversarial_video_tpu_torch.runners.torch_per_video \\
@@ -33,6 +39,7 @@ from ..data.video_dataset import VideoDataset, VideoRecord, records_from_folders
 from ..engine import AttackConfig, AttackEngine, RuntimeFlags
 from ..engine.sweep import fit_many_videos
 from ..engine.vector_sweep import vector_fit_many_videos
+from ..parallel import mesh as mesh_lib
 from ..utils.labels import load_label_map, warn_if_placeholder
 from .common import build_victim
 
@@ -66,8 +73,7 @@ def run(
 ):
     """The sweep on `device` (CUDA unless the caller asks for "cpu");
     returns its counts and each attacked video's (result path, fooled)."""
-    if use_mesh:
-        raise NotImplementedError("the device mesh is ROADMAP.md queue A item 11")
+    split = mesh_lib.slot_split("runners.torch_per_video", use_mesh, slots)
     loss_cfg = loss_cfg or {}
     model = build_victim(model_name, ckpt_path, compute_dtype, sample_length, input_size,
                          num_classes=num_classes, device=device)
@@ -87,14 +93,23 @@ def run(
         beta1=loss_cfg.get("beta_1", 0.5),
         max_norm=l_inf_norm,
     )
+    mesh = mesh_lib.make_mesh(device) if split else None
+    if mesh is not None:
+        records = records[mesh.rank::mesh.world]
     ds = VideoDataset(records, sample_length=sample_length, input_size=input_size,
                       random_offset=False, random_crop=False, random_flip=False)
     if slots > 1:
-        return vector_fit_many_videos(
+        out = vector_fit_many_videos(
             engine, ds.batches(1, drop_remainder=False, shuffle=False), flags,
             model_dir=model_dir, label_names=label_names, slots=slots, n_iter=n_iter,
-            max_norm=l_inf_norm, max_videos=max_videos,
+            max_norm=l_inf_norm, max_videos=max_videos, mesh=mesh,
         )
+        if mesh is None:
+            return out
+        parts = mesh_lib.gather_objects(mesh, out)  # every rank's counts and results
+        merged = {k: sum(p[k] for p in parts) for k in out if k != "results"}
+        merged["results"] = [r for p in parts for r in p["results"]]
+        return merged
     return fit_many_videos(
         engine,
         ds.batches(1, drop_remainder=False, shuffle=False),
@@ -120,7 +135,7 @@ def main(argv=None):
     p.add_argument("--slots", type=int, default=1,
                    help="videos attacked at once (the vectorized sweep)")
     p.add_argument("--mesh", action="store_true",
-                   help="shard the slots over the devices (ROADMAP.md queue A item 11)")
+                   help="split the slots over the ranks of a torchrun launch (slots %% W == 0)")
     p.add_argument("--device", default=None, help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
     labels = load_label_map(None, num_classes=args.num_classes or 400)

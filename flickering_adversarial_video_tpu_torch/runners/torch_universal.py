@@ -24,6 +24,7 @@ from ..attack import TorchStyleFlickerSpec
 from ..data.video_dataset import VideoDataset, records_from_split_file
 from ..engine import AttackConfig, AttackEngine, RuntimeFlags
 from ..engine.epoch_fit import find_resume, fit_universal_epochs
+from ..parallel import mesh as mesh_lib
 from .common import build_victim
 
 # per-model batch sizes of the reference's runs
@@ -52,7 +53,9 @@ def run(
     device=None,
 ):
     """The epoch fit on `device` (CUDA unless the caller asks for "cpu");
-    returns this call's epoch results."""
+    returns this call's epoch results.  One process: the JAX package's fit
+    has no mesh, so a run of several ranks is refused."""
+    mesh_lib.refuse_world("runners.torch_universal (the epoch fit)", "run it in one process")
     loss_cfg = loss_cfg or {}
     batch_size = batch_size or BATCH_SIZES.get(model_name, 16)
     model = build_victim(model_name, ckpt_path, compute_dtype, sample_length, input_size,

@@ -8,7 +8,13 @@ reference's tag names, and an exclude-misclassified fooling eval over the
 val shards.  FLICKERING_ATTACK false selects the L1,2 sparse variant (a full
 [T,H,W,3] delta), whose results go under ``SUP_ATTACK``.
 
+Data parallel under torchrun (``runners/common.build_engine``): each rank
+attacks with ``BATCH_SIZE / W`` clips a step from its own shards, d(delta)
+summed over the ranks in the step; rank 0 writes the checkpoints, the
+scalars and res.pkl.  In one process the runner runs as it always did.
+
 Usage: python -m flickering_adversarial_video_tpu_torch.runners.universal [run_config.yml]
+       torchrun --nproc-per-node N -m flickering_adversarial_video_tpu_torch.runners.universal cfg.yml
 """
 
 from __future__ import annotations
@@ -65,10 +71,11 @@ def run(cfg, *, frames: int = 90, size=None, max_steps=None, device=None):
         frames=frames, size=size, batch_size=batch_size,
     )
 
+    rank = 0 if engine.mesh is None else engine.mesh.rank
     model_dir = model_dir_name(attack_cfg)
     os.makedirs(model_dir, exist_ok=True)
-    ckpt = AttackCheckpointer(os.path.join(model_dir, "ckpt"), max_to_keep=5)
-    writer = ScalarWriter(os.path.join(model_dir, "train"))
+    ckpt = AttackCheckpointer(os.path.join(model_dir, "ckpt"), max_to_keep=5, rank=rank)
+    writer = ScalarWriter(os.path.join(model_dir, "train")) if rank == 0 else None
 
     # resume: latest checkpoint else fresh zero-pert state (warm-start parity)
     state = engine.init_state()
@@ -106,6 +113,8 @@ def run(cfg, *, frames: int = 90, size=None, max_steps=None, device=None):
         targeted_label=targeted_label,
         start_step=start_step,
     )
+    if rank != 0:
+        return out
     writer.close()
     with open(os.path.join(model_dir, "res.pkl"), "wb") as f:
         pickle.dump({"history": out["history"], "final_eval": out["final_eval"]}, f)

@@ -185,6 +185,7 @@ def test_runner_pipeline_reads_natively_and_pins_only_on_cuda(monkeypatch):
 
     class Eng:
         device = torch.device("cpu")
+        mesh = None  # one process
 
         def _packed_supported(self):
             return True

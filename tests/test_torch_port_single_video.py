@@ -317,16 +317,23 @@ class TestSingleVideoRunner:
         assert tsingle.run(cfg, frames=FRAMES, device="cpu") == []
         assert "does not exist" in capsys.readouterr().out
 
-    @pytest.mark.parametrize("kw,over,item", [
-        (dict(slots=2, use_mesh=True), {}, "item 11"),
-        (dict(dashboard_path="d.png"), {"SLOTS": 2}, "item 13"),
-        (dict(use_mesh=True), {}, "item 11"),
-        (dict(dashboard_path="d.png"), {}, "item 13"),
+    @pytest.mark.parametrize("kw,over,world,error,match", [
+        # slots without --mesh under 2 ranks: no split, refused
+        (dict(slots=2), {}, "2", ValueError, "--slots .* --mesh"),
+        (dict(dashboard_path="d.png"), {"SLOTS": 2}, None, NotImplementedError, "item 13"),
+        # --mesh at one slot under 2 ranks: no split, refused
+        (dict(use_mesh=True), {}, "2", ValueError, "--slots .* --mesh"),
+        (dict(dashboard_path="d.png"), {}, None, NotImplementedError, "item 13"),
     ])
-    def test_unported_options_raise(self, sv_runs, tmp_path, monkeypatch, kw, over, item):
+    def test_unported_options_raise(self, sv_runs, tmp_path, monkeypatch, kw, over, world,
+                                    error, match):
+        """The dashboard is not ported (item 13); a torchrun launch of several
+        ranks without the slots' split is refused, naming it."""
         _patch_victims(monkeypatch)
+        if world is not None:
+            monkeypatch.setenv("WORLD_SIZE", world)
         cfg = _sv_cfg(tconfig, sv_runs["npy_dir"], tmp_path / "o", **over)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(error, match=match):
             tsingle.run(cfg, frames=FRAMES, device="cpu", **kw)
 
     def test_cli(self, monkeypatch):

@@ -634,10 +634,13 @@ class TestTorchRunners:
             module.main(["--help"])
         assert e.value.code == 0 and "--device" in capsys.readouterr().out
 
-    @pytest.mark.parametrize("kw,item", [(dict(slots=2, use_mesh=True), "item 11"),
-                                         (dict(use_mesh=True), "item 11")])
-    def test_unported_options_raise(self, kw, item):
-        with pytest.raises(NotImplementedError, match=item):
+    @pytest.mark.parametrize("kw,match", [(dict(slots=3, use_mesh=True), "multiple of the mesh"),
+                                          (dict(use_mesh=True), "--slots .* --mesh")])
+    def test_unported_options_raise(self, kw, match, monkeypatch):
+        """Under 2 ranks: slots the ranks do not divide raise, as in JAX; a
+        path without the slots' split (one slot) is refused."""
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        with pytest.raises(ValueError, match=match):
             tper_video.run(records=[], label_names=[], device="cpu", **kw)
 
     @pytest.mark.parametrize("variant", ["r3d_18", "mc3_18", "r2plus1d_18", "r2plus1d_34"])

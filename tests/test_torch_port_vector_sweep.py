@@ -52,6 +52,7 @@ from flickering_adversarial_video_tpu_torch.engine import sweep as tsweep
 from flickering_adversarial_video_tpu_torch.engine import vector_sweep as tvs
 from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
 from flickering_adversarial_video_tpu_torch.ops import packed_apply
+from flickering_adversarial_video_tpu_torch.parallel.mesh import Mesh
 from flickering_adversarial_video_tpu_torch.runners import common as tcommon
 from flickering_adversarial_video_tpu_torch.runners import single_video as tsingle
 from flickering_adversarial_video_tpu_torch.runners import torch_per_video as tper_video
@@ -444,8 +445,10 @@ class TestSlotStep:
 class TestVectorSweepEngine:
     def test_mesh_and_stop_rule_and_slots_raise(self):
         _, te = meanstd_engines()
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tvs.VectorSweepEngine(te, 2, mesh=object())
+        two = Mesh(None, None, 1, 2, torch.device("cpu"))
+        with pytest.raises(ValueError, match="multiple of the mesh size"):
+            tvs.VectorSweepEngine(te, 3, mesh=two)
+        assert tvs.VectorSweepEngine(te, 4, mesh=two).slots == 2  # this rank's
         with pytest.raises(ValueError, match="stop rule"):
             tvs.VectorSweepEngine(te, 2, stop="never")
         with pytest.raises(ValueError, match="slots"):
@@ -709,13 +712,18 @@ class TestRunners:
             assert got["correct_cls"] == want["correct_cls"]
             _single_results_match(got, want)
 
-    @pytest.mark.parametrize("kw,item", [(dict(use_mesh=True), "item 11"),
-                                         (dict(dashboard_path="d.png"), "item 13")])
+    @pytest.mark.parametrize("kw,world,error,match", [
+        (dict(use_mesh=True, slots=3), "2", ValueError, "multiple of the mesh size"),
+        (dict(dashboard_path="d.png", slots=2), None, NotImplementedError, "item 13")])
     def test_single_video_slots_with_unported_options_raise(self, tmp_path, monkeypatch, kw,
-                                                            item):
+                                                            world, error, match):
+        """The dashboard is not ported (item 13); under 2 ranks, slots the
+        ranks do not divide raise, as in JAX."""
         npy = _sv_setup(tmp_path, monkeypatch)
-        with pytest.raises(NotImplementedError, match=item):
-            tsingle.run(_sv_cfg(npy, tmp_path / "o"), frames=FRAMES, device="cpu", slots=2, **kw)
+        if world is not None:
+            monkeypatch.setenv("WORLD_SIZE", world)
+        with pytest.raises(error, match=match):
+            tsingle.run(_sv_cfg(npy, tmp_path / "o"), frames=FRAMES, device="cpu", **kw)
 
     def test_single_video_cli_slots(self, monkeypatch):
         seen = {}
@@ -761,6 +769,11 @@ class TestRunners:
         assert again["skipped_existing"] == fooled
         assert again["attacked"] == 2 - fooled
 
-    def test_torch_per_video_mesh_raises(self):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tper_video.run(records=[], label_names=[], device="cpu", slots=2, use_mesh=True)
+    def test_torch_per_video_mesh_raises(self, monkeypatch):
+        """Under 2 ranks, --slots that the ranks do not divide raise (as in
+        JAX), and --slots without --mesh is refused."""
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        with pytest.raises(ValueError, match="multiple of the mesh size"):
+            tper_video.run(records=[], label_names=[], device="cpu", slots=3, use_mesh=True)
+        with pytest.raises(ValueError, match="--slots .* --mesh"):
+            tper_video.run(records=[], label_names=[], device="cpu", slots=2)
