@@ -30,6 +30,21 @@
 // the warps in order) and writes C partials; a second small kernel sums the
 // partials of each (t,c) over (b, slice) in a fixed order and applies the
 // flag.  The same input therefore gives the same bits on every run.
+//
+// B8c, a delta a clip (the vectorized sweep's slots: clip b of the batch has
+// its own delta [B,T,C]; the JAX sweep vmaps the TPU kernel over the slots):
+// the same kernel bodies with a delta clip stride, T*C, where the shared
+// delta's is 0.  The forward's grid.y is the clip, whose block stages only
+// its own flag*delta row (T*C f32 of shared memory whatever B is); its
+// vectors lie in one clip, so they start on 16-byte boundaries when a clip's
+// T*H*W*C elements are a multiple of 16, and otherwise every element of the
+// clip goes one a thread.  The backward's partial kernel reads delta row b
+// for row (b,t); its final kernel sums each clip's partials apart, over the
+// slices only, to dd [B,T,C].  A clip's forward and d(delta) are therefore
+// bit for bit those of the shared-delta launch on that clip alone (the same
+// per-element arithmetic; the same partials, summed in the same order).
+// B8c has launchers and __global__ names of its own, so that a profiler
+// counts its launches apart from B8's.
 
 #include "common.cuh"
 
@@ -43,18 +58,26 @@ __device__ __forceinline__ float fwd_one(uint8_t u, float fd) {
   return fminf(fmaxf(pre, -1.0f), 1.0f);
 }
 
-__global__ void __launch_bounds__(fav::kThreads)
-fused_apply_fwd_kernel(const uint8_t* __restrict__ u8, const float* __restrict__ delta,
-                       const float* __restrict__ flag, float* __restrict__ out, int64_t n,
-                       int64_t row_len, int Tn, int C) {
-  extern __shared__ float sfd[];
+// block (x, b) works in clip b: clip_n elements from b*clip_n, flag*delta
+// from row b at b*d_stride (the shared delta: one clip, the whole tensor,
+// d_stride 0); sfd holds T*C f32
+__device__ __forceinline__ void fwd_body(const uint8_t* __restrict__ u8,
+                                         const float* __restrict__ delta,
+                                         const float* __restrict__ flag, float* __restrict__ out,
+                                         int64_t clip_n, int64_t d_stride, int64_t row_len,
+                                         int Tn, int C, float* sfd) {
+  const int64_t b = blockIdx.y;
   const float f = *flag;
-  for (int k = threadIdx.x; k < Tn * C; k += blockDim.x) sfd[k] = __fmul_rn(f, delta[k]);
+  const float* d = delta + b * d_stride;
+  for (int k = threadIdx.x; k < Tn * C; k += blockDim.x) sfd[k] = __fmul_rn(f, d[k]);
   __syncthreads();
-  const int64_t n_vec = n / 16;
+  const uint8_t* u = u8 + b * clip_n;
+  float* o = out + b * clip_n;
+  // vectors only where every clip starts on a 16-byte boundary
+  const int64_t n_vec = d_stride == 0 || clip_n % 16 == 0 ? clip_n / 16 : 0;
   for (int64_t v = fav::global_tid(); v < n_vec; v += fav::grid_stride()) {
     const int64_t i0 = v * 16;
-    const uint4 raw = *reinterpret_cast<const uint4*>(u8 + i0);
+    const uint4 raw = *reinterpret_cast<const uint4*>(u + i0);
     const uint8_t* ub = reinterpret_cast<const uint8_t*>(&raw);
     fav::RowCursor cur(i0, row_len, Tn, C);
     alignas(16) float a[16];
@@ -63,16 +86,33 @@ fused_apply_fwd_kernel(const uint8_t* __restrict__ u8, const float* __restrict__
       a[j] = fwd_one(ub[j], sfd[cur.t * C + cur.c]);
       cur.next();
     }
-    float4* dst = reinterpret_cast<float4*>(out + i0);
+    float4* dst = reinterpret_cast<float4*>(o + i0);
     const float4* src = reinterpret_cast<const float4*>(a);
 #pragma unroll
     for (int q = 0; q < 4; ++q) dst[q] = src[q];
   }
-  // the last n % 16 elements, one a thread
-  for (int64_t i = n_vec * 16 + fav::global_tid(); i < n; i += fav::grid_stride()) {
+  // the rest (the last clip_n % 16 elements, or a clip's all), one a thread
+  for (int64_t i = n_vec * 16 + fav::global_tid(); i < clip_n; i += fav::grid_stride()) {
     const fav::RowCursor cur(i, row_len, Tn, C);
-    out[i] = fwd_one(u8[i], sfd[cur.t * C + cur.c]);
+    o[i] = fwd_one(u[i], sfd[cur.t * C + cur.c]);
   }
+}
+
+__global__ void __launch_bounds__(fav::kThreads)
+fused_apply_fwd_kernel(const uint8_t* __restrict__ u8, const float* __restrict__ delta,
+                       const float* __restrict__ flag, float* __restrict__ out, int64_t n,
+                       int64_t row_len, int Tn, int C) {
+  extern __shared__ float sfd[];
+  fwd_body(u8, delta, flag, out, n, 0, row_len, Tn, C, sfd);
+}
+
+// B8c forward: grid.y the clip, delta [clips,T,C]
+__global__ void __launch_bounds__(fav::kThreads)
+fused_apply_clips_fwd_kernel(const uint8_t* __restrict__ u8, const float* __restrict__ delta,
+                             const float* __restrict__ flag, float* __restrict__ out,
+                             int64_t clip_n, int64_t row_len, int Tn, int C) {
+  extern __shared__ float sfd[];
+  fwd_body(u8, delta, flag, out, clip_n, int64_t(Tn) * C, row_len, Tn, C, sfd);
 }
 
 __device__ __forceinline__ void bwd_accumulate(float (&acc)[kMaxC], uint8_t u, float g, int c,
@@ -87,20 +127,23 @@ __device__ __forceinline__ void bwd_accumulate(float (&acc)[kMaxC], uint8_t u, f
 }
 
 // grid: rows * slices blocks; block (row, s) reduces elements
-// [s*kSlice, min((s+1)*kSlice, row_len)) of its row into partial[row, s, 0..C).
-__global__ void __launch_bounds__(fav::kThreads)
-fused_apply_bwd_partial_kernel(const uint8_t* __restrict__ u8, const float* __restrict__ delta,
-                               const float* __restrict__ flag, const float* __restrict__ g,
-                               float* __restrict__ partial, int64_t row_len, int slices, int Tn,
-                               int C) {
+// [s*kSlice, min((s+1)*kSlice, row_len)) of its row (b,t) into
+// partial[row, s, 0..C), with delta row b at b*d_stride (0: shared)
+__device__ __forceinline__ void bwd_partial_body(const uint8_t* __restrict__ u8,
+                                                 const float* __restrict__ delta,
+                                                 const float* __restrict__ flag,
+                                                 const float* __restrict__ g,
+                                                 float* __restrict__ partial, int64_t row_len,
+                                                 int slices, int Tn, int C, int64_t d_stride) {
   const int64_t row = blockIdx.x / slices;
   const int s = int(blockIdx.x % slices);
   const int t = int(row % Tn);
+  const float* d = delta + (row / Tn) * d_stride;
   const float f = *flag;
   float fd[kMaxC], acc[kMaxC];
 #pragma unroll
   for (int k = 0; k < kMaxC; ++k) {
-    fd[k] = k < C ? __fmul_rn(f, delta[t * C + k]) : 0.0f;
+    fd[k] = k < C ? __fmul_rn(f, d[t * C + k]) : 0.0f;
     acc[k] = 0.0f;
   }
   const int64_t lo = int64_t(s) * kSlice;
@@ -143,19 +186,114 @@ fused_apply_bwd_partial_kernel(const uint8_t* __restrict__ u8, const float* __re
   }
 }
 
+__global__ void __launch_bounds__(fav::kThreads)
+fused_apply_bwd_partial_kernel(const uint8_t* __restrict__ u8, const float* __restrict__ delta,
+                               const float* __restrict__ flag, const float* __restrict__ g,
+                               float* __restrict__ partial, int64_t row_len, int slices, int Tn,
+                               int C) {
+  bwd_partial_body(u8, delta, flag, g, partial, row_len, slices, Tn, C, 0);
+}
+
+// B8c: delta [B,T,C], row (b,t) reads delta row b
+__global__ void __launch_bounds__(fav::kThreads)
+fused_apply_clips_bwd_partial_kernel(const uint8_t* __restrict__ u8,
+                                     const float* __restrict__ delta,
+                                     const float* __restrict__ flag, const float* __restrict__ g,
+                                     float* __restrict__ partial, int64_t row_len, int slices,
+                                     int Tn, int C) {
+  bwd_partial_body(u8, delta, flag, g, partial, row_len, slices, Tn, C, int64_t(Tn) * C);
+}
+
+// flag * the partials of (t,c) summed over clips [b0, b1), then slices, in order
+__device__ __forceinline__ float final_sum(const float* __restrict__ partial, float flag,
+                                           int64_t b0, int64_t b1, int slices, int Tn, int C,
+                                           int t, int c) {
+  float v = 0.0f;
+  for (int64_t b = b0; b < b1; ++b) {
+    const float* p = partial + ((b * Tn + t) * slices) * C + c;
+    for (int s = 0; s < slices; ++s) v += p[int64_t(s) * C];
+  }
+  return __fmul_rn(flag, v);
+}
+
 // One thread per (t,c): dd[t,c] = flag * sum over b, then slices, in order.
 __global__ void __launch_bounds__(fav::kThreads)
 fused_apply_bwd_final_kernel(const float* __restrict__ partial, const float* __restrict__ flag,
                              float* __restrict__ dd, int64_t B, int slices, int Tn, int C) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= Tn * C) return;
-  const int t = i / C, c = i % C;
-  float v = 0.0f;
-  for (int64_t b = 0; b < B; ++b) {
-    const float* p = partial + ((b * Tn + t) * slices) * C + c;
-    for (int s = 0; s < slices; ++s) v += p[int64_t(s) * C];
+  dd[i] = final_sum(partial, *flag, 0, B, slices, Tn, C, i / C, i % C);
+}
+
+// B8c: one thread per (b,t,c): dd[b,t,c] = flag * the sum of clip b's
+// partials over the slices, in order
+__global__ void __launch_bounds__(fav::kThreads)
+fused_apply_clips_bwd_final_kernel(const float* __restrict__ partial,
+                                   const float* __restrict__ flag, float* __restrict__ dd,
+                                   int64_t B, int slices, int Tn, int C) {
+  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= B * Tn * C) return;
+  const int64_t b = i / (int64_t(Tn) * C);
+  const int r = int(i - b * Tn * C);
+  dd[i] = final_sum(partial, *flag, b, b + 1, slices, Tn, C, r / C, r % C);
+}
+
+int fwd_launch(const void* u8, const void* delta, const void* flag, void* out, int64_t B,
+               int64_t T, int64_t row_len, int64_t C, bool per_clip, cudaStream_t s) {
+  const int64_t n = B * T * row_len;
+  if (n == 0) return 0;
+  const size_t smem = size_t(T) * C * sizeof(float);
+  if (C <= 0 || T <= 0 || row_len % C || smem > 48 * 1024 || (per_clip && B > 65535))
+    return int(cudaErrorInvalidValue);
+  if (!fav::aligned16(u8) || !fav::aligned16(out)) return int(cudaErrorMisalignedAddress);
+  const uint8_t* u = static_cast<const uint8_t*>(u8);
+  const float* d = static_cast<const float*>(delta);
+  const float* f = static_cast<const float*>(flag);
+  float* o = static_cast<float*>(out);
+  if (per_clip) {
+    const int64_t clip_n = T * row_len;
+    const dim3 grid(fav::grid_for(clip_n / 16 + 1), unsigned(B));
+    fused_apply_clips_fwd_kernel<<<grid, fav::kThreads, smem, s>>>(u, d, f, o, clip_n, row_len,
+                                                                    int(T), int(C));
+  } else {
+    fused_apply_fwd_kernel<<<fav::grid_for(n / 16 + 1), fav::kThreads, smem, s>>>(
+        u, d, f, o, n, row_len, int(T), int(C));
   }
-  dd[i] = __fmul_rn(*flag, v);
+  return int(cudaGetLastError());
+}
+
+int bwd_launch(const void* u8, const void* delta, const void* flag, const void* g,
+               void* partial, void* dd, int64_t B, int64_t T, int64_t row_len, int64_t C,
+               int64_t slices, bool per_clip, cudaStream_t s) {
+  if (C <= 0 || C > kMaxC || row_len % C || T <= 0 || B <= 0 || row_len <= 0)
+    return int(cudaErrorInvalidValue);
+  if (slices != (row_len + kSlice - 1) / kSlice) return int(cudaErrorInvalidValue);
+  const int64_t blocks = B * T * slices;
+  if (blocks > (int64_t(1) << 31) - 1) return int(cudaErrorInvalidValue);
+  if (!fav::aligned16(u8) || !fav::aligned16(g)) return int(cudaErrorMisalignedAddress);
+  const uint8_t* u = static_cast<const uint8_t*>(u8);
+  const float* d = static_cast<const float*>(delta);
+  const float* f = static_cast<const float*>(flag);
+  const float* gp = static_cast<const float*>(g);
+  float* p = static_cast<float*>(partial);
+  float* o = static_cast<float*>(dd);
+  if (per_clip)
+    fused_apply_clips_bwd_partial_kernel<<<unsigned(blocks), fav::kThreads, 0, s>>>(
+        u, d, f, gp, p, row_len, int(slices), int(T), int(C));
+  else
+    fused_apply_bwd_partial_kernel<<<unsigned(blocks), fav::kThreads, 0, s>>>(
+        u, d, f, gp, p, row_len, int(slices), int(T), int(C));
+  int code = int(cudaGetLastError());
+  if (code) return code;
+  const int64_t n_out = (per_clip ? B : 1) * T * C;
+  const unsigned grid = unsigned((n_out + fav::kThreads - 1) / fav::kThreads);
+  if (per_clip)
+    fused_apply_clips_bwd_final_kernel<<<grid, fav::kThreads, 0, s>>>(p, f, o, B, int(slices),
+                                                                       int(T), int(C));
+  else
+    fused_apply_bwd_final_kernel<<<grid, fav::kThreads, 0, s>>>(p, f, o, B, int(slices), int(T),
+                                                                 int(C));
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -164,19 +302,8 @@ fused_apply_bwd_final_kernel(const float* __restrict__ partial, const float* __r
 // device, out f32 like u8.
 FAV_API int fav_fused_apply_fwd(const void* u8, const void* delta, const void* flag, void* out,
                                 int64_t B, int64_t T, int64_t row_len, int64_t C, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n = B * T * row_len;
-  if (n == 0) return 0;
-  const size_t smem = size_t(T) * C * sizeof(float);
-  if (C <= 0 || row_len % C || smem > 48 * 1024) return int(cudaErrorInvalidValue);
-  const uint8_t* u = static_cast<const uint8_t*>(u8);
-  const float* d = static_cast<const float*>(delta);
-  const float* f = static_cast<const float*>(flag);
-  float* o = static_cast<float*>(out);
-  if (!fav::aligned16(u8) || !fav::aligned16(out)) return int(cudaErrorMisalignedAddress);
-  fused_apply_fwd_kernel<<<fav::grid_for(n / 16 + 1), fav::kThreads, smem, s>>>(
-      u, d, f, o, n, row_len, int(T), int(C));
-  return int(cudaGetLastError());
+  return fwd_launch(u8, delta, flag, out, B, T, row_len, C, false,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // g f32 like u8; partial [B*T, slices, C] f32 scratch, slices =
@@ -184,24 +311,22 @@ FAV_API int fav_fused_apply_fwd(const void* u8, const void* delta, const void* f
 FAV_API int fav_fused_apply_bwd(const void* u8, const void* delta, const void* flag, const void* g,
                                 void* partial, void* dd, int64_t B, int64_t T, int64_t row_len,
                                 int64_t C, int64_t slices, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C <= 0 || C > kMaxC || row_len % C || T <= 0 || B <= 0 || row_len <= 0)
-    return int(cudaErrorInvalidValue);
-  if (slices != (row_len + kSlice - 1) / kSlice) return int(cudaErrorInvalidValue);
-  const int64_t blocks = B * T * slices;
-  if (blocks > (int64_t(1) << 31) - 1) return int(cudaErrorInvalidValue);
-  const uint8_t* u = static_cast<const uint8_t*>(u8);
-  const float* d = static_cast<const float*>(delta);
-  const float* f = static_cast<const float*>(flag);
-  const float* gp = static_cast<const float*>(g);
-  float* p = static_cast<float*>(partial);
-  if (!fav::aligned16(u8) || !fav::aligned16(g)) return int(cudaErrorMisalignedAddress);
-  fused_apply_bwd_partial_kernel<<<unsigned(blocks), fav::kThreads, 0, s>>>(
-      u, d, f, gp, p, row_len, int(slices), int(T), int(C));
-  int code = int(cudaGetLastError());
-  if (code) return code;
-  const int n_out = int(T * C);
-  fused_apply_bwd_final_kernel<<<(n_out + fav::kThreads - 1) / fav::kThreads, fav::kThreads, 0, s>>>(
-      p, f, static_cast<float*>(dd), B, int(slices), int(T), int(C));
-  return int(cudaGetLastError());
+  return bwd_launch(u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, false,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// B8c: as fav_fused_apply_fwd with delta [B,T,C], a row a clip.
+FAV_API int fav_fused_apply_clips_fwd(const void* u8, const void* delta, const void* flag,
+                                      void* out, int64_t B, int64_t T, int64_t row_len, int64_t C,
+                                      void* stream) {
+  return fwd_launch(u8, delta, flag, out, B, T, row_len, C, true,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// B8c: as fav_fused_apply_bwd with delta [B,T,C] and dd [B,T,C].
+FAV_API int fav_fused_apply_clips_bwd(const void* u8, const void* delta, const void* flag,
+                                      const void* g, void* partial, void* dd, int64_t B, int64_t T,
+                                      int64_t row_len, int64_t C, int64_t slices, void* stream) {
+  return bwd_launch(u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, true,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -47,8 +47,10 @@ gradient), Adam's bias corrections are per slot, and inactive slots keep
 their delta, moments and count.  A slot's max_norm (the mean/std world's
 bound, [N]) and its rolls' seed [N] come with it; the packed head takes B7's
 per-clip form.  The loss terms and metrics are the un-slotted functions
-``torch.func.vmap``-ed over the slots.  ``use_pallas_fused`` on uint8 clips
-raises there: B8 has no per-clip form.
+``torch.func.vmap``-ed over the slots.  With ``use_pallas_fused`` the uint8
+clips take B8's per-clip form, B8c (``ops/fused_apply``: delta [N,T,1,1,C],
+d(delta) a clip; the JAX sweep vmaps ``fused_normalize_perturb`` over the
+slots); float clips keep the generic path, as without slots.
 
 The mean/std world (``AttackConfig.norm_world='meanstd'``, the video
 ResNets; ``TorchStyleFlickerSpec``): uint8 clips become (x/255 - mean)/std
@@ -398,11 +400,11 @@ class AttackEngine:
         packed: clip/mask delta -> input head -> trunk (the clean forward
         goes through the same head with flag 0, delta 0).  Else the generic
         path (with the cyclic rolls of `counter` when they are compiled in);
-        `train` with use_pallas_fused takes kernel B8 on uint8.  `scalars` is
-        the static flag buffer (SCALARS' order).  A slotted delta [N,
-        *spec.shape] perturbs clip i of the batch by delta[i], with per-slot
-        `max_norm`, `seed` and `counter` [N]."""
-        slotted = delta is not None and delta.dim() == len(self.spec.shape) + 1
+        `train` with use_pallas_fused takes kernel B8 on uint8 (B8c with a
+        slotted delta).  `scalars` is the static flag buffer (SCALARS'
+        order).  A slotted delta [N, *spec.shape] perturbs clip i of the
+        batch by delta[i], with per-slot `max_norm`, `seed` and `counter`
+        [N]."""
         adv_flag = scalars[SCALARS.index("adv_flag")]
         if packed:
             if delta is None:
@@ -418,11 +420,7 @@ class AttackEngine:
         cfg = self.config
         if (train and cfg.use_pallas_fused and not cfg.enable_cyclic
                 and video.dtype == torch.uint8):
-            if slotted:
-                raise NotImplementedError(
-                    "use_pallas_fused with slots: kernel B8 (ops/fused_apply) takes one delta "
-                    "for the batch and has no per-clip form yet (ROADMAP.md queue B); turn "
-                    "USE_PALLAS_FUSED off, or run one clip at a time")
+            # B8; a slotted delta [N, T,1,1,C] takes its per-clip form B8c
             adv = fused_normalize_perturb(video, self._applied_delta(delta), adv_flag)
             return self._apply_model(adv)
         x = self._normalize(video)

@@ -29,12 +29,19 @@ def kernel_wrappers():
 
 def launch_counters():
     """(name, wrapper, attribute) of every launch count: each wrapper's
-    `launches`, then B7's launches with a delta a clip (its `clip_launches`,
-    the vectorized sweep's), counted apart too."""
+    `launches`, then the launches with a delta a clip (the vectorized
+    sweep's) of B7 and B8 (their `clip_launches`).  B7's `launches` counts
+    B7c's too (one kernel); B8's counts only the shared delta's, since B8c
+    has kernels of its own."""
     wrappers = kernel_wrappers()
+    by_name = dict(wrappers)
     return tuple((name, fn, "launches") for name, fn in wrappers) + (
-        ("B7c emit_adv_mask, a delta a clip", dict(wrappers)["B7 emit_adv_mask"],
-         "clip_launches"),)
+        ("B7c emit_adv_mask, a delta a clip", by_name["B7 emit_adv_mask"], "clip_launches"),
+        ("B8cf fused_apply_fwd, a delta a clip", by_name["B8f fused_apply_fwd"],
+         "clip_launches"),
+        ("B8cb fused_apply_bwd, a delta a clip", by_name["B8b fused_apply_bwd"],
+         "clip_launches"),
+    )
 
 
 def launch_counts() -> dict:

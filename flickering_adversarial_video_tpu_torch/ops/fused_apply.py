@@ -29,6 +29,23 @@ backward is deterministic: per-block partials in a fixed order, then a
 second kernel that sums them in a fixed order; it agrees with the plain
 version to f32 sum order (about 1e-5 of the largest component at
 [8,64,224,224,3]).  Both kernels are bound by bytes on the H100.
+
+B8c, a delta a clip (the vectorized sweep's slots): with delta
+[B,T,1,1,C], clip b of the batch takes row b (the JAX sweep's
+``jax.vmap`` of ``fused_normalize_perturb`` over the slots, the flag
+shared), and the backward gives d(delta) [B,T,1,1,C], each clip's masked
+reduction over (H, W) alone.  The same kernel bodies with a delta clip
+stride (``csrc/fused_apply.cu``), under launchers and kernel names of
+their own; the wrappers count these launches apart, as ``clip_launches``
+(``launches`` counts the shared delta's).  A clip's forward and d(delta)
+are bit for bit the shared-delta kernels' on that clip alone.
+
+Geometry: the JAX per-slot call has B = 1, so its ``_supported`` takes the
+Pallas kernel only where ``T % 8 == 0`` and ``H*W*C % 128 == 0``; at any
+other geometry (the single-video clip's T = 90) the JAX sweep runs
+``_jnp_reference``, whose gradient is 0.5 at an exact bound.  The port
+runs the kernel's strict rule at every geometry, slotted or not (a
+standing difference, ROADMAP.md queue C).
 """
 
 from __future__ import annotations
@@ -41,9 +58,14 @@ SLICE = 16 * 256 * 4   # elements of a row per backward block; csrc kSlice
 MAX_CHANNELS = 4       # csrc kMaxC
 
 
+def _per_clip(delta: torch.Tensor) -> bool:
+    return delta.dim() == 5
+
+
 def _pre(video_u8: torch.Tensor, delta: torch.Tensor, adv_flag: torch.Tensor) -> torch.Tensor:
     x = video_u8.float() * (1.0 / 128.0) - 1.0
-    return x + adv_flag.float() * delta.float()[None]
+    d = delta.float() if _per_clip(delta) else delta.float()[None]
+    return x + adv_flag.float() * d
 
 
 def fused_apply_fwd_plain(video_u8, delta, adv_flag) -> torch.Tensor:
@@ -53,7 +75,8 @@ def fused_apply_fwd_plain(video_u8, delta, adv_flag) -> torch.Tensor:
 def fused_apply_bwd_plain(video_u8, delta, adv_flag, g) -> torch.Tensor:
     pre = _pre(video_u8, delta, adv_flag)
     mask = (pre < 1.0) & (pre > -1.0)
-    dd = torch.where(mask, g.float(), g.new_zeros((), dtype=torch.float32)).sum(dim=(0, 2, 3))
+    dims = (2, 3) if _per_clip(delta) else (0, 2, 3)
+    dd = torch.where(mask, g.float(), g.new_zeros((), dtype=torch.float32)).sum(dim=dims)
     return (adv_flag.float() * dd).reshape(delta.shape)
 
 
@@ -61,9 +84,11 @@ def _check(video_u8, delta, adv_flag):
     if video_u8.dim() != 5 or video_u8.dtype != torch.uint8:
         raise TypeError(f"video must be uint8 [B,T,H,W,C], got {video_u8.dtype} "
                         f"{tuple(video_u8.shape)}")
-    t, c = video_u8.shape[1], video_u8.shape[4]
-    if tuple(delta.shape) != (t, 1, 1, c):
-        raise ValueError(f"delta {tuple(delta.shape)} is not [{t},1,1,{c}]")
+    b, t, c = video_u8.shape[0], video_u8.shape[1], video_u8.shape[4]
+    want = (b, t, 1, 1, c) if _per_clip(delta) else (t, 1, 1, c)
+    if tuple(delta.shape) != want:
+        raise ValueError(f"delta {tuple(delta.shape)} is not {list(want)} (or [{t},1,1,{c}] "
+                         f"shared by the clips)")
     if adv_flag.numel() != 1:
         raise ValueError("adv_flag must hold one value")
 
@@ -79,31 +104,41 @@ def _operands(video_u8, delta, adv_flag):
 
 
 def fused_apply_fwd(video_u8, delta, adv_flag) -> torch.Tensor:
-    """B8 forward: uint8 [B,T,H,W,C], delta [T,1,1,C], adv_flag 0-d -> f32."""
+    """B8 forward: uint8 [B,T,H,W,C], delta [T,1,1,C] (or B8c: [B,T,1,1,C],
+    a row a clip), adv_flag 0-d -> f32.  `launches` counts the shared
+    delta's launches, `clip_launches` B8c's."""
     _check(video_u8, delta, adv_flag)
     if not video_u8.is_cuda:
         return fused_apply_fwd_plain(video_u8, delta, adv_flag)
+    per_clip = _per_clip(delta)
     u8, d, f = _operands(video_u8, delta, adv_flag)
     b, t, h, w, c = u8.shape
     out = torch.empty(u8.shape, dtype=torch.float32, device=u8.device)
     kernels.launch(
-        "fav_fused_apply_fwd", u8.data_ptr(), d.data_ptr(), f.data_ptr(), out.data_ptr(),
-        b, t, h * w * c, c, kernels.stream(),
+        "fav_fused_apply_clips_fwd" if per_clip else "fav_fused_apply_fwd", u8.data_ptr(),
+        d.data_ptr(), f.data_ptr(), out.data_ptr(), b, t, h * w * c, c, kernels.stream(),
     )
-    fused_apply_fwd.launches += 1
+    if per_clip:
+        fused_apply_fwd.clip_launches += 1
+    else:
+        fused_apply_fwd.launches += 1
     return out
 
 
 fused_apply_fwd.launches = 0
+fused_apply_fwd.clip_launches = 0
 
 
 def fused_apply_bwd(video_u8, delta, adv_flag, g) -> torch.Tensor:
-    """B8 backward: d(delta) [T,1,1,C] f32 from the upstream gradient g."""
+    """B8 backward: d(delta) f32 of delta's shape ([T,1,1,C], or B8c's
+    [B,T,1,1,C]) from the upstream gradient g.  `launches` counts the
+    shared delta's launches, `clip_launches` B8c's."""
     _check(video_u8, delta, adv_flag)
     if g.shape != video_u8.shape:
         raise ValueError(f"g {tuple(g.shape)} does not match the video {tuple(video_u8.shape)}")
     if not video_u8.is_cuda:
         return fused_apply_bwd_plain(video_u8, delta, adv_flag, g)
+    per_clip = _per_clip(delta)
     u8, d, f = _operands(video_u8, delta, adv_flag)
     b, t, h, w, c = u8.shape
     if c > MAX_CHANNELS:
@@ -113,16 +148,21 @@ def fused_apply_bwd(video_u8, delta, adv_flag, g) -> torch.Tensor:
     row_len = h * w * c
     slices = max(1, -(-row_len // SLICE))
     partial = torch.empty((b * t, slices, c), dtype=torch.float32, device=u8.device)
-    dd = torch.empty((t, 1, 1, c), dtype=torch.float32, device=u8.device)
+    dd = torch.empty(delta.shape, dtype=torch.float32, device=u8.device)
     kernels.launch(
-        "fav_fused_apply_bwd", u8.data_ptr(), d.data_ptr(), f.data_ptr(), g.data_ptr(),
-        partial.data_ptr(), dd.data_ptr(), b, t, row_len, c, slices, kernels.stream(),
+        "fav_fused_apply_clips_bwd" if per_clip else "fav_fused_apply_bwd", u8.data_ptr(),
+        d.data_ptr(), f.data_ptr(), g.data_ptr(), partial.data_ptr(), dd.data_ptr(), b, t,
+        row_len, c, slices, kernels.stream(),
     )
-    fused_apply_bwd.launches += 1
+    if per_clip:
+        fused_apply_bwd.clip_launches += 1
+    else:
+        fused_apply_bwd.launches += 1
     return dd
 
 
 fused_apply_bwd.launches = 0
+fused_apply_bwd.clip_launches = 0
 
 
 class _FusedNormalizePerturb(torch.autograd.Function):
@@ -146,9 +186,9 @@ class _FusedNormalizePerturb(torch.autograd.Function):
 
 def fused_normalize_perturb(video_u8, delta, adv_flag) -> torch.Tensor:
     """clip(u8/128-1 + adv_flag*delta, -1, 1) over uint8 [B,T,H,W,C] with
-    delta [T,1,1,C] (already value-clipped and frame-masked) and a 0-d
-    adv_flag tensor; f32 out, gradient to delta only (strict at the bounds,
-    see the module's notes)."""
+    delta [T,1,1,C] (already value-clipped and frame-masked), or [B,T,1,1,C]
+    with a delta a clip (B8c), and a 0-d adv_flag tensor; f32 out, gradient
+    to delta only (strict at the bounds, see the module's notes)."""
     return _FusedNormalizePerturb.apply(video_u8, delta, adv_flag, False)
 
 

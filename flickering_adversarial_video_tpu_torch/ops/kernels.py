@@ -61,6 +61,9 @@ SIGNATURES = {
     "fav_fused_apply_fwd": (_P,) * 4 + (_I,) * 4 + (_P,),
     # u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, stream
     "fav_fused_apply_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # B8c, delta [B,T,C]: as fav_fused_apply_fwd / _bwd (dd [B,T,C])
+    "fav_fused_apply_clips_fwd": (_P,) * 4 + (_I,) * 4 + (_P,),
+    "fav_fused_apply_clips_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
 }
 # the __global__ functions of csrc/ that each launcher starts, as a profiler
 # names them; tests/test_torch_port_kernels.py holds this against csrc/
@@ -76,6 +79,9 @@ KERNEL_SYMBOLS = {
     "fav_emit_adv_mask": ("emit_adv_mask_kernel",),
     "fav_fused_apply_fwd": ("fused_apply_fwd_kernel",),
     "fav_fused_apply_bwd": ("fused_apply_bwd_partial_kernel", "fused_apply_bwd_final_kernel"),
+    "fav_fused_apply_clips_fwd": ("fused_apply_clips_fwd_kernel",),
+    "fav_fused_apply_clips_bwd": ("fused_apply_clips_bwd_partial_kernel",
+                                  "fused_apply_clips_bwd_final_kernel"),
 }
 
 

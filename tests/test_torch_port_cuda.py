@@ -413,6 +413,41 @@ class TestKernelsOnCard:
                                            dtype)
         assert torch.equal(shared[0], clips[0]) and torch.equal(shared[1], clips[1])
 
+    # whole vectors in every clip / clips of 3*5*7*3 elements: one at a time;
+    # a row of 80*80*3 elements: two backward slices
+    @pytest.mark.parametrize("shape", [(3, 8, 16, 16, 3), (2, 3, 5, 7, 3), (2, 2, 80, 80, 3)])
+    def test_fused_apply_b8_per_clip(self, shape):
+        """B8c (delta [B,T,1,1,C]): each clip's forward and d(delta) bit-equal
+        to the shared-delta B8 launched on that clip alone; against the plain
+        version (forward bit-equal, d(delta) to f32 sum order); its launches
+        counted apart from B8's."""
+        gen = torch.Generator().manual_seed(3)
+        u8 = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+        u8[1, 1, 2, 3, 1] = 0
+        delta = torch.randn(shape[0], shape[1], 1, 1, 3, generator=gen) * 0.3
+        delta[1, 1] = 0.0  # clip 1, frame 1: the black pixel sits exactly on -1
+        g = torch.randn(shape, generator=gen)
+        flag = torch.tensor(0.7)
+        cu = [t.cuda() for t in (u8, delta, flag)]
+        fwd, bwd = fused_apply.fused_apply_fwd, fused_apply.fused_apply_bwd
+        n = (fwd.launches, fwd.clip_launches, bwd.launches, bwd.clip_launches)
+        out = fwd(*cu)
+        dd = bwd(*cu, g.cuda())
+        assert (fwd.launches, fwd.clip_launches, bwd.launches, bwd.clip_launches) == (
+            n[0], n[1] + 1, n[2], n[3] + 1)
+        assert dd.shape == delta.shape and torch.equal(dd, bwd(*cu, g.cuda()))
+        for i in range(shape[0]):  # each clip on its own, 16-byte aligned
+            one = (cu[0][i:i + 1].clone(), cu[1][i], cu[2])
+            assert torch.equal(out[i:i + 1], fwd(*one))
+            assert torch.equal(dd[i], bwd(*one, g[i:i + 1].cuda()))
+        assert torch.equal(out.cpu(), fused_apply.fused_apply_fwd_plain(u8, delta, flag))
+        _close(dd.cpu().numpy(), fused_apply.fused_apply_bwd_plain(u8, delta, flag, g).numpy(),
+               1e-5)
+        d = delta.cuda().requires_grad_(True)
+        fused_apply.fused_normalize_perturb(cu[0], d, cu[2]).backward(g.cuda())
+        assert torch.equal(d.grad, dd)
+
+
 # the graphed train step at a small I3D: B=2, T=8, 32x32, 11 classes, bf16
 G_CLASSES, G_FRAMES = 11, 8
 G_STEPS = ("packed", "fused", "float")  # input head B7 + B1 / kernel B8 / a float clip

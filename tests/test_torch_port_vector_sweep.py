@@ -2,8 +2,9 @@
 CPU: held against the JAX package's ``engine/vector_sweep.py`` and against
 the port's own sequential sweeps (``engine/sweep.fit_many_videos``,
 ``engine/loops.single_video_attack``), with its pieces: the per-slot
-regularizers, metrics, losses and perturbations, kernel B7's per-clip plain
-form, the slotted packed head, the slot step, and the two runners' slots.
+regularizers, metrics, losses and perturbations, kernel B7's and kernel B8's
+per-clip plain forms, the slotted packed head, the slot step (also through
+B8's per-clip form), and the two runners' slots.
 
 The sweeps run on linear victims (the clip's mean colour times a fixed [3,
 40] matrix), as the JAX package's tests/test_vector_sweep.py builds them, in
@@ -15,7 +16,10 @@ atol 2e-5 / rtol 1e-4, delta histories 1e-4 absolute (the batched forward's
 f32 reassociation); step counts, is_adversarial, escalations, ledgers and
 result schemas exactly; the vmapped reductions against their per-clip forms
 and the JAX vmap to 1e-6 relative, the engine's slot terms and the
-elementwise functions bit for bit; B7's plain form bit for bit.
+elementwise functions bit for bit; B7's plain form bit for bit; B8's per-clip
+plain form against the vmapped JAX kernel as tests/test_torch_port_fused_apply.py
+holds the shared form (forward 1e-6 absolute, d(delta) 1e-5 absolute plus
+1e-6 relative).
 """
 
 import contextlib
@@ -38,6 +42,8 @@ from flickering_adversarial_video_tpu.engine import AttackEngine as JEngine
 from flickering_adversarial_video_tpu.engine import RuntimeFlags as JFlags
 from flickering_adversarial_video_tpu.engine import vector_sweep as jvs
 from flickering_adversarial_video_tpu.ops import stem_tmajor as jst
+from flickering_adversarial_video_tpu.ops.fused_apply import _supported as jfused_supported
+from flickering_adversarial_video_tpu.ops.fused_apply import fused_normalize_perturb as jfused
 from flickering_adversarial_video_tpu_torch.attack import FlickerSpec, SparseSpec
 from flickering_adversarial_video_tpu_torch.attack import TorchStyleFlickerSpec
 from flickering_adversarial_video_tpu_torch.attack import metrics as tmetrics
@@ -51,7 +57,7 @@ from flickering_adversarial_video_tpu_torch.engine import loops as tloops
 from flickering_adversarial_video_tpu_torch.engine import sweep as tsweep
 from flickering_adversarial_video_tpu_torch.engine import vector_sweep as tvs
 from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
-from flickering_adversarial_video_tpu_torch.ops import packed_apply
+from flickering_adversarial_video_tpu_torch.ops import fused_apply, packed_apply
 from flickering_adversarial_video_tpu_torch.parallel.mesh import Mesh
 from flickering_adversarial_video_tpu_torch.runners import common as tcommon
 from flickering_adversarial_video_tpu_torch.runners import single_video as tsingle
@@ -349,6 +355,94 @@ class TestEmitB7PerClip:
         np.testing.assert_allclose(float(df), flags, rtol=1e-5)
 
 
+class TestFusedB8PerClip:
+    """B8c: kernel B8 with a delta a clip ([S,T,1,1,C]), the JAX sweep's
+    ``jax.vmap`` of ``fused_normalize_perturb`` over the slots (a clip a
+    call, the flag shared), held where the JAX call takes its Pallas kernel
+    (B = 1: T % 8 == 0, H*W*C % 128 == 0), in interpret mode off the TPU."""
+
+    S, T, H, W, C = 3, 8, 16, 16, 3
+
+    def _data(self, seed=31):
+        rng = np.random.default_rng(seed)
+        video = rng.integers(0, 256, (self.S, self.T, self.H, self.W, self.C), dtype=np.uint8)
+        delta = (rng.normal(size=(self.S, self.T, 1, 1, self.C)) * 0.5).astype(np.float32)
+        video[1, 2, 3, 4, 0], delta[1, 2, 0, 0, 0] = 0, 0.0  # exactly on -1: 0 gradient
+        return video, delta
+
+    @staticmethod
+    def _jax(flag):
+        return jax.vmap(lambda x, d: jfused(x[None], d, jnp.float32(flag))[0])
+
+    @pytest.mark.parametrize("flag", [1.0, 0.0])
+    def test_plain_form_against_vmapped_pallas_interpret(self, flag):
+        video, delta = self._data()
+        assert jfused_supported((1,) + video.shape[1:])
+        fn = self._jax(flag)
+        want = fn(jnp.asarray(video), jnp.asarray(delta))
+        got = fused_apply.fused_normalize_perturb(torch.from_numpy(video),
+                                                  torch.from_numpy(delta), torch.tensor(flag))
+        assert fused_apply.fused_apply_fwd.clip_launches == 0  # CPU: the plain version
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
+        def loss(d):
+            out = fn(jnp.asarray(video), d)
+            return jnp.sum(out * jnp.cos(out))
+
+        want_dd = np.asarray(jax.grad(loss)(jnp.asarray(delta)))
+        d = torch.from_numpy(delta).requires_grad_(True)
+        out = fused_apply.fused_normalize_perturb(torch.from_numpy(video), d, torch.tensor(flag))
+        (out * torch.cos(out)).sum().backward()
+        assert d.grad.shape == delta.shape
+        if flag:
+            assert np.abs(want_dd).max() > 1.0
+        np.testing.assert_allclose(d.grad.numpy(), want_dd, atol=1e-5, rtol=1e-6)
+
+    def test_each_clip_is_the_shared_form_on_that_clip(self):
+        """A clip's forward and d(delta) are the shared-delta B8's on that
+        clip alone, bit for bit; one delta for every clip gives the shared
+        form's forward."""
+        video, delta = self._data(32)
+        u8, dl = torch.from_numpy(video), torch.from_numpy(delta)
+        flag = torch.tensor(0.7)
+        g = torch.from_numpy(np.random.default_rng(33).normal(size=video.shape).astype(np.float32))
+        fwd = fused_apply.fused_apply_fwd(u8, dl, flag)
+        dd = fused_apply.fused_apply_bwd(u8, dl, flag, g)
+        for i in range(self.S):
+            assert torch.equal(fwd[i:i + 1], fused_apply.fused_apply_fwd(u8[i:i + 1], dl[i], flag))
+            assert torch.equal(dd[i], fused_apply.fused_apply_bwd(u8[i:i + 1], dl[i], flag,
+                                                                   g[i:i + 1]))
+        one = dl[:1].expand_as(dl)
+        assert torch.equal(fused_apply.fused_apply_fwd(u8, one, flag),
+                           fused_apply.fused_apply_fwd(u8, dl[0], flag))
+
+    def test_operand_checks(self):
+        u8 = torch.zeros(2, 4, 2, 2, 3, dtype=torch.uint8)
+        with pytest.raises(ValueError, match="delta"):
+            fused_apply.fused_apply_fwd(u8, torch.zeros(3, 4, 1, 1, 3), torch.tensor(1.0))
+        with pytest.raises(ValueError, match="delta"):
+            fused_apply.fused_apply_bwd(u8, torch.zeros(2, 4, 1, 2, 3), torch.tensor(1.0),
+                                        torch.zeros(2, 4, 2, 2, 3))
+        with pytest.raises(TypeError):
+            fused_apply.fused_apply_fwd(u8.float(), torch.zeros(2, 4, 1, 1, 3), torch.tensor(1.0))
+        with pytest.raises(ValueError, match="g "):
+            fused_apply.fused_apply_bwd(u8, torch.zeros(2, 4, 1, 1, 3), torch.tensor(1.0),
+                                        torch.zeros(1, 4, 2, 2, 3))
+
+    def test_fused_slot_step_is_each_clips_step(self):
+        """use_pallas_fused on uint8 clips: each slot's new delta, moments and
+        losses are its clip's own fused step's (B8 on that clip alone)."""
+        te = AttackEngine(LinearVictim(), FlickerSpec(FRAMES), AttackConfig(use_pallas_fused=True),
+                          track_probs=True)
+        rng = np.random.default_rng(34)
+        videos = torch.from_numpy(rng.integers(0, 256, (3, FRAMES, SIZE, SIZE, 3),
+                                               dtype=np.uint8))
+        labels = LinearVictim()(videos.float() / 128.0 - 1.0).argmax(-1)
+        assert not te.prepare_batch({"video": videos, "labels": labels})[1]  # unpacked
+        _slot_step_matches_sequential(te, videos, labels, [1.0] * 3, [0, 1, 2],
+                                      [True, True, False])
+
+
 # ---------------- the slot step ----------------
 
 def _slot_state(engine, n, rng, counts):
@@ -422,19 +516,32 @@ class TestSlotStep:
 
 
     def test_fused_kernel_with_slots_raises(self):
-        """use_pallas_fused on uint8 clips: kernel B8 takes one delta for the
-        batch, so the slot step refuses it (a float clip takes the generic
-        path, as without slots)."""
-        te = AttackEngine(LinearVictim(), FlickerSpec(FRAMES), AttackConfig(use_pallas_fused=True))
-        clips = np.random.default_rng(2).integers(0, 256, (2, FRAMES, SIZE, SIZE, 3),
+        """use_pallas_fused on uint8 clips: the slot step takes B8's per-clip
+        form (it refused before B8c existed); a chunk gives what the generic
+        path gives (no clip sits on a bound here, where B8's strict rule
+        differs), and a float clip takes the generic path, as without
+        slots."""
+        fused = AttackEngine(LinearVictim(), FlickerSpec(FRAMES),
+                             AttackConfig(use_pallas_fused=True))
+        plain = AttackEngine(LinearVictim(), FlickerSpec(FRAMES), AttackConfig())
+        clips = np.random.default_rng(2).integers(1, 256, (2, FRAMES, SIZE, SIZE, 3),
                                                   dtype=np.uint8)
-        vse = tvs.VectorSweepEngine(te, 2, n_iter=2, stop="reference")
+        args = (torch.zeros(2, dtype=torch.long), torch.arange(2), RuntimeFlags(), 2)
+        runs = []
+        for te in (fused, plain):
+            vse = tvs.VectorSweepEngine(te, 2, n_iter=2, stop="reference")
+            state = vse.init_slots()
+            for i in range(2):
+                vse.refill_slot(state, i, i, 0.2)
+            runs.append(vse.run_chunk(state, torch.from_numpy(clips), *args)[1])
+        assert set(runs[0]) == set(runs[1]) and bool(runs[0]["active"].all())
+        for k in runs[0]:
+            np.testing.assert_allclose(runs[0][k].float().numpy(), runs[1][k].float().numpy(),
+                                       rtol=1e-6, atol=1e-7, err_msg=k)
+        vse = tvs.VectorSweepEngine(fused, 2, n_iter=2, stop="reference")
         state = vse.init_slots()
         for i in range(2):
             vse.refill_slot(state, i, i, 0.2)
-        args = (torch.zeros(2, dtype=torch.long), torch.arange(2), RuntimeFlags(), 2)
-        with pytest.raises(NotImplementedError, match="B8"):
-            vse.run_chunk(state, torch.from_numpy(clips), *args)
         floats, _ = tanh_clips(2)
         state, ys = vse.run_chunk(state, torch.from_numpy(np.stack(floats)), *args)
         assert bool(ys["active"].all())
