@@ -13,8 +13,11 @@ ranks of a torchrun launch (``engine/vector_sweep.py``): rank r attacks clips
 r, r + W, ... with slots / W slots, each clip with its seed, and writes its
 own pkls; at one rank it changes nothing, and at one slot the JAX package
 ignores it, as the port does at W = 1.  A run of several ranks without that
-split (one slot, or no ``--mesh``) is refused.  Not ported yet, raising: the
-live dashboard (``dashboard_path``; ROADMAP.md queue A item 13).
+split (one slot, or no ``--mesh``) is refused.  ``dashboard_path`` draws the
+live dashboard (``viz/live.py``, a PNG refreshed every 100 steps) for each
+clip; it is per clip, so with several slots the runner warns and goes on
+without it, as the JAX runner does.  It needs matplotlib (a host tool: the
+card's machine has none).
 
 Usage: python -m flickering_adversarial_video_tpu_torch.runners.single_video [run_config.yml]
        torchrun --nproc-per-node N -m flickering_adversarial_video_tpu_torch.runners.single_video \
@@ -45,10 +48,6 @@ def run(cfg, *, frames: int = 90, size=None, stop_rule: str = "reference", max_v
     if slots == 1:
         slots = int(attack_cfg.get("SLOTS", 1))
     split = mesh_lib.slot_split("the single-video runner", use_mesh, slots)
-    if dashboard_path:
-        raise NotImplementedError(
-            "the live dashboard (viz/live.py) is ROADMAP.md queue A item 13"
-        )
     # a clip at a time: the engine has no mesh (the sweep splits the slots)
     engine, labels = build_engine(attack_cfg, cfg.MODEL, frames=frames, size=size, device=device,
                                   use_mesh=False)
@@ -63,6 +62,9 @@ def run(cfg, *, frames: int = 90, size=None, stop_rule: str = "reference", max_v
     written = []
     videos = list_npy_videos(npy_path)[:max_videos]
     if slots > 1:
+        if dashboard_path:
+            print("[warn] live dashboard is per-clip and not supported with "
+                  "SLOTS > 1; continuing without it")
         mesh = mesh_lib.make_mesh(device) if split else None
         return _run_vectorized(engine, labels, attack_cfg, flags, videos, result_path,
                                frames=frames, slots=slots, stop_rule=stop_rule, mesh=mesh)
@@ -76,6 +78,12 @@ def run(cfg, *, frames: int = 90, size=None, stop_rule: str = "reference", max_v
         target_label = None
         if attack_cfg.TARGETED_ATTACK:
             target_label = labels.index(attack_cfg.TARGETED_CLASS)
+        log_fn = None
+        if dashboard_path:
+            from ..viz.live import LiveDashboard
+
+            log_fn = LiveDashboard(title=correct_cls, save_path=dashboard_path,
+                                   refresh_every=100).update
         res = single_video_attack(
             engine,
             clip,
@@ -85,6 +93,7 @@ def run(cfg, *, frames: int = 90, size=None, stop_rule: str = "reference", max_v
             max_step=int(attack_cfg.MAX_NUM_STEP),
             stop_rule=stop_rule,
             seed=k,
+            log_fn=log_fn,
         )
         if res is None:
             print(f"skip video {video_path}: clean model misclassifies")

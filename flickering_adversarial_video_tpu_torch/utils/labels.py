@@ -1,12 +1,12 @@
-"""Label maps: Kinetics-400 and Kinetics-600.
+"""Label maps: Kinetics-400, Kinetics-600 and UCF-101.
 
 The port's own copy of the JAX package's ``utils/labels.py``, cut to what the
 I3D runners use.  The reference keeps its label maps as line-per-class text
-files; the Kinetics-400 class names are embedded here and the Kinetics-600
-list is the port's own copy of the JAX package's file
-(``label_maps/label_map_600.txt``), so the package stands alone, and an
-external file in the same format loads through :func:`load_label_map`.  The
-UCF-101 list is not ported yet: asking for it raises.
+files; the Kinetics-400 class names are embedded here, and the Kinetics-600
+and UCF-101 lists are the port's own copies of the JAX package's files
+(``label_maps/label_map_600.txt``, ``label_maps/label_map_ucf_101.txt``), so
+the package stands alone; an external file in the same format loads through
+:func:`load_label_map`.
 """
 
 from __future__ import annotations
@@ -422,12 +422,21 @@ def kinetics400_labels() -> List[str]:
     return _KINETICS400.split("\n")
 
 
+def _read_label_map(name: str) -> List[str]:
+    path = os.path.join(os.path.dirname(__file__), "label_maps", name)
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
 def kinetics600_labels() -> List[str]:
     """Kinetics-600 class names (the reference's data/label_map_600.txt,
     used with eval_type 'rgb600')."""
-    path = os.path.join(os.path.dirname(__file__), "label_maps", "label_map_600.txt")
-    with open(path) as f:
-        return [line.strip() for line in f if line.strip()]
+    return _read_label_map("label_map_600.txt")
+
+
+def ucf101_labels() -> List[str]:
+    """UCF-101 class names (the reference's data/label_map_ucf_101.txt)."""
+    return _read_label_map("label_map_ucf_101.txt")
 
 
 def labels_for_num_classes(num_classes: int) -> List[str]:
@@ -440,9 +449,7 @@ def labels_for_num_classes(num_classes: int) -> List[str]:
     if num_classes == 600:
         return kinetics600_labels()
     if num_classes == 101:
-        raise NotImplementedError(
-            "the UCF-101 label map is not ported yet (ROADMAP.md queue A item 13)"
-        )
+        return ucf101_labels()
     return [f"class_{i:03d}" for i in range(num_classes)]
 
 

@@ -92,14 +92,10 @@ class TestLabelsAndRegistry:
 
     @pytest.mark.parametrize("n", [600, 101])
     def test_unported_label_maps_raise(self, n):
-        """Kinetics-600 is ported (the rgb600 victims) and equals the JAX
-        package's map; UCF-101 still raises."""
-        if n == 600:
-            assert tlabels.labels_for_num_classes(n) == jlabels.labels_for_num_classes(n)
-            assert len(set(tlabels.labels_for_num_classes(n))) == 600
-        else:
-            with pytest.raises(NotImplementedError, match="item 13"):
-                tlabels.labels_for_num_classes(n)
+        """Kinetics-600 (the rgb600 victims) and UCF-101 are ported: each
+        equals the JAX package's map, a distinct name a class."""
+        assert tlabels.labels_for_num_classes(n) == jlabels.labels_for_num_classes(n)
+        assert len(set(tlabels.labels_for_num_classes(n))) == n
 
     def test_label_map_file(self, tmp_path):
         p = tmp_path / "map.txt"

@@ -320,21 +320,38 @@ class TestSingleVideoRunner:
     @pytest.mark.parametrize("kw,over,world,error,match", [
         # slots without --mesh under 2 ranks: no split, refused
         (dict(slots=2), {}, "2", ValueError, "--slots .* --mesh"),
-        (dict(dashboard_path="d.png"), {"SLOTS": 2}, None, NotImplementedError, "item 13"),
+        # the dashboard is per clip: with slots the runner warns and goes on
+        (dict(dashboard_path="d.png"), {"SLOTS": 2}, None, None, "[warn] live dashboard"),
         # --mesh at one slot under 2 ranks: no split, refused
         (dict(use_mesh=True), {}, "2", ValueError, "--slots .* --mesh"),
-        (dict(dashboard_path="d.png"), {}, None, NotImplementedError, "item 13"),
+        # one clip at a time: the dashboard's PNG
+        (dict(dashboard_path="d.png"), {}, None, None, "png"),
     ])
     def test_unported_options_raise(self, sv_runs, tmp_path, monkeypatch, kw, over, world,
                                     error, match):
-        """The dashboard is not ported (item 13); a torchrun launch of several
-        ranks without the slots' split is refused, naming it."""
+        """A torchrun launch of several ranks without the slots' split is
+        refused, naming it.  The live dashboard (error None) draws its PNG
+        one clip at a time, and with slots warns and goes on without it, as
+        the JAX runner does; the pkls are the run's without it."""
         _patch_victims(monkeypatch)
         if world is not None:
             monkeypatch.setenv("WORLD_SIZE", world)
         cfg = _sv_cfg(tconfig, sv_runs["npy_dir"], tmp_path / "o", **over)
-        with pytest.raises(error, match=match):
-            tsingle.run(cfg, frames=FRAMES, device="cpu", **kw)
+        if error is not None:
+            with pytest.raises(error, match=match):
+                tsingle.run(cfg, frames=FRAMES, device="cpu", **kw)
+            return
+        png = tmp_path / kw["dashboard_path"]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            got = tsingle.run(cfg, frames=FRAMES, device="cpu", dashboard_path=str(png))
+        assert [os.path.basename(p) for p in got] == [
+            os.path.basename(p) for p in sv_runs["torch"]]
+        if match == "png":
+            assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+            assert "[warn]" not in text.getvalue()
+        else:
+            assert match in text.getvalue() and not png.exists()
 
     def test_cli(self, monkeypatch):
         with pytest.raises(SystemExit) as e:

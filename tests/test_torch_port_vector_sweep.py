@@ -821,16 +821,23 @@ class TestRunners:
 
     @pytest.mark.parametrize("kw,world,error,match", [
         (dict(use_mesh=True, slots=3), "2", ValueError, "multiple of the mesh size"),
-        (dict(dashboard_path="d.png", slots=2), None, NotImplementedError, "item 13")])
+        (dict(dashboard_path="d.png", slots=2), None, None, "[warn] live dashboard")])
     def test_single_video_slots_with_unported_options_raise(self, tmp_path, monkeypatch, kw,
                                                             world, error, match):
-        """The dashboard is not ported (item 13); under 2 ranks, slots the
-        ranks do not divide raise, as in JAX."""
+        """Under 2 ranks, slots the ranks do not divide raise, as in JAX; the
+        dashboard (per clip) warns under slots and the sweep goes on without
+        it, as in JAX (error None)."""
         npy = _sv_setup(tmp_path, monkeypatch)
         if world is not None:
             monkeypatch.setenv("WORLD_SIZE", world)
-        with pytest.raises(error, match=match):
-            tsingle.run(_sv_cfg(npy, tmp_path / "o"), frames=FRAMES, device="cpu", **kw)
+        if error is not None:
+            with pytest.raises(error, match=match):
+                tsingle.run(_sv_cfg(npy, tmp_path / "o"), frames=FRAMES, device="cpu", **kw)
+            return
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            got = tsingle.run(_sv_cfg(npy, tmp_path / "o"), frames=FRAMES, device="cpu", **kw)
+        assert match in said.getvalue() and len(got) == 2
+        assert not (tmp_path / kw["dashboard_path"]).exists()
 
     def test_single_video_cli_slots(self, monkeypatch):
         seen = {}
