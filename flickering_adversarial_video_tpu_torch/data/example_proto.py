@@ -1,15 +1,15 @@
 """Minimal tf.train.Example wire codec — no TensorFlow dependency.
 
-The port's own copy of the JAX package's ``data/example_proto.py``, cut to
-the uint8 schema.  The reference's tfrecord schema uses two features per
-record:
+The port's own copy of the JAX package's ``data/example_proto.py``.  The
+reference's tfrecord schemas use two features per record:
     'train/label' : Int64List (one element)
-    'train/video' : BytesList (raw uint8 [T,224,224,3] bytes)
+    'train/video' : BytesList (raw uint8 [T,224,224,3] bytes), or, in the
+                    float schema, FloatList (the clip's f32 values)
 
 This module encodes/decodes exactly that subset of the Example proto wire
 format (proto3 encoding rules), byte-compatible with records produced by the
-reference writers and by the JAX package's codec.  The float schema
-(FloatList videos) is not ported: such a feature raises.
+reference writers and by the JAX package's codec.  A FloatList is written
+packed and read packed or repeated.
 
 Wire format recap:
     Example  { Features features = 1; }
@@ -74,6 +74,13 @@ def _encode_bytes_list(values) -> bytes:
     return bytes(out)
 
 
+def _encode_float_list(values: np.ndarray) -> bytes:
+    out = bytearray()
+    payload = np.asarray(values, "<f4").tobytes()
+    _encode_length_delimited(out, 1, payload)  # packed
+    return bytes(out)
+
+
 def _encode_int64_list(values) -> bytes:
     inner = bytearray()
     for v in values:
@@ -84,13 +91,15 @@ def _encode_int64_list(values) -> bytes:
 
 
 def encode_example(features: Dict[str, Tuple[str, FeatureValue]]) -> bytes:
-    """features: {name: (kind, value)}, kind in {'bytes','int64'}."""
+    """features: {name: (kind, value)}, kind in {'bytes','float','int64'}."""
     feats = bytearray()
     for name, (kind, value) in features.items():
         feature = bytearray()
         if kind == "bytes":
             values = [value] if isinstance(value, (bytes, bytearray)) else value
             _encode_length_delimited(feature, 1, _encode_bytes_list(values))
+        elif kind == "float":
+            _encode_length_delimited(feature, 2, _encode_float_list(value))
         elif kind == "int64":
             values = [value] if isinstance(value, (int, np.integer)) else value
             _encode_length_delimited(feature, 3, _encode_int64_list(values))
@@ -137,8 +146,12 @@ def _decode_feature(buf: memoryview):
         if field == 1:  # BytesList
             values = [bytes(v) for f, v in _iter_fields(payload) if f == 1]
             return ("bytes", values)
-        if field == 2:  # FloatList
-            raise ValueError("float-schema records are not ported (uint8 schema only)")
+        if field == 2:  # FloatList (packed, or repeated fixed32)
+            floats = []
+            for f, v in _iter_fields(payload):
+                if f == 1:
+                    floats.append(np.frombuffer(bytes(v), "<f4"))
+            return ("float", np.concatenate(floats) if floats else np.zeros(0, "f4"))
         if field == 3:  # Int64List
             ints = []
             for f, v in _iter_fields(payload):

@@ -1,11 +1,13 @@
-"""TFRecord reading/writing + batched host pipeline (uint8 schema).
+"""TFRecord reading/writing + batched host pipeline.
 
 The port's own copy of the JAX package's ``data/tfrecord.py``, cut to what
-the universal runner uses.  Schema parity with the reference writers:
-'train/label' int64, 'train/video' bytes (raw uint8 [T,224,224,3]); the
-parser yields uint8 and the normalization (x/128-1) happens on the device
-inside the attack step.  Files are binary-compatible with TensorFlow's and
-with the JAX package's.
+the runners and the shard writers use.  Schema parity with the reference
+writers: 'train/label' int64, 'train/video' bytes (raw uint8 [T,224,224,3];
+the parser yields uint8 and the normalization (x/128-1) happens on the
+device inside the attack step), or, in the float schema, a FloatList of the
+clip's f32 values (``make_float_example``, ``parse_example_float``;
+``tfrecord_batches(schema="float")``).  Files are binary-compatible with
+TensorFlow's and with the JAX package's.
 
 TFRecord framing: {u64 length, u32 masked-crc32c(length), bytes data,
 u32 masked-crc32c(data)}.
@@ -13,10 +15,13 @@ u32 masked-crc32c(data)}.
 ``tfrecord_batches`` reads through the native C++ reader
 (``data/native_reader.py``) by default, as the JAX package does; unlike the
 JAX package, a reader that fails to build raises, and ``use_native=False``
-is the only way onto the Python codec below.
+is the only way onto the Python codec below.  The native reader and the
+host prepack take the uint8 schema only: the float schema needs
+``use_native=False`` and raises otherwise (the JAX package quietly takes
+its Python codec there).
 
-Not ported: the float schema, ``prepack="view"`` (a TPU layout),
-``make_tf_dataset`` and the multi-host shard split.
+Not ported: ``prepack="view"`` (a TPU layout) and ``make_tf_dataset``
+(ROADMAP.md queue A item 13c).
 """
 
 from __future__ import annotations
@@ -203,6 +208,17 @@ def make_uint8_example(video: np.ndarray, label: int) -> bytes:
     )
 
 
+def make_float_example(video: np.ndarray, label: int) -> bytes:
+    """float schema record (the reference's pre_process_rgb_flow.py layout):
+    the clip's values as one packed FloatList."""
+    return example_proto.encode_example(
+        {
+            LABEL_KEY: ("int64", int(label)),
+            VIDEO_KEY: ("float", np.asarray(video, np.float32).reshape(-1)),
+        }
+    )
+
+
 def parse_example_uint8(
     record: bytes, height: int = 224, width: int = 224, channels: int = 3
 ) -> Tuple[np.ndarray, int]:
@@ -213,6 +229,19 @@ def parse_example_uint8(
     if kind != "bytes":
         raise ValueError(f"'{VIDEO_KEY}' is a {kind} feature, expected bytes")
     video = np.frombuffer(raw[0], np.uint8).reshape(-1, height, width, channels)
+    label = int(feats[LABEL_KEY][1][0])
+    return video, label
+
+
+def parse_example_float(
+    record: bytes, height: int = 224, width: int = 224, channels: int = 3
+) -> Tuple[np.ndarray, int]:
+    """-> (f32 video [T, H, W, C], label) of a float schema record."""
+    feats = example_proto.decode_example(record)
+    kind, values = feats[VIDEO_KEY]
+    if kind != "float":
+        raise ValueError(f"'{VIDEO_KEY}' is a {kind} feature, expected float")
+    video = np.asarray(values, np.float32).reshape(-1, height, width, channels)
     label = int(feats[LABEL_KEY][1][0])
     return video, label
 
@@ -233,14 +262,17 @@ def list_shards(paths: Sequence[str] | str, limit: Optional[int] = None) -> List
     return shards[:limit] if limit else shards
 
 
-def _batch_buffer(n: int, shape, pin_memory: bool):
-    """(buffer, numpy view of it) for n clips of `shape`: a page-locked torch
-    tensor from the CUDA caching host allocator when `pin_memory`, else a
-    numpy array (the buffer itself)."""
+_TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8, np.dtype(np.float32): torch.float32}
+
+
+def _batch_buffer(n: int, shape, pin_memory: bool, dtype=np.uint8):
+    """(buffer, numpy view of it) for n clips of `shape` in `dtype` (uint8
+    or float32): a page-locked torch tensor from the CUDA caching host
+    allocator when `pin_memory`, else a numpy array (the buffer itself)."""
     if pin_memory:
-        buf = torch.empty((n, *shape), dtype=torch.uint8, pin_memory=True)
+        buf = torch.empty((n, *shape), dtype=_TORCH_DTYPE[np.dtype(dtype)], pin_memory=True)
         return buf, buf.numpy()
-    buf = np.empty((n, *shape), np.uint8)
+    buf = np.empty((n, *shape), dtype)
     return buf, buf
 
 
@@ -281,6 +313,7 @@ def tfrecord_batches(
     frames: Optional[int] = None,
     repeat: int = 1,
     drop_remainder: bool = True,
+    schema: str = "uint8",
     height: int = 224,
     width: int = 224,
     use_native: bool = True,
@@ -289,7 +322,8 @@ def tfrecord_batches(
     host_id: int = 0,
     num_hosts: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Yield {'video': uint8 [B,T,H,W,C], 'labels': int64 [B]} batches.
+    """Yield {'video': uint8 [B,T,H,W,C], 'labels': int64 [B]} batches
+    (f32 videos with ``schema="float"``).
 
     Over ranks (``parallel/mesh.py``): rank `host_id` of `num_hosts` reads
     ``shards[host_id::num_hosts]``, as each JAX host does, and batches of
@@ -309,7 +343,8 @@ def tfrecord_batches(
 
     use_native=True (the default) reads through the native C++ reader, and
     raises if it cannot be built; False is the Python codec.  Both give the
-    same batches.
+    same batches.  The float schema takes the Python codec only
+    (use_native=False) and no prepack; asked for either, it raises.
 
     pin_memory=True puts each batch's video in page-locked memory, a torch
     tensor filled in place, so that the move to the card needs no staging
@@ -319,6 +354,11 @@ def tfrecord_batches(
     """
     if prepack not in (False, True):
         raise ValueError(f"prepack={prepack!r}: only False and True are ported")
+    if schema not in ("uint8", "float"):
+        raise ValueError(f"schema={schema!r}: 'uint8' or 'float'")
+    if schema == "float" and (prepack or use_native):
+        raise ValueError("the float schema takes neither prepack nor the native reader: pass "
+                         "prepack=False, use_native=False")
     if prepack:
         if frames is None:
             raise ValueError("prepack needs fixed `frames`")
@@ -337,11 +377,12 @@ def tfrecord_batches(
             return
         records = (r for _ in range(repeat) for s in shards for r in reader.read_parsed(s))
     else:
-        records = (parse_example_uint8(rec, height=height, width=width)
+        parse = parse_example_uint8 if schema == "uint8" else parse_example_float
+        records = (parse(rec, height=height, width=width)
                    for _ in range(repeat) for s in shards for rec in read_records(s))
 
     def emit(videos, labels):
-        buf, view = _batch_buffer(len(videos), videos[0].shape, pin_memory)
+        buf, view = _batch_buffer(len(videos), videos[0].shape, pin_memory, videos[0].dtype)
         np.stack(videos, out=view)
         return {key: buf, "labels": np.asarray(labels, np.int64)}
 

@@ -165,7 +165,8 @@ class TestEntryPoints:
             "             'data.example_proto', 'data.video_dataset', 'utils.config',\n"
             "             'utils.labels', 'models.registry', 'ops.fused_apply',\n"
             "             'runners.single_video', 'runners.class_gen', 'engine.inference',\n"
-            "             'data.npy', 'viz.results'):\n"
+            "             'data.npy', 'viz.results', 'data.video', 'data.write_tfrecords',\n"
+            "             'data.kinetics_download', 'viz.live'):\n"
             "    assert p.__name__ + '.' + name in sys.modules, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'flax' or m.startswith('flickering_adversarial_video_tpu.')\n"
