@@ -190,7 +190,17 @@ which fails the run:
    (state and every output), and each slot against ``sweep.fit_single_video``
    of its clip and seed (the sequential graphed step at B=1): equal step
    counts, verdicts and escalations, delta within 1% of its movement and
-   losses within 3e-5; clip-steps/s at 1, 2, 4 and 8 slots against the
+   losses within 3e-5; then (17f) B8 with a delta a clip ("B8c") at the
+   slot step's shape [4,90,224,224,3] with deltas [4,90,1,1,3] (a black
+   pixel exactly on -1): forward bit-equal and d(delta) within 1e-5 of its
+   largest component against its plain version, each clip's forward and
+   d(delta) bit-equal to the shared-delta B8 launched on that clip alone,
+   timed beside its bound, the plain version and B8 at the same shape with
+   the card's name and power limit; and the slot step with USE_PALLAS_FUSED
+   on the same uint8 clips (B8c forward and backward, B1 1, B2 20, B3 9, B4
+   9, B5 3, B6 3, no B7 a slot step), checked as the packed one: counts,
+   graphed against eager, each slot against the sequential fused step;
+   clip-steps/s at 1, 2, 4 and 8 slots against the
    sequential B=1 step, with each graph's pool; the single-video runner with
    SLOTS: 4 against SLOTS: 1 on three float32 clips [1,90,224,224,3] and a
    misnamed one, each clip starting from a drawn delta (pkl names by the
@@ -221,11 +231,19 @@ which fails the run:
    ``torch_per_video --slots 4 --mesh`` over two spawned ranks (gloo, 2
    slots a rank) on phase 16's videos: counts, files, steps, escalations and
    verdicts those of phase 17e's run in one process.  Spawned ranks run
-   under their own time limit (DP_JOIN_S) and are killed past it.
+   under their own time limit (DP_JOIN_S) and are killed past it;
+19. the float schema: 2 seeded f32 clips [16,224,224,3] written as
+   float-schema records (``make_float_example``), read back through
+   ``tfrecord_batches(schema="float")`` into pinned buffers, equal to the
+   arrays, and one graphed universal-engine step on that batch bit-equal to
+   the same step on the arrays (launches a float clip's).  Decoding mp4 and
+   the live dashboard need cv2 and matplotlib, which the card's machine
+   lacks: they are held on the CPU only (tests/test_torch_port_data_prep.py,
+   tests/test_torch_port_live_labels.py).
 
 Prints the kernel table as one JSON line (a kernel's launches: those that ran
 on the device in phase 3's traced run of its path; B7c's, B7's kernel at the
-slot step's shape, in phase 17's), then as the last line
+slot step's shape, and B8c's in phase 17's), then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
 """
@@ -256,45 +274,46 @@ PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 PROFILE_STEPS = 2
 # kernel names of cuDNN / cuBLAS / CUTLASS convolutions and matrix products
 CONV_MARKS = ("conv", "cudnn", "xmma", "gemm", "sm90", "cutlass", "dgrad", "wgrad", "implicit")
-NAMES = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8f", "B8b", "B9f", "B9b")
+NAMES = ("B1", "B2", "B3", "B4", "B5", "B6", "B7", "B8f", "B8b", "B9f", "B9b", "B8cf", "B8cb")
 # the C launcher each wrapper calls (ops/kernels.py KERNEL_SYMBOLS names the
 # kernels each starts)
 LAUNCHERS = dict(zip(NAMES, (
     "fav_stem_conv_bn_relu", "fav_temporal_combine", "fav_pool_s1_fwd", "fav_pool_s1_bwd",
     "fav_pool_s2_fwd", "fav_pool_s2_bwd", "fav_emit_adv_mask", "fav_fused_apply_fwd",
-    "fav_fused_apply_bwd", "fav_pool_pair_fwd", "fav_pool_pair_bwd")))
+    "fav_fused_apply_bwd", "fav_pool_pair_fwd", "fav_pool_pair_bwd", "fav_fused_apply_clips_fwd",
+    "fav_fused_apply_clips_bwd")))
 # launches per step; the default configuration (packed input head) ...
-TRAIN_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 3, 3, 1, 0, 0, 0, 0)))
-EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 2, 0, 0, 0, 0)))
+TRAIN_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 3, 3, 1, 0, 0, 0, 0, 0, 0)))
+EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 2, 0, 0, 0, 0, 0, 0)))
 # ... and USE_PALLAS_FUSED: B8 instead of B7, one more B2 (the stem's input
 # gradient); its evals take the generic path (no B7, no B8)
-FUSED_TRAIN_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 1, 1, 0, 0)))
-FUSED_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 0, 0, 0, 0, 0)))
+FUSED_TRAIN_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 1, 1, 0, 0, 0, 0)))
+FUSED_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 0, 0, 0, 0, 0, 0, 0)))
 # ... the default configuration with MaxPool3d_2a on the index pair: one B5
 # and one B6 become B9 forward and backward (an eval's forwards keep no index)
-PAIR_TRAIN_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 2, 2, 1, 0, 0, 1, 1)))
-PAIR_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 4, 0, 2, 0, 0, 2, 0)))
+PAIR_TRAIN_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 2, 2, 1, 0, 0, 1, 1, 0, 0)))
+PAIR_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 4, 0, 2, 0, 0, 2, 0, 0, 0)))
 # ... and the single-video attack's float32 clip (generic path: the victim's
 # own forward with an input gradient, so B2 once more for the stem; no B7, no
 # B8), per step and per clean forward, default and with the pair at 2a
-SV_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0)))
-SV_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 3, 0, 0, 0, 0, 0, 0)))
-SV_PAIR_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 2, 2, 0, 0, 0, 1, 1)))
-SV_PAIR_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 2, 0, 0, 0, 0, 1, 0)))
+SV_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0, 0, 0)))
+SV_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 3, 0, 0, 0, 0, 0, 0, 0, 0)))
+SV_PAIR_STEP_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 2, 2, 0, 0, 0, 1, 1, 0, 0)))
+SV_PAIR_CLEAN_COUNTS = dict(zip(NAMES, (1, 0, 9, 0, 2, 0, 0, 0, 0, 1, 0, 0, 0)))
 # ... the L1,2 sparse attack on uint8 clips: the generic path (a full delta
 # takes no packed head), so the stem's input gradient adds a B2; no B7, no B8
 # (a train step, and an eval step's two forwards)
-SPARSE_TRAIN_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0)))
-SPARSE_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 0, 0, 0, 0, 0)))
+SPARSE_TRAIN_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0, 0, 0)))
+SPARSE_EVAL_COUNTS = dict(zip(NAMES, (2, 0, 18, 0, 6, 0, 0, 0, 0, 0, 0, 0, 0)))
 # ... an odd geometry, uint8 clips of ODD_FRAMES x ODD_SIZE^2: the unpacked
 # cuDNN stem (no B1, and no B2 in its backward), B5/B6 at MaxPool3d_2a
 # (110x110) and 4a (28x28), the generic pool at 3a (55x55)
 ODD_FRAMES, ODD_SIZE = 63, 220
-ODD_TRAIN_COUNTS = dict(zip(NAMES, (0, 19, 9, 9, 2, 2, 0, 0, 0, 0, 0)))
+ODD_TRAIN_COUNTS = dict(zip(NAMES, (0, 19, 9, 9, 2, 2, 0, 0, 0, 0, 0, 0, 0)))
 # ... a clip wider than 256 (WIDE_SIZE: W' = 144, B1 in 2 column segments) up
 # to Mixed_5c with an input gradient, and its clean forward to the Logits
-WIDE_SIZE, WIDE_FORWARD_COUNTS = 288, dict(zip(NAMES, (2, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0)))
-WIDE_CLEAN_COUNTS = dict(zip(NAMES, (2, 0, 9, 0, 3, 0, 0, 0, 0, 0, 0)))
+WIDE_SIZE, WIDE_FORWARD_COUNTS = 288, dict(zip(NAMES, (2, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0, 0, 0)))
+WIDE_CLEAN_COUNTS = dict(zip(NAMES, (2, 0, 9, 0, 3, 0, 0, 0, 0, 0, 0, 0, 0)))
 CYCLIC_SEED = 7
 # the input of each Mixed block's branch_3 pool in a train step: B3's and
 # B4's nine launches (4c, 4d and 4e share a shape, as 5b and 5c do)
@@ -409,9 +428,9 @@ def graph_stats(engine) -> str:
 
 
 def read_counts(ops) -> dict:
-    """The wrappers' launch counts by kernel, B1..B9 (B7's launches with a
-    delta a clip, which it also counts apart, are read where the slot step
-    runs)."""
+    """The wrappers' launch counts by kernel, B1..B9 and B8c (B7's launches
+    with a delta a clip, which B7's count includes and which it also counts
+    apart, are read where the slot step runs)."""
     return {name.split()[0]: n for name, n in ops.launch_counts().items()
             if name.split()[0] in NAMES}
 
@@ -419,14 +438,14 @@ def read_counts(ops) -> dict:
 def device_launches(prof, kernels) -> dict:
     """Each wrapper's kernel launches that ran on the device in a
     torch.profiler trace, by kernel name: a graph replay's kernels are events
-    like an eager launch's.  A launch of B8's backward starts two kernels and
-    is counted by its final one."""
+    like an eager launch's.  A launch of B8's backward (B8c's) starts two
+    kernels and is counted by its final one."""
     rows = kernel_rows(prof)
     out = {}
     for name, launcher in LAUNCHERS.items():
         marks = kernels.KERNEL_SYMBOLS[launcher]
-        if name == "B8b":
-            marks = ("fused_apply_bwd_final_kernel",)
+        if name in ("B8b", "B8cb"):
+            marks = marks[-1:]
         out[name] = int(sum(n for _, n, key in rows if any(m in key for m in marks)))
     return out
 
@@ -846,8 +865,248 @@ VS_INIT_SCALE = 0.005  # the initial draws' scale, sweep.fit_single_video's
 # what sound runs read on an H100 (0.16-0.22% and 2.2-5.2e-6; PERF.md)
 VS_DELTA_SHARE, VS_LOSS_REL = 0.01, 3e-5
 # launches a slot step on uint8 clips (the packed head: B7 with a dl a clip)
-SLOT_STEP_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 3, 3, 1, 0, 0, 0, 0)))
+SLOT_STEP_COUNTS = dict(zip(NAMES, (1, 19, 9, 9, 3, 3, 1, 0, 0, 0, 0, 0, 0)))
+# ... and with USE_PALLAS_FUSED: B8 with a delta a clip (B8c) forward and
+# backward in place of B7, and B2 as in FUSED_TRAIN_COUNTS (the stem's input
+# gradient)
+SLOT_STEP_FUSED_COUNTS = dict(zip(NAMES, (1, 20, 9, 9, 3, 3, 0, 0, 0, 0, 0, 1, 1)))
 VS_RUNNER_CHUNK = 64  # vector_single_video_attacks' chunk
+
+
+def slot_chunk_checks(engine, clips, dev, want_counts: dict, want_clip_b7: int, head: str):
+    """Phase 17b's checks of the slot step on `engine` (17f's with
+    USE_PALLAS_FUSED): VS_SLOTS uint8 I3D clips `clips` [N,1,T,H,W,3], each
+    labelled with the engine's clean prediction, as one graphed chunk of
+    VS_CHUNK from a new sweep engine, counts reset just before and read just
+    after (and the device's launches under torch.profiler) against
+    `want_counts` a slot step (B7's launches with a dl a clip against
+    `want_clip_b7` a slot step); bit-equal to the same chunk run eagerly; and
+    each slot against ``sweep.fit_single_video`` of its clip and seed (the
+    sequential graphed train_step at B=1, the same stop rule).  `head` names
+    the input head in the lines printed.  Returns (videos, packed, labels as
+    the engine prepared them, the device's launches of the graphed chunk)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flickering_adversarial_video_tpu_torch import ops
+    from flickering_adversarial_video_tpu_torch.engine import RuntimeFlags, sweep
+    from flickering_adversarial_video_tpu_torch.engine.step_graph import WARMUP_STEPS
+    from flickering_adversarial_video_tpu_torch.engine.vector_sweep import (
+        SlotState, VectorSweepEngine)
+    from flickering_adversarial_video_tpu_torch.ops import kernels, packed_apply
+
+    fused = engine.config.use_pallas_fused
+    tag = "the fused slot step: " if fused else ""
+    state_fields = [f.name for f in dataclasses.fields(SlotState)]
+    flags = RuntimeFlags()
+    labels = [int(engine.forward(None, {"video": torch.from_numpy(c).to(dev),
+                                        "labels": torch.zeros(1, dtype=torch.long, device=dev)},
+                                 adversarial=False).argmax()) for c in clips]
+    videos, packed, lab = engine.prepare_batch(
+        {"video": torch.from_numpy(clips[:, 0]).to(dev), "labels": torch.tensor(labels)})
+    seeds = torch.arange(VS_SLOTS, device=dev)
+
+    def fresh():
+        vse = VectorSweepEngine(engine, VS_SLOTS, n_iter=VS_ITERS, init_scale=VS_INIT_SCALE)
+        state = vse.init_slots()
+        for i in range(VS_SLOTS):
+            vse.refill_slot(state, i, i, 0.2)
+        return vse, state
+
+    vse, state = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, ys = vse.run_chunk(state, videos, lab, seeds, flags, VS_CHUNK, packed=packed)
+        torch.cuda.synchronize()
+    counts, device = read_counts(ops), device_launches(prof, kernels)
+    clip_counts = packed_apply.emit_adv_mask.clip_launches
+    first_s = time.perf_counter() - t0
+    want, want_device = scaled(want_counts, VS_CHUNK), scaled(want_counts, VS_CHUNK + WARMUP_STEPS)
+    g_state = {k: t.clone() for k, t in zip(state_fields, state.tensors())}
+    g_ys = {k: v.clone() for k, v in ys.items()}
+    stats = vse.graph_stats()
+    print(f"[vector] {tag}slot step, {VS_SLOTS} uint8 clips [1,{SV_FRAMES},{SIZE},{SIZE},3] "
+          f"(packed: {packed}; {head}), escalate at n_iter {VS_ITERS}: one graphed chunk of "
+          f"{VS_CHUNK} from a new sweep engine (its capture's {WARMUP_STEPS} warm-up iterations "
+          f"included) in {first_s:.2f} s; launches as the wrappers count them {counts} (expected "
+          f"{want}), B7's with a dl a clip {clip_counts} (expected {want_clip_b7 * VS_CHUNK}); as "
+          f"the device ran them {device} (expected {want_device}); graph pool "
+          f"{stats['pool_bytes'] / 1e9:.3f} GB, warm-up and capture {stats['capture_s']:.2f} s",
+          flush=True)
+    if counts != want or device != want_device or clip_counts != want_clip_b7 * VS_CHUNK:
+        fail(f"{tag}the slot step's launch counts")
+    del vse, state, ys, prof
+    vse_e, state_e = fresh()
+    state_e, ys_e = vse_e.run_chunk(state_e, videos, lab, seeds, flags, VS_CHUNK, packed=packed,
+                                    eager=True)
+    torch.cuda.synchronize()
+    same_state = {k: torch.equal(g_state[k], t) for k, t in zip(state_fields, state_e.tensors())}
+    same_ys = {k: torch.equal(g_ys[k], ys_e[k]) for k in g_ys} if g_ys.keys() == ys_e.keys() else {}
+    print(f"[vector] {tag}graphed chunk against the same chunk eager, bit for bit: state "
+          f"{same_state}; outputs {same_ys}", flush=True)
+    if not all(same_state.values()) or not same_ys or not all(same_ys.values()):
+        fail(f"{tag}the graphed slot chunk differs from its eager run")
+    del vse_e, state_e, ys_e
+
+    active = g_ys["active"].cpu().numpy()
+    post = g_ys["delta_post"].float().cpu().numpy()
+    mnorm = g_ys["max_norm"].cpu().numpy()
+    loss = g_ys["total_loss"].float().cpu().numpy()
+    fooled = g_ys["is_adversarial"].cpu().numpy()
+    rows, ok = [], True
+    for i in range(VS_SLOTS):
+        res = sweep.fit_single_video(engine, {"video": clips[i], "labels": np.asarray([labels[i]])},
+                                     flags, n_iter=VS_ITERS, max_norm=0.2, seed=i,
+                                     init_scale=VS_INIT_SCALE)
+        if res is None:
+            fail(f"{tag}the sequential step refused clip {i} (its clean class moved)")
+        ran = np.nonzero(active[:, i])[0]
+        vec_delta = np.stack([np.clip(post[t, i], -mnorm[t, i], mnorm[t, i]) for t in ran])
+        seq_delta = np.asarray(res["perturbation"])
+        d_err = (float(np.abs(vec_delta - seq_delta).max()) if len(ran) == len(seq_delta)
+                 else math.inf)
+        moved = float(np.abs(seq_delta[-1] - sweep.draw_init_delta(
+            tuple(engine.spec.shape), i, VS_INIT_SCALE).numpy()).max())
+        seq_loss = np.asarray(res["loss/total"])
+        l_err = (float((np.abs(loss[ran, i] - seq_loss) / np.abs(seq_loss)).max())
+                 if len(ran) == len(seq_loss) else math.inf)
+        esc = int(g_state["chances"][i])
+        same = (len(ran) == len(seq_loss) and esc == res["escalations"]
+                and [bool(f) for f in fooled[ran, i]] == list(res["is_adversarial"]))
+        rows.append(f"slot {i}: steps {len(ran)}/{len(seq_loss)}, escalations "
+                    f"{esc}/{res['escalations']}, fooled {bool(fooled[ran, i].any())}/"
+                    f"{bool(np.any(res['is_adversarial']))}, delta max |diff| {d_err:.3e} (bound "
+                    f"{VS_DELTA_SHARE} x its movement {moved:.3e}), losses max relative diff "
+                    f"{l_err:.3e} (bound {VS_LOSS_REL})")
+        ok = ok and same and d_err <= VS_DELTA_SHARE * moved and l_err <= VS_LOSS_REL
+    print(f"[vector] {tag}each slot against the sequential graphed train_step of its clip and "
+          "seed (sweep.fit_single_video; vector/sequential): " + "; ".join(rows), flush=True)
+    if not ok:
+        fail(f"{tag}a slot's trajectory is not the sequential one: step counts, escalations, "
+             "verdicts or a bound")
+    return videos, packed, lab, device
+
+
+def fused_slot_pass(dev, model, clips) -> list:
+    """Phase 17f, kernel B8 with a delta a clip (B8c): (a) its forward and
+    backward at the slot step's shape [VS_SLOTS, SV_FRAMES, SIZE, SIZE, 3]
+    (a black pixel under delta 0 exactly on -1) against the plain version
+    (forward bit-equal; d(delta) within 1e-5 of its largest component, f32
+    sum order), and each clip's forward and d(delta) bit-equal to the
+    shared-delta B8 launched on that clip alone; (b) the slot step with
+    USE_PALLAS_FUSED on phase 17b's uint8 clips, through
+    :func:`slot_chunk_checks` against SLOT_STEP_FUSED_COUNTS, and its time a
+    slot step at VS_SLOTS slots (graphed, host clock); (c) B8c's time
+    with CUDA events beside its bound, its plain version and the shared B8 at
+    the same shape, with the card's name and power limit.  Returns B8c's two
+    rows of the kernel table (launches: the device's in (b)'s graphed chunk)."""
+    import torch
+
+    from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
+    from flickering_adversarial_video_tpu_torch.engine import (
+        AttackConfig, AttackEngine, RuntimeFlags)
+    from flickering_adversarial_video_tpu_torch.engine.vector_sweep import VectorSweepEngine
+    from flickering_adversarial_video_tpu_torch.ops import fused_apply
+
+    fwd, bwd = fused_apply.fused_apply_fwd, fused_apply.fused_apply_bwd
+    counters = lambda: (fwd.launches, fwd.clip_launches, bwd.launches, bwd.clip_launches)  # noqa: E731
+    gen = torch.Generator().manual_seed(SEED + 19)
+    shape = (VS_SLOTS, SV_FRAMES, SIZE, SIZE, 3)
+    u8 = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    delta = (torch.rand(VS_SLOTS, SV_FRAMES, 1, 1, 3, generator=gen) - 0.5) * 0.8
+    u8[1, 3, :4, :4, 0], delta[1, 3, 0, 0, 0] = 0, 0.0
+    g = torch.randn(shape, generator=gen)
+    u8, delta, g = u8.to(dev), delta.to(dev), g.to(dev)
+    flag = torch.ones((), device=dev)
+
+    # ---- (a) against the plain version, and each clip against B8 on it alone
+    before = counters()
+    out = fwd(u8, delta, flag)
+    dd = bwd(u8, delta, flag, g)
+    dd2 = bwd(u8, delta, flag, g)
+    torch.cuda.synchronize()
+    counted = counters() == (before[0], before[1] + 1, before[2], before[3] + 2)
+    ferr = (out - fused_apply.fused_apply_fwd_plain(u8, delta, flag)).abs().max().item()
+    want_dd = fused_apply.fused_apply_bwd_plain(u8, delta, flag, g)
+    berr = (dd - want_dd).abs().max().item()
+    brel = berr / max(want_dd.abs().max().item(), 1e-30)
+    per_clip = [(torch.equal(out[i:i + 1], fwd(u8[i:i + 1], delta[i], flag)),
+                 torch.equal(dd[i], bwd(u8[i:i + 1], delta[i], flag, g[i:i + 1])))
+                for i in range(VS_SLOTS)]
+    torch.cuda.synchronize()
+    print(f"[check] B8c {list(shape)}, delta [{VS_SLOTS},{SV_FRAMES},1,1,3]: forward max_abs_err "
+          f"{ferr:.3e} (tolerance 0); backward max_abs_err {berr:.3e} max_rel_err {brel:.3e} "
+          f"(max_rel_err tolerance 1e-5), second run "
+          f"{'bit-equal' if torch.equal(dd, dd2) else 'DIFFERS'}; each clip (forward, d(delta)) "
+          f"bit-equal to the shared-delta B8 launched on that clip alone: {per_clip}; counted "
+          f"apart as launches with a delta a clip: {counted}", flush=True)
+    if (ferr != 0 or not brel <= 1e-5 or not torch.equal(dd, dd2) or not counted
+            or not all(a and b for a, b in per_clip)):
+        fail("B8c disagrees with its plain version or with B8 on each clip alone, or is not "
+             "counted apart")
+    del out, dd, dd2, want_dd
+
+    # ---- (b) the fused slot step on phase 17b's uint8 clips
+    engine = AttackEngine(model, FlickerSpec(SV_FRAMES), AttackConfig(use_pallas_fused=True),
+                          track_probs=False)
+    videos, packed, lab, device = slot_chunk_checks(engine, clips, dev, SLOT_STEP_FUSED_COUNTS,
+                                                    0, "B8c, a delta a clip")
+    if packed is not False:
+        fail("the fused slot step's clips took the packed head")
+    # its time: a chunk of VS_TIME_ITERS graphed slot steps, every slot
+    # stepping every iteration (17c times the packed one the same way)
+    vse = VectorSweepEngine(engine, VS_SLOTS, n_iter=10 ** 9, init_scale=VS_INIT_SCALE)
+    st = vse.init_slots()
+    for i in range(VS_SLOTS):
+        vse.refill_slot(st, i, i, 0.2)
+    args = (videos, lab, torch.arange(VS_SLOTS, device=dev), RuntimeFlags(), VS_TIME_ITERS)
+    st, _ = vse.run_chunk(st, *args)  # the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = vse.run_chunk(st, *args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / VS_TIME_ITERS
+    print(f"[time] the fused slot step, N={VS_SLOTS} uint8 clips [1,{SV_FRAMES},{SIZE},{SIZE},3] "
+          f"(B8c), a chunk of {VS_TIME_ITERS} graphed slot steps (host clock to a synchronize): "
+          f"{step_ms:.2f} ms a slot step, {VS_SLOTS * 1e3 / step_ms:.1f} clip-steps/s, pool "
+          f"{vse.graph_stats()['pool_bytes'] / 1e9:.3f} GB", flush=True)
+    del engine, vse, st, args, videos
+    torch.cuda.empty_cache()
+
+    # ---- (c) times
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    n = u8.numel()
+    rows = []
+    for name, kern, plain, shared, n_bytes, err in (
+            ("B8cf fused_apply_fwd, a delta a clip", lambda: fwd(u8, delta, flag),
+             lambda: fused_apply.fused_apply_fwd_plain(u8, delta, flag),
+             lambda: fwd(u8, delta[0], flag), n * (1 + 4) + delta.numel() * 4, ferr),
+            ("B8cb fused_apply_bwd, a delta a clip", lambda: bwd(u8, delta, flag, g),
+             lambda: fused_apply.fused_apply_bwd_plain(u8, delta, flag, g),
+             lambda: bwd(u8, delta[0], flag, g), n * (1 + 4) + 2 * delta.numel() * 4, berr)):
+        ms = cuda_ms(torch, kern)
+        plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+        shared_ms = cuda_ms(torch, shared)
+        # u8 (and g) read, f32 written (or d(delta)); ~5 f32 operations an element
+        t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, 5 * n / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"[time] {name} {list(shape)}: {ms:.3f} ms (bound {bound:.3f} ms, {by}; "
+              f"{bound / ms:.1%} of it), plain {plain_ms:.3f} ms, the shared-delta B8 at the same "
+              f"shape {shared_ms:.3f} ms, library none; {smi}", flush=True)
+        key = "B8cf" if "fwd" in name else "B8cb"
+        rows.append({"name": name, "route": "cuda",
+                     "source": "flickering_adversarial_video_tpu_torch/csrc/fused_apply.cu",
+                     "replaces": "flickering_adversarial_video_tpu/ops/fused_apply.py:"
+                                 + ("132" if key == "B8cf" else "172"),
+                     "launches": device[key], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None})
+    return rows
 
 
 def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
@@ -858,13 +1117,14 @@ def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
     and the device's launches under torch.profiler) bit-equal to the same
     chunk run eagerly, and each slot's trajectory beside the sequential
     graphed ``train_step`` of its clip and seed (``sweep.fit_single_video``);
-    clip-steps/s at VS_TIME_SLOTS slots against the B=1 step; (b) the
-    single-video runner with SLOTS: 4 against the sequential runner; (c)
-    ``torch_per_video --slots 4`` on phase 16's sweep.  Returns B7c's row of
-    the kernel table (B7's kernel at the slot step's shape and launches)."""
+    the same with USE_PALLAS_FUSED through B8 with a delta a clip ("B8c",
+    :func:`fused_slot_pass`); clip-steps/s at VS_TIME_SLOTS slots against
+    the B=1 step; (b) the single-video runner with SLOTS: 4 against the
+    sequential runner; (c) ``torch_per_video --slots 4`` on phase 16's
+    sweep.  Returns the kernel table's rows of B7c (B7's kernel at the slot
+    step's shape and launches) and of B8c's forward and backward."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from flickering_adversarial_video_tpu_torch import ops
     from flickering_adversarial_video_tpu_torch.attack import FlickerSpec, perturbation
@@ -875,11 +1135,9 @@ def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
         AttackConfig, AttackEngine, RuntimeFlags)
     from flickering_adversarial_video_tpu_torch.engine import sweep
     from flickering_adversarial_video_tpu_torch.engine.inference import InferenceModel
-    from flickering_adversarial_video_tpu_torch.engine.step_graph import WARMUP_STEPS
-    from flickering_adversarial_video_tpu_torch.engine.vector_sweep import (
-        SlotState, VectorSweepEngine)
+    from flickering_adversarial_video_tpu_torch.engine.vector_sweep import VectorSweepEngine
     from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
-    from flickering_adversarial_video_tpu_torch.ops import kernels, packed_apply
+    from flickering_adversarial_video_tpu_torch.ops import packed_apply
     from flickering_adversarial_video_tpu_torch.runners import (
         common, single_video, torch_per_video)
     from flickering_adversarial_video_tpu_torch.utils.config import load_config
@@ -887,7 +1145,6 @@ def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
 
     t_phase = time.perf_counter()
     bf16 = torch.bfloat16
-    state_fields = [f.name for f in dataclasses.fields(SlotState)]
 
     # ---- 17a. B7 with a dl a clip against its plain version at the slot step's shape ----
     # ties at both bounds: u8 0 under dl 0 is exactly -1 (clip 1), u8 255
@@ -946,11 +1203,10 @@ def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
     flags = RuntimeFlags()
     rng = np.random.default_rng(SEED + 17)
     clips = rng.integers(0, 256, (VS_SLOTS, 1, SV_FRAMES, SIZE, SIZE, 3), dtype=np.uint8)
-    labels = [int(engine.forward(None, {"video": torch.from_numpy(c).to(dev),
-                                        "labels": torch.zeros(1, dtype=torch.long, device=dev)},
-                                 adversarial=False).argmax()) for c in clips]
-    videos, packed, lab = engine.prepare_batch(
-        {"video": torch.from_numpy(clips[:, 0]).to(dev), "labels": torch.tensor(labels)})
+    videos, packed, lab, device = slot_chunk_checks(engine, clips, dev, SLOT_STEP_COUNTS, 1,
+                                                    "B7c, a dl a clip")
+    if packed is not True:
+        fail("the slot step's clips did not take the packed head")
     seeds = torch.arange(VS_SLOTS, device=dev)
 
     def fresh(n=VS_SLOTS, n_iter=VS_ITERS):
@@ -960,80 +1216,9 @@ def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
             vse.refill_slot(state, i, i, 0.2)
         return vse, state
 
-    vse, state = fresh()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ops.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, ys = vse.run_chunk(state, videos, lab, seeds, flags, VS_CHUNK, packed=packed)
-        torch.cuda.synchronize()
-    counts, device = read_counts(ops), device_launches(prof, kernels)
-    clip_counts = emit.clip_launches
-    first_s = time.perf_counter() - t0
-    want, want_device = scaled(SLOT_STEP_COUNTS, VS_CHUNK), scaled(SLOT_STEP_COUNTS,
-                                                                   VS_CHUNK + WARMUP_STEPS)
-    g_state = {k: t.clone() for k, t in zip(state_fields, state.tensors())}
-    g_ys = {k: v.clone() for k, v in ys.items()}
-    stats = vse.graph_stats()
-    print(f"[vector] slot step, {VS_SLOTS} uint8 clips [1,{SV_FRAMES},{SIZE},{SIZE},3] "
-          f"(packed: {packed}), escalate at n_iter {VS_ITERS}: one graphed chunk of {VS_CHUNK} "
-          f"from a new sweep engine (its capture's {WARMUP_STEPS} warm-up iterations included) in "
-          f"{first_s:.2f} s; launches as the wrappers count them {counts} (expected {want}), "
-          f"B7's with a dl a clip {clip_counts} (expected {VS_CHUNK}); as the device ran them "
-          f"{device} (expected {want_device}); graph pool "
-          f"{stats['pool_bytes'] / 1e9:.3f} GB, warm-up and capture {stats['capture_s']:.2f} s",
-          flush=True)
-    if counts != want or device != want_device or clip_counts != VS_CHUNK or packed is not True:
-        fail("the slot step's launch counts (or the clips did not take the packed head)")
-    del vse, state, ys, prof
-    vse_e, state_e = fresh()
-    state_e, ys_e = vse_e.run_chunk(state_e, videos, lab, seeds, flags, VS_CHUNK, packed=packed,
-                                    eager=True)
-    torch.cuda.synchronize()
-    same_state = {k: torch.equal(g_state[k], t) for k, t in zip(state_fields, state_e.tensors())}
-    same_ys = {k: torch.equal(g_ys[k], ys_e[k]) for k in g_ys} if g_ys.keys() == ys_e.keys() else {}
-    print(f"[vector] graphed chunk against the same chunk eager, bit for bit: state "
-          f"{same_state}; outputs {same_ys}", flush=True)
-    if not all(same_state.values()) or not same_ys or not all(same_ys.values()):
-        fail("the graphed slot chunk differs from its eager run")
-    del vse_e, state_e, ys_e
-
-    # each slot against sweep.fit_single_video of its clip and seed: the
-    # sequential graphed train_step at B=1, the same stop rule
-    active = g_ys["active"].cpu().numpy()
-    post = g_ys["delta_post"].float().cpu().numpy()
-    mnorm = g_ys["max_norm"].cpu().numpy()
-    loss = g_ys["total_loss"].float().cpu().numpy()
-    fooled = g_ys["is_adversarial"].cpu().numpy()
-    rows, ok = [], True
-    for i in range(VS_SLOTS):
-        res = sweep.fit_single_video(engine, {"video": clips[i], "labels": np.asarray([labels[i]])},
-                                     flags, n_iter=VS_ITERS, max_norm=0.2, seed=i,
-                                     init_scale=VS_INIT_SCALE)
-        ran = np.nonzero(active[:, i])[0]
-        vec_delta = np.stack([np.clip(post[t, i], -mnorm[t, i], mnorm[t, i]) for t in ran])
-        seq_delta = np.asarray(res["perturbation"])
-        d_err = (float(np.abs(vec_delta - seq_delta).max()) if len(ran) == len(seq_delta)
-                 else math.inf)
-        moved = float(np.abs(seq_delta[-1] - sweep.draw_init_delta(
-            tuple(engine.spec.shape), i, VS_INIT_SCALE).numpy()).max())
-        seq_loss = np.asarray(res["loss/total"])
-        l_err = (float((np.abs(loss[ran, i] - seq_loss) / np.abs(seq_loss)).max())
-                 if len(ran) == len(seq_loss) else math.inf)
-        esc = int(g_state["chances"][i])
-        same = (len(ran) == len(seq_loss) and esc == res["escalations"]
-                and [bool(f) for f in fooled[ran, i]] == list(res["is_adversarial"]))
-        rows.append(f"slot {i}: steps {len(ran)}/{len(seq_loss)}, escalations "
-                    f"{esc}/{res['escalations']}, fooled {bool(fooled[ran, i].any())}/"
-                    f"{bool(np.any(res['is_adversarial']))}, delta max |diff| {d_err:.3e} (bound "
-                    f"{VS_DELTA_SHARE} x its movement {moved:.3e}), losses max relative diff "
-                    f"{l_err:.3e} (bound {VS_LOSS_REL})")
-        ok = ok and same and d_err <= VS_DELTA_SHARE * moved and l_err <= VS_LOSS_REL
-    print("[vector] each slot against the sequential graphed train_step of its clip and seed "
-          "(sweep.fit_single_video; vector/sequential): " + "; ".join(rows), flush=True)
-    if not ok:
-        fail("a slot's trajectory is not the sequential one: step counts, escalations, verdicts "
-             "or a bound")
+    # ---- 17f. kernel B8 with a delta a clip (B8c): the fused slot step ---------------
+    b8c_rows = fused_slot_pass(dev, model, clips)
+    torch.cuda.empty_cache()
 
     # ---- 17c. clip-steps/s at N slots against the B=1 step ----------------------------
     def seq_ms():
@@ -1209,12 +1394,12 @@ def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
         fail("torch_per_video --slots: counts, files, schema, ledger rerun or launch counts")
     print(f"[time] phase 17 (the vectorized sweep) {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return {"name": "B7c emit_adv_mask, a dl a clip", "route": "cuda",
+    return [{"name": "B7c emit_adv_mask, a dl a clip", "route": "cuda",
             "source": "flickering_adversarial_video_tpu_torch/csrc/emit.cu",
             "replaces": "flickering_adversarial_video_tpu/ops/stem_tmajor.py:363",
             "launches": device["B7"], "max_abs_err": b7c_err, "ms": ms7, "plain_ms": plain7,
             "bound_ms": bound7, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None}] + b8c_rows
 
 
 # phase 18, data parallel over ranks (parallel/mesh.py): (a) world 1 over
@@ -1642,6 +1827,73 @@ def dp_sweep_phase(tmp, dev, sweep_run, plant=None):
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
     if not ok:
         fail("18c: torch_per_video --slots 4 --mesh is not phase 17e's sweep")
+
+
+# phase 19, the float schema: FS_CLIPS seeded f32 clips of FS_FRAMES x SIZE^2
+# through float-schema records and one graphed step of the universal engine
+FS_CLIPS, FS_FRAMES = 2, 16
+
+
+def float_schema_phase(tmp: str, dev) -> None:
+    """Phase 19, the float schema (``data/tfrecord.py``): FS_CLIPS seeded f32
+    clips [FS_FRAMES, SIZE, SIZE, 3] in [-1, 1] written as float-schema
+    records by the port's ``make_float_example`` and ``TFRecordWriter``, read
+    back through ``tfrecord_batches(schema="float")`` into pinned buffers
+    (every value and label equal to the arrays), and one graphed train step
+    of the universal engine (I3D, bf16; a float clip takes the generic path)
+    on that batch, its wrappers' counts those of a float clip's step: delta,
+    the moments and every metric bit-equal to the same step, in the same
+    graph, on the batch built from the arrays directly."""
+    import numpy as np
+    import torch
+
+    from flickering_adversarial_video_tpu_torch import ops
+    from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
+    from flickering_adversarial_video_tpu_torch.convert import init_i3d_state
+    from flickering_adversarial_video_tpu_torch.data import (
+        TFRecordWriter, make_float_example, tfrecord_batches)
+    from flickering_adversarial_video_tpu_torch.engine import (
+        AttackConfig, AttackEngine, RuntimeFlags)
+    from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 19)
+    videos = rng.uniform(-1, 1, (FS_CLIPS, FS_FRAMES, SIZE, SIZE, 3)).astype(np.float32)
+    labels = rng.integers(0, CLASSES, FS_CLIPS).astype(np.int64)
+    path = os.path.join(tmp, "float_schema.tfrecords")
+    with TFRecordWriter(path) as w:
+        for video, label in zip(videos, labels):
+            w.write(make_float_example(video, int(label)))
+    batches = list(tfrecord_batches([path], FS_CLIPS, schema="float", use_native=False,
+                                    height=SIZE, width=SIZE, pin_memory=True))
+    read_ok = (len(batches) == 1 and batches[0]["video"].is_pinned()
+               and np.array_equal(batches[0]["video"].numpy(), videos)
+               and np.array_equal(batches[0]["labels"], labels))
+    model = InceptionI3D(CLASSES, torch.bfloat16, device=dev)
+    model.load_state_dict(init_i3d_state(SEED))
+    engine = AttackEngine(model, FlickerSpec(FS_FRAMES), AttackConfig(), track_probs=True)
+    ops.reset_launch_counts()
+    runs = []
+    for batch in (batches[0], {"video": videos, "labels": labels}):
+        state, metrics = engine.train_step(engine.init_state(), batch, RuntimeFlags())
+        torch.cuda.synchronize()
+        runs.append(([t.clone() for t in (state.delta, state.mu, state.nu)],
+                     {k: v.clone() if torch.is_tensor(v) else v for k, v in metrics.items()}))
+    counts = read_counts(ops)
+    (s1, m1), (s2, m2) = runs
+    same = all(torch.equal(a, b) for a, b in zip(s1, s2)) and m1.keys() == m2.keys() and all(
+        torch.equal(m1[k], m2[k]) if torch.is_tensor(m1[k]) else m1[k] == m2[k] for k in m1)
+    finite = bool(torch.isfinite(m1["total_loss"])) and bool((s1[0] != 0).any())
+    want = scaled(SV_STEP_COUNTS, 2)
+    print(f"[float] {FS_CLIPS} float-schema records of [{FS_FRAMES},{SIZE},{SIZE},3] f32 written "
+          f"and read back through tfrecord_batches(schema='float'), pinned: values and labels "
+          f"equal {read_ok}; one graphed train step (graphed: {engine.graphed}) on that batch "
+          f"against the same step on the arrays: delta, moments and metrics bit-equal {same}; "
+          f"total_loss {float(m1['total_loss']):.6f} finite, delta moved: {finite}; launches of "
+          f"the two steps {counts} (expected {want}) "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    if not (read_ok and same and finite and engine.graphed and counts == want):
+        fail("the float schema: records, batches, the graphed step or its counts")
 
 
 def main() -> None:
@@ -3483,7 +3735,7 @@ def main() -> None:
 
         # ---- 17. the vectorized per-video sweep -------------------------------------------
         torch.cuda.empty_cache()
-        table.append(vector_sweep_phase(tmp, dev, sweep_run))
+        table.extend(vector_sweep_phase(tmp, dev, sweep_run))
 
         # ---- 18. data parallel over ranks -------------------------------------------------
         torch.cuda.empty_cache()
@@ -3491,6 +3743,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         dp_gloo_phase(tmp, dev)
         dp_sweep_phase(tmp, dev, sweep_run)
+
+        # ---- 19. the float schema -----------------------------------------------------
+        torch.cuda.empty_cache()
+        float_schema_phase(tmp, dev)
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -7,10 +7,11 @@ The fault: the slot step hands Adam d(delta) summed over the slots, so that
 every slot steps by the batch's gradient instead of its own (the sequential
 step is left as it is).  Phase 16 runs first, for the sweep that phase 17's
 path (c) reruns with slots.  Each failed check of phase 17 prints its FAIL
-line, and the phase goes on to its end.  Exits 0 when the fault failed both
-the check of each slot against the sequential step (17b) and the check of
-the single-video runner with SLOTS: 4 against SLOTS: 1 (17d), else 1.  Needs
-one CUDA card; builds the port's kernels at first use.
+line, and the phase goes on to its end.  Exits 0 when the fault failed the
+check of each slot against the sequential step, with the packed head (17b)
+and with USE_PALLAS_FUSED (17f), and the check of the single-video runner
+with SLOTS: 4 against SLOTS: 1 (17d), else 1.  Needs one CUDA card; builds
+the port's kernels at first use.
 """
 
 from __future__ import annotations
@@ -57,7 +58,9 @@ def main() -> int:
                 mock.patch.object(chip_smoke, "fail", record), \
                 mock.patch.object(chip_smoke, "VS_TIME_SLOTS", ()):
             chip_smoke.vector_sweep_phase(tmp, dev, sweep_run)
-    caught = {"17b": any("trajectory" in m for m in failed),
+    fused = "the fused slot step: "
+    caught = {"17b": any(m.startswith("a slot's trajectory") for m in failed),
+              "17f": any(m.startswith(fused + "a slot's trajectory") for m in failed),
               "17d": any("single-video runner" in m for m in failed)}
     print(f"[fault] d(delta) summed over the slots: caught by {caught}", flush=True)
     return 0 if all(caught.values()) else 1

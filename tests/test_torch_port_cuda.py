@@ -465,20 +465,23 @@ class TestSlotGraph:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
-    @pytest.mark.parametrize("stop", ["escalate", "reference"])
-    def test_graphed_chunk_equals_eager_chunk(self, stop):
+    @pytest.mark.parametrize("stop,fused", [("escalate", False), ("reference", False),
+                                            ("escalate", True)])
+    def test_graphed_chunk_equals_eager_chunk(self, stop, fused):
+        """The packed head (B7c), or with USE_PALLAS_FUSED the fused kernel
+        with a delta a clip (B8c)."""
         from flickering_adversarial_video_tpu_torch.engine.vector_sweep import VectorSweepEngine
 
         model = InceptionI3D(G_CLASSES, torch.bfloat16, device="cuda")
         model.load_state_dict(init_i3d_state(3, G_CLASSES))
-        engine = AttackEngine(model, FlickerSpec(frames=G_FRAMES), AttackConfig(),
-                              track_probs=False)
+        engine = AttackEngine(model, FlickerSpec(frames=G_FRAMES),
+                              AttackConfig(use_pallas_fused=fused), track_probs=False)
         rng = np.random.default_rng(4)
         video = torch.from_numpy(rng.integers(0, 256, (3, G_FRAMES, 32, 32, 3),
                                               dtype=np.uint8)).cuda()
         videos, packed, labels = engine.prepare_batch(
             {"video": video, "labels": torch.tensor([1, 2, 3]).cuda()})
-        assert packed
+        assert packed is not fused
         seeds = torch.tensor([0, 1, 2], device="cuda")
         runs = []
         for eager in (False, True):
@@ -491,7 +494,7 @@ class TestSlotGraph:
             ys = []
             for _ in range(2):  # a refill between two chunks
                 state, y = vse.run_chunk(state, videos, labels, seeds, RuntimeFlags(), 3,
-                                         packed=True, eager=eager)
+                                         packed=packed, eager=eager)
                 ys.append({k: v.clone() for k, v in y.items()})
                 vse.refill_slot(state, 1, 5, 0.2)
             runs.append((tuple(t.clone() for t in state.tensors()), ys, ops.launch_counts()))
@@ -502,7 +505,11 @@ class TestSlotGraph:
             assert a.keys() == b.keys()
             for k in a:
                 assert torch.equal(a[k], b[k]), k
-        assert gn == en and gn["B7c emit_adv_mask, a delta a clip"] == gn["B7 emit_adv_mask"] == 6
+        assert gn == en
+        b7c, b7 = gn["B7c emit_adv_mask, a delta a clip"], gn["B7 emit_adv_mask"]
+        b8c = (gn["B8cf fused_apply_fwd, a delta a clip"], gn["B8cb fused_apply_bwd, a delta a clip"])
+        assert (b7c, b7, b8c) == ((0, 0, (6, 6)) if fused else (6, 6, (0, 0)))
+        assert gn["B8f fused_apply_fwd"] == gn["B8b fused_apply_bwd"] == 0
 
 
 @pytest.mark.cuda
