@@ -359,6 +359,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def card_name_and_limit() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable: {e}"
+
+
 def cuda_ms(torch, fn, iters=10, warmup=2):
     for _ in range(warmup):
         fn()
@@ -1012,7 +1023,10 @@ def fused_slot_pass(dev, model, clips) -> list:
     from flickering_adversarial_video_tpu_torch.ops import fused_apply
 
     fwd, bwd = fused_apply.fused_apply_fwd, fused_apply.fused_apply_bwd
-    counters = lambda: (fwd.launches, fwd.clip_launches, bwd.launches, bwd.clip_launches)  # noqa: E731
+
+    def counters():
+        return fwd.launches, fwd.clip_launches, bwd.launches, bwd.clip_launches
+
     gen = torch.Generator().manual_seed(SEED + 19)
     shape = (VS_SLOTS, SV_FRAMES, SIZE, SIZE, 3)
     u8 = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
@@ -1077,8 +1091,7 @@ def fused_slot_pass(dev, model, clips) -> list:
     torch.cuda.empty_cache()
 
     # ---- (c) times
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = card_name_and_limit()
     n = u8.numel()
     rows = []
     for name, kern, plain, shared, n_bytes, err in (
@@ -3747,15 +3760,8 @@ def main() -> None:
         # ---- 19. the float schema -----------------------------------------------------
         torch.cuda.empty_cache()
         float_schema_phase(tmp, dev)
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        ).stdout.strip()
-    except (OSError, subprocess.SubprocessError) as e:
-        smi = f"nvidia-smi unavailable: {e}"
     print(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
-    print(smi)
+    print(card_name_and_limit())
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
