@@ -239,7 +239,35 @@ which fails the run:
    the same step on the arrays (launches a float clip's).  Decoding mp4 and
    the live dashboard need cv2 and matplotlib, which the card's machine
    lacks: they are held on the CPU only (tests/test_torch_port_data_prep.py,
-   tests/test_torch_port_live_labels.py).
+   tests/test_torch_port_live_labels.py);
+20. the last modules: (a) the TV-L1 flow (``data/optical_flow.py``) on the
+   card at the reference's geometry: a seeded textured gray clip of 64
+   frames at 256x340 (the reference's resize of a 4:3 frame to a min side of
+   256), each frame moved by a known whole-pixel shift, its 63 pairs as one
+   batch at the defaults (5 scales, 5 warps, 30 iterations): every pair's
+   interior median within 0.5 px of its shift, a second run bit-equal,
+   ``frames_to_flow`` to [1,63,224,224,2] equal to the postprocessed flow,
+   and 2 pairs of 64x80 against the port's CPU flow (FLOW_CARD_ATOL_PX);
+   seconds a clip, ms a pair, peak memory and kernels launched; (b)
+   ``utils.profiling.trace_steps`` around 3 replays of the graphed B=8 step
+   (the trace names B1's and B4's kernels), ``ops.accounting.recording()``
+   around one eager B=8 step (calls by tag equal to the wrappers' launches,
+   a train step's, and to the same step's on a CPU copy at 2x8x32x32), and
+   each kernel's accounted bytes and FLOPs at its timed shape giving PERF.md
+   section 6's bound within 1% (TABLE_BOUNDS); (c)
+   ``data.grain_pipeline.GrainEpochLoader`` with 2 spawned workers over 2
+   epochs of phase 7's shards: each epoch the native reader's pass as a
+   multiset, in exact batches of 8, its host MB/s, and one graphed step on
+   its first batch.  ``tfrecord.make_tf_dataset``, ``viz.stats_plots``,
+   ``viz.aggregate``, ``convert.fake_assets.write_i3d_saver_checkpoint``
+   and the mp4 flow branch need TensorFlow, matplotlib or cv2, which the
+   card's machine lacks: CPU-only host tools, held on the CPU
+   (tests/test_torch_port_loaders.py, tests/test_torch_port_tools.py,
+   tests/test_torch_port_flow.py).
+
+Before phase 1 it prints ``utils.system.system_info()`` and
+``device_kind()`` and fails unless ``num_devices()`` equals
+``torch.cuda.device_count()``.
 
 Prints the kernel table as one JSON line (a kernel's launches: those that ran
 on the device in phase 3's traced run of its path; B7c's, B7's kernel at the
@@ -1909,6 +1937,301 @@ def float_schema_phase(tmp: str, dev) -> None:
         fail("the float schema: records, batches, the graphed step or its counts")
 
 
+# phase 20a, the TV-L1 flow at the reference's geometry: a gray clip of
+# FLOW_FRAMES frames at FLOW_H x FLOW_W (the reference's resize of a 4:3 frame
+# to a min side of 256), each frame moved from the one before by a whole-pixel
+# shift from FLOW_SHIFTS (a cycle summing to 0, so that the crops stay inside
+# the texture); the interior median of every pair within FLOW_MEDIAN_PX of its
+# shift (the JAX test's tolerance), the card against the port's CPU flow on
+# FLOW_PAIR_HW pairs within FLOW_CARD_ATOL_PX
+FLOW_FRAMES, FLOW_H, FLOW_W, FLOW_MARGIN = 64, 256, 340, 16
+FLOW_SHIFTS = ((2, 0), (0, 3), (2, 1), (-3, -1), (1, -2), (-2, -1))
+FLOW_MEDIAN_PX, FLOW_BORDER = 0.5, 12
+FLOW_PAIR_HW, FLOW_CARD_ATOL_PX = (64, 80), 5e-4  # measured 5.2e-5 px (H100)
+# phase 20b: each kernel's bound at its timed shape in PERF.md section 6 (ms),
+# which the tally's bytes and FLOPs must give within 1%
+TABLE_BOUNDS = {"B1": 0.607, "B2": 0.123, "B3": 0.046, "B4": 0.069, "B5": 0.153, "B6": 0.276,
+                "B7": 0.092, "B7c": 0.065, "B8f": 0.115, "B8b": 0.115, "B8cf": 0.081,
+                "B8cb": 0.081, "B9f": 0.169, "B9b": 0.169}
+LOADER_WORKERS, LOADER_EPOCHS = 2, 2   # phase 20c's GrainEpochLoader
+
+
+def _textured_clip(torch, dev, frames: int, h: int, w: int, margin: int, seed: int):
+    """(gray clip [frames, h, w] f32 on dev, the shift (dx, dy) of each pair):
+    blurred uniform noise on the 0..255 scale (three passes of a 4-wide box
+    on each axis, the JAX tests' `_smooth_image`), frame t+1 the crop of frame
+    t moved by FLOW_SHIFTS[t % 6]."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    big = (torch.rand(1, 1, h + 2 * margin, w + 2 * margin, generator=gen) * 255).to(dev)
+    box = torch.full((1, 1, 1, 4), 0.25, device=dev)
+    for _ in range(3):
+        big = F.conv2d(F.pad(big, (2, 1, 0, 0), mode="replicate"), box)
+        big = F.conv2d(F.pad(big, (0, 0, 2, 1), mode="replicate"), box.transpose(2, 3))
+    big = big[0, 0]
+    shifts = [FLOW_SHIFTS[t % len(FLOW_SHIFTS)] for t in range(frames - 1)]
+    ox = oy = 0
+    out = [big[margin : margin + h, margin : margin + w]]
+    for dx, dy in shifts:
+        ox, oy = ox + dx, oy + dy
+        # content moved by +d: crop at the origin minus the running shift
+        out.append(big[margin - oy : margin - oy + h, margin - ox : margin - ox + w])
+    return torch.stack(out).contiguous(), shifts
+
+
+def flow_phase(dev) -> None:
+    """Phase 20a, the TV-L1 flow (``data/optical_flow.py``) on the card at
+    the reference's geometry: ``flow_for_video`` on the FLOW_FRAMES - 1 pairs
+    of a seeded textured clip as one batch at the defaults (5 scales, 5
+    warps, 30 iterations), timed (seconds a clip, ms a pair), its peak
+    memory and the kernels it launched (torch.profiler); every pair's
+    interior median within FLOW_MEDIAN_PX of its shift; ``frames_to_flow``
+    to [1, T-1, 224, 224, 2] equal to the postprocessed flow; and 2 pairs of
+    FLOW_PAIR_HW at the defaults on the card against the port's CPU flow."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from flickering_adversarial_video_tpu_torch.data import optical_flow
+    from flickering_adversarial_video_tpu_torch.data.video import frames_to_flow
+
+    t_phase = time.perf_counter()
+    gray, shifts = _textured_clip(torch, dev, FLOW_FRAMES, FLOW_H, FLOW_W, FLOW_MARGIN, SEED + 20)
+    pairs = FLOW_FRAMES - 1
+    optical_flow.flow_for_video(gray[:3])  # the first call's set-up (cuBLAS, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    flow = optical_flow.flow_for_video(gray)
+    torch.cuda.synchronize()
+    clip_s = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = optical_flow.flow_for_video(gray)
+        torch.cuda.synchronize()
+    launched = int(sum(n for _, n, _ in kernel_rows(prof)))
+    kernel_ms = sum(ms for ms, _, _ in kernel_rows(prof))
+    same_again = torch.equal(flow, again)
+    inner = flow[:, FLOW_BORDER:-FLOW_BORDER, FLOW_BORDER:-FLOW_BORDER].reshape(pairs, -1, 2)
+    med = inner.median(dim=1).values.cpu().numpy()
+    err = np.abs(med - np.asarray(shifts, np.float32))
+    finite = bool(torch.isfinite(flow).all())
+    print(f"[flow] TV-L1 on the card: {pairs} pairs of [{FLOW_H},{FLOW_W}] as one batch, "
+          f"{optical_flow.NSCALES} scales x {optical_flow.WARPS} warps x "
+          f"{optical_flow.ITERATIONS} iterations: {clip_s:.3f} s a clip, "
+          f"{clip_s / pairs * 1e3:.2f} ms a pair; peak memory {peak_gb:.3f} GB above the clip; "
+          f"{launched} kernels launched ({kernel_ms:.1f} ms of kernels under torch.profiler); "
+          f"a second run bit-equal {same_again}; interior median error against the shifts max "
+          f"{err.max():.3f} px (tolerance {FLOW_MEDIAN_PX}), finite {finite}", flush=True)
+    if not (finite and same_again and err.max() < FLOW_MEDIAN_PX and flow.is_cuda):
+        fail("the TV-L1 flow on the card: shifts not recovered, not finite or not repeatable")
+    t0 = time.perf_counter()
+    post = frames_to_flow(gray.cpu().numpy(), 224, device=dev)[np.newaxis]
+    f2f_s = time.perf_counter() - t0
+    want = optical_flow.postprocess_flow(flow, 224).cpu().numpy()
+    post_err = float(np.abs(post[0] - want).max())
+    print(f"[flow] frames_to_flow on the card -> {list(post.shape)} in {f2f_s:.3f} s (host copy "
+          f"included), max |diff| against the postprocessed flow {post_err:.3e} (tolerance 0), "
+          f"range [{post.min():.3f}, {post.max():.3f}]", flush=True)
+    if post.shape != (1, pairs, 224, 224, 2) or post_err != 0 or np.abs(post).max() > 1:
+        fail("frames_to_flow on the card: shape, values or range")
+    small = gray[:3, :FLOW_PAIR_HW[0], :FLOW_PAIR_HW[1]].contiguous()
+    card = optical_flow.flow_for_video(small).cpu()
+    cpu = optical_flow.flow_for_video(small.cpu())
+    card_err = float((card - cpu).abs().max())
+    print(f"[flow] 2 pairs of {list(FLOW_PAIR_HW)} at the defaults: the card against the port's "
+          f"CPU flow max |diff| {card_err:.3e} px (tolerance {FLOW_CARD_ATOL_PX}; flow max "
+          f"{float(cpu.abs().max()):.3f} px) ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    if not card_err <= FLOW_CARD_ATOL_PX:
+        fail("the TV-L1 flow on the card disagrees with the CPU flow")
+
+
+def _accounted_inputs(torch, dev, name: str):
+    """A call of kernel `name`'s wrapper at its timed shape in PERF.md section 6."""
+    from flickering_adversarial_video_tpu_torch.ops import (
+        fused_apply, packed_apply, pool_s1, pool_strided, stem_combine, stem_conv)
+
+    bf16 = torch.bfloat16
+
+    def z(*shape, dtype=bf16):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    x5, dy5 = (B, T // 2, 112, 112, 64), (B, T // 2, 56, 56, 64)
+    xp = (B, T // 2, 28, 28, 192)
+    u8_7, u8_8, u8_8c = (B, T // 2, 112, 112, 24), (B, T, SIZE, SIZE, 3), (4, 90, SIZE, SIZE, 3)
+    flag = torch.ones((), device=dev)
+    return {
+        "B1": lambda: stem_conv.stem_conv_bn_relu(
+            z(B, T // 2, 112, 112, 24), z(4, 4, 4, 24, 64), z(64, dtype=torch.float32),
+            torch.ones(64, device=dev), z(64, dtype=torch.float32)),
+        "B2": lambda: stem_combine.temporal_combine(z(B, T // 2, 56, 56, 192), 64, 1),
+        "B3": lambda: pool_s1.pool333_fwd(z(*xp)),
+        "B4": lambda: pool_s1.pool333_bwd(z(*xp), z(*xp)),
+        "B5": lambda: pool_strided.pool133_s2_fwd(z(*x5)),
+        "B6": lambda: pool_strided.pool133_s2_bwd(z(*x5), z(*dy5)),
+        "B7": lambda: packed_apply.emit_adv_mask(z(*u8_7, dtype=torch.uint8),
+                                                 z(T // 2, 24, dtype=torch.float32), -1, 1, bf16),
+        "B7c": lambda: packed_apply.emit_adv_mask(z(4, 45, 112, 112, 24, dtype=torch.uint8),
+                                                  z(4, 45, 24, dtype=torch.float32), -1, 1, bf16),
+        "B8f": lambda: fused_apply.fused_apply_fwd(z(*u8_8, dtype=torch.uint8),
+                                                   z(T, 1, 1, 3, dtype=torch.float32), flag),
+        "B8b": lambda: fused_apply.fused_apply_bwd(z(*u8_8, dtype=torch.uint8),
+                                                   z(T, 1, 1, 3, dtype=torch.float32), flag,
+                                                   z(*u8_8, dtype=torch.float32)),
+        "B8cf": lambda: fused_apply.fused_apply_fwd(z(*u8_8c, dtype=torch.uint8),
+                                                    z(4, 90, 1, 1, 3, dtype=torch.float32), flag),
+        "B8cb": lambda: fused_apply.fused_apply_bwd(z(*u8_8c, dtype=torch.uint8),
+                                                    z(4, 90, 1, 1, 3, dtype=torch.float32), flag,
+                                                    z(*u8_8c, dtype=torch.float32)),
+        "B9f": lambda: pool_strided.pool133_s2_pair_fwd(z(*x5)),
+        "B9b": lambda: pool_strided.pool133_s2_pair_bwd(z(*dy5, dtype=torch.uint8), z(*dy5)),
+    }[name]
+
+
+def tally_phase(tmp: str, dev):
+    """Phase 20b, tracing and the tally (``utils/profiling.py``,
+    ``ops/accounting.py``) on the full-width I3D engine (B=8 uint8 clips of
+    T x SIZE^2, bf16): ``trace_steps`` around 3 replays of the graphed step
+    writes a trace naming B1's and B4's kernels; ``recording()`` around one
+    eager step tallies each tag as often as the wrappers count its launches,
+    which are a train step's (TRAIN_COUNTS), and the same step on a CPU copy
+    (f32, 2 clips of 8 x 32^2) tallies the same tags and counts; each
+    kernel's accounted bytes and FLOPs at its timed shape give its bound in
+    PERF.md section 6 (TABLE_BOUNDS) within 1%.  Returns the engine and a
+    state for phase 20c."""
+    import numpy as np
+    import torch
+
+    from flickering_adversarial_video_tpu_torch import ops
+    from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
+    from flickering_adversarial_video_tpu_torch.convert import init_i3d_state
+    from flickering_adversarial_video_tpu_torch.engine import AttackEngine, RuntimeFlags
+    from flickering_adversarial_video_tpu_torch.models.i3d import InceptionI3D
+    from flickering_adversarial_video_tpu_torch.ops import accounting, kernels
+    from flickering_adversarial_video_tpu_torch.utils.profiling import trace_steps
+
+    t_phase = time.perf_counter()
+    flags = RuntimeFlags()
+    model = InceptionI3D(CLASSES, torch.bfloat16, device=dev)
+    model.load_state_dict(init_i3d_state(SEED, CLASSES))
+    engine = AttackEngine(model, FlickerSpec(frames=T), track_probs=False)
+    rng = np.random.default_rng(SEED + 21)
+    batch = {"video": torch.from_numpy(rng.integers(0, 256, (B, T, SIZE, SIZE, 3),
+                                                    dtype=np.uint8)).to(dev),
+             "labels": torch.from_numpy(rng.integers(0, CLASSES, (B,))).to(dev)}
+    state = engine.train_steps(engine.init_state(), batch, flags, 1)  # warm-up and capture
+    torch.cuda.synchronize()
+    log_dir = os.path.join(tmp, "trace")
+    with trace_steps(log_dir):
+        for _ in range(3):
+            state = engine.train_steps(state, batch, flags, 1)
+    path = os.path.join(log_dir, "trace.json")
+    text = open(path).read() if os.path.exists(path) else ""
+    named = {k: sum(text.count(m) for m in kernels.KERNEL_SYMBOLS[LAUNCHERS[k]])
+             for k in ("B1", "B4")}
+    # the trace must name both kernels; torch.profiler has been seen to drop a
+    # few of a run's kernel events (one of the 3 B1 events here, 39 of phase
+    # 20a's 65,742), so the counts are printed beside the launches, not held
+    print(f"[trace] trace_steps around 3 replays of the graphed B={B} step: {path} "
+          f"({len(text) / 1e6:.2f} MB), mentions of B1's kernel {named['B1']} (3 launched), "
+          f"of B4's {named['B4']} (27 launched)", flush=True)
+    if not (named["B1"] and named["B4"]):
+        fail("trace_steps: no trace file, or B1's and B4's kernels missing from it")
+
+    def eager_tally(eng, batch_):
+        ops.reset_launch_counts()
+        with accounting.recording() as tally:
+            eng._train_step(eng.init_state(), *eng.prepare_batch(batch_), flags)
+        return tally, read_counts(ops)
+
+    tally, counts = eager_tally(engine, batch)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in counts.items() if n}
+    want = {k: n for k, n in TRAIN_COUNTS.items() if n}
+    cpu_model = InceptionI3D(CLASSES, torch.float32, device="cpu")
+    cpu_model.load_state_dict(init_i3d_state(SEED, CLASSES))
+    cpu_batch = {"video": batch["video"][:2, :8, :32, :32].contiguous().cpu(),
+                 "labels": batch["labels"][:2].cpu()}
+    cpu_tally, _ = eager_tally(AttackEngine(cpu_model, FlickerSpec(frames=8), track_probs=False),
+                               cpu_batch)
+    print(f"[tally] recording() around one eager B={B} step on the card: calls by tag "
+          f"{tally.counts()}, the wrappers' launches {launched} (a train step's {want}); "
+          f"{tally.flops / 1e9:.3f} GFLOP and {tally.hbm_bytes / 1e9:.3f} GB accounted; the same "
+          f"step on a CPU copy (f32, [2,8,32,32,3]): {cpu_tally.counts()}", flush=True)
+    if not (tally.counts() == launched == want == cpu_tally.counts()):
+        fail("the tally's calls differ from the wrappers' launch counts or between the devices")
+    for name, table_ms in TABLE_BOUNDS.items():
+        with accounting.recording() as one:
+            _accounted_inputs(torch, dev, name)()
+        torch.cuda.synchronize()
+        (tag, flops, nbytes), = one.calls
+        peak = PEAK_BF16_FLOPS if name == "B1" else PEAK_F32_FLOPS
+        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+        bound = max(t_bytes, t_ops)
+        print(f"[tally] {name}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP accounted -> bound "
+              f"{bound:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}; at 3.35 TB/s, "
+              f"989 / 67 TFLOP/s); PERF.md's {table_ms} ms", flush=True)
+        if tag != name or abs(bound - table_ms) > 0.01 * table_ms:
+            fail(f"{name}: the tally's bound differs from PERF.md's by more than 1%")
+    print(f"[tally] ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return engine, state
+
+
+def epoch_loader_phase(shard_dir: str, dev, engine, state) -> None:
+    """Phase 20c, the epoch loader (``data/grain_pipeline.py``):
+    ``GrainEpochLoader`` with LOADER_WORKERS spawned workers over
+    LOADER_EPOCHS epochs of phase 7's shards; each epoch, as a multiset of
+    (label, digest of the video), equal to one pass of the native reader over
+    the same shards, with exact boundaries (every epoch the shards' records,
+    in batches of B); the host MB/s of each epoch; one graphed step of phase
+    20b's engine on its first batch."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from flickering_adversarial_video_tpu_torch.data import list_shards, tfrecord_batches
+    from flickering_adversarial_video_tpu_torch.data.grain_pipeline import GrainEpochLoader
+    from flickering_adversarial_video_tpu_torch.engine import RuntimeFlags
+
+    def keys(batches):
+        return sorted((int(label), hashlib.sha1(np.ascontiguousarray(video).tobytes()).hexdigest())
+                      for b in batches for video, label in zip(b["video"], b["labels"]))
+
+    shards = list_shards(shard_dir)
+    native = keys(tfrecord_batches(shards, B, frames=T))
+    t0 = time.perf_counter()
+    loader = GrainEpochLoader(shards, B, epochs=LOADER_EPOCHS, frames=T,
+                              worker_count=LOADER_WORKERS, seed=SEED)
+    rows, first = [], None
+    for epoch in range(LOADER_EPOCHS):
+        t1 = time.perf_counter()
+        batches = list(loader.epoch_batches())
+        secs = time.perf_counter() - t1
+        nbytes = sum(b["video"].nbytes for b in batches)
+        exact = ([len(b["labels"]) for b in batches] == [B] * (SHARDS * PER_SHARD // B)
+                 and keys(batches) == native)
+        rows.append(f"epoch {epoch + 1}: {len(batches)} batches, equal to the native reader's "
+                    f"pass {exact}, {nbytes / secs / 1e6:.0f} MB/s")
+        if not exact:
+            fail(f"GrainEpochLoader epoch {epoch + 1} differs from the native reader's pass")
+        first = first or batches[0]
+    total_s = time.perf_counter() - t0
+    state, metrics = engine.train_step(state, first, RuntimeFlags())
+    torch.cuda.synchronize()
+    loss = float(metrics["total_loss"])
+    print(f"[loader] GrainEpochLoader({LOADER_WORKERS} spawned workers, {LOADER_EPOCHS} epochs) "
+          f"on phase 7's shards: {'; '.join(rows)} (the first epoch's time includes the "
+          f"workers' start; {total_s:.1f} s in all; phase 7's [input] lines give the readers' "
+          f"MB/s); one graphed step on its first batch: total_loss {loss:.6f}, graphed "
+          f"{engine.graphed}", flush=True)
+    if not (math.isfinite(loss) and engine.graphed):
+        fail("the graphed step on the epoch loader's batch")
+
+
 def main() -> None:
     sys.path.insert(0, HERE)
     try:
@@ -1939,6 +2262,7 @@ def main() -> None:
         from flickering_adversarial_video_tpu_torch.ops.space_to_depth import pack_input
         from flickering_adversarial_video_tpu_torch.runners import (
             class_gen, common, single_video, universal)
+        from flickering_adversarial_video_tpu_torch.utils import system
         from flickering_adversarial_video_tpu_torch.utils.config import load_config
         from flickering_adversarial_video_tpu_torch.viz.results import load_result
         from torch.profiler import ProfilerActivity, profile
@@ -1949,6 +2273,12 @@ def main() -> None:
     if any(m == "jax" or m.startswith(("jax.", "flickering_adversarial_video_tpu."))
            for m in sys.modules):
         fail("jax or the JAX package was imported")
+    info = system.system_info()
+    print(f"[system] {info}; device_kind {system.device_kind()!r}; num_devices "
+          f"{system.num_devices()} (torch.cuda.device_count() {torch.cuda.device_count()})",
+          flush=True)
+    if system.num_devices() != torch.cuda.device_count() or info["backend"] != "cuda":
+        fail("utils.system counts other devices than torch.cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3760,6 +4090,14 @@ def main() -> None:
         # ---- 19. the float schema -----------------------------------------------------
         torch.cuda.empty_cache()
         float_schema_phase(tmp, dev)
+
+        # ---- 20. the last modules: the flow, tracing and the tally, the epoch loader --------
+        torch.cuda.empty_cache()
+        flow_phase(dev)
+        torch.cuda.empty_cache()
+        tally_engine, tally_state = tally_phase(tmp, dev)
+        epoch_loader_phase(shard_dir, dev, tally_engine, tally_state)
+        del tally_engine, tally_state
     print(f"[time] whole run {time.perf_counter() - t_start:.1f} s")
     print(card_name_and_limit())
     print(json.dumps({"kernels": table}))

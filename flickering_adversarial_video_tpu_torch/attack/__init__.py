@@ -15,6 +15,8 @@ from .perturbation import (
 )
 from .regularizers import (
     first_order_diff_reg,
+    flicker_regularizer,
+    flicker_regularizer_torch,
     l12_regularizer,
     second_order_diff_reg,
     thinness_reg,

@@ -20,8 +20,9 @@ host prepack take the uint8 schema only: the float schema needs
 ``use_native=False`` and raises otherwise (the JAX package quietly takes
 its Python codec there).
 
-Not ported: ``prepack="view"`` (a TPU layout) and ``make_tf_dataset``
-(ROADMAP.md queue A item 13c).
+``make_tf_dataset`` is the same tf.data pipeline as the JAX package's; it
+imports TensorFlow when called (a host tool: the card's machine has none).
+Not ported: ``prepack="view"`` (a TPU layout).
 """
 
 from __future__ import annotations
@@ -401,3 +402,46 @@ def tfrecord_batches(
             videos, labels = [], []
     if videos and not drop_remainder:
         yield emit(videos, labels)
+
+
+def make_tf_dataset(
+    shards: Sequence[str],
+    batch_size: int,
+    *,
+    repeat: Optional[int] = None,
+    shuffle: int = 0,
+    num_parallel_reads: Optional[int] = None,
+):
+    """tf.data pipeline yielding (uint8 video, int64 label) batches, mirroring
+    the estimator input_fn (i3d_adversarial_main_universal.py:231-248) but
+    WITHOUT the on-host float conversion; prefetch overlaps with device steps.
+    Raises ImportError naming TensorFlow where it is not installed."""
+    try:
+        import tensorflow as tf
+    except ImportError as e:
+        raise ImportError("make_tf_dataset needs TensorFlow (tf.data), which is not "
+                          "installed; tfrecord_batches reads the same shards without it") from e
+
+    ds = tf.data.TFRecordDataset(
+        list(shards), num_parallel_reads=num_parallel_reads or os.cpu_count()
+    )
+    if shuffle:
+        ds = ds.shuffle(shuffle)
+    if repeat:
+        ds = ds.repeat(repeat)
+    ds = ds.batch(batch_size, drop_remainder=True)
+
+    def _parse(serialized):
+        feats = tf.io.parse_example(
+            serialized,
+            {
+                LABEL_KEY: tf.io.FixedLenFeature((), tf.int64),
+                VIDEO_KEY: tf.io.FixedLenFeature([], tf.string),
+            },
+        )
+        video = tf.io.decode_raw(feats[VIDEO_KEY], tf.uint8)
+        video = tf.reshape(video, [tf.shape(serialized)[0], -1, 224, 224, 3])
+        return video, feats[LABEL_KEY]
+
+    ds = ds.map(_parse, num_parallel_calls=tf.data.AUTOTUNE)
+    return ds.prefetch(tf.data.AUTOTUNE)

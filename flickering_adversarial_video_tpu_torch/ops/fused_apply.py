@@ -53,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .accounting import record
 
 SLICE = 16 * 256 * 4   # elements of a row per backward block; csrc kSlice
 MAX_CHANNELS = 4       # csrc kMaxC
@@ -108,6 +109,8 @@ def fused_apply_fwd(video_u8, delta, adv_flag) -> torch.Tensor:
     a row a clip), adv_flag 0-d -> f32.  `launches` counts the shared
     delta's launches, `clip_launches` B8c's."""
     _check(video_u8, delta, adv_flag)
+    record("B8cf" if _per_clip(delta) else "B8f", 0,
+           video_u8.numel() * (1 + 4) + (delta.numel() + 1) * 4)
     if not video_u8.is_cuda:
         return fused_apply_fwd_plain(video_u8, delta, adv_flag)
     per_clip = _per_clip(delta)
@@ -136,6 +139,8 @@ def fused_apply_bwd(video_u8, delta, adv_flag, g) -> torch.Tensor:
     _check(video_u8, delta, adv_flag)
     if g.shape != video_u8.shape:
         raise ValueError(f"g {tuple(g.shape)} does not match the video {tuple(video_u8.shape)}")
+    record("B8cb" if _per_clip(delta) else "B8b", 0,
+           video_u8.numel() * (1 + 4) + (2 * delta.numel() + 1) * 4)
     if not video_u8.is_cuda:
         return fused_apply_bwd_plain(video_u8, delta, adv_flag, g)
     per_clip = _per_clip(delta)

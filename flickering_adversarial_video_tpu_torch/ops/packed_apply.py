@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .accounting import record
 from .conv_unit import masked_scale
 from .stem_combine import catbwd_part
 from .stem_conv import BWD_PADS, pk_to_oidhw, stem_conv_bn_relu
@@ -84,6 +85,9 @@ def emit_adv_mask(packed_u8, dl, lo: float, hi: float, out_dtype, want_mask: boo
     dl_shape = (b, t, ch) if per_clip else (t, ch)
     if tuple(dl.shape) != dl_shape:
         raise ValueError(f"dl {tuple(dl.shape)} is not {list(dl_shape)}")
+    n = packed_u8.numel()
+    record("B7c" if per_clip else "B7", 0,
+           n * (1 + torch.finfo(out_dtype).bits // 8 + want_mask) + dl.numel() * 4)
     if not packed_u8.is_cuda:
         return emit_adv_mask_plain(packed_u8, dl, lo, hi, out_dtype, want_mask)
     if out_dtype not in kernels.DTYPE_CODE:

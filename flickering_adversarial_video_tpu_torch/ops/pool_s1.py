@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .accounting import nbytes, record
 from .maxpool import max_pool_plain, max_pool_route_plain
 
 WINDOW, STRIDES = (3, 3, 3), (1, 1, 1)
@@ -50,6 +51,7 @@ def _dims(x: torch.Tensor):
 
 def pool333_fwd(x: torch.Tensor) -> torch.Tensor:
     """B3: y = 3x3x3 stride-1 SAME max pool of x (NDHWC)."""
+    record("B3", 0, 2 * nbytes(x))
     if not x.is_cuda:
         return pool333_fwd_plain(x)
     b, t, h, w, c = _dims(x)
@@ -67,6 +69,7 @@ pool333_fwd.launches = 0
 
 def pool333_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """B4: dx of the pool from x and dy (first match in raster t, h, w)."""
+    record("B4", 0, nbytes(x) + 2 * nbytes(dy))
     if not x.is_cuda:
         return pool333_bwd_plain(x, dy)
     b, t, h, w, c = _dims(x)

@@ -50,6 +50,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernels
+from .accounting import nbytes, record
 from .maxpool import max_pool_plain
 
 WINDOW, STRIDES = (1, 3, 3), (1, 2, 2)
@@ -85,6 +86,7 @@ def _check_width(w: int, kernel: str) -> None:
 
 def pool133_s2_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """B6: dx of the pool from x and dy."""
+    record("B6", 0, nbytes(x) + nbytes(dy) + x.numel() * dy.element_size())
     if not x.is_cuda:
         return pool133_s2_bwd_plain(x, dy)
     b, t, h, w, c = x.shape
@@ -109,6 +111,7 @@ def pool133_s2_fwd(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 5 or x.shape[2] % 2 or x.shape[3] % 2:
         raise ValueError(f"expected NDHWC with even H, W; got {tuple(x.shape)}")
     _check_width(x.shape[3], "B5")
+    record("B5", 0, nbytes(x) * 5 // 4)
     if not x.is_cuda:
         return pool133_s2_fwd_plain(x)
     b, t, h, w, c = x.shape
@@ -190,6 +193,7 @@ def pool133_s2_pair_fwd(
     if x.dim() != 5 or x.shape[2] % 2 or x.shape[3] % 2:
         raise ValueError(f"expected NDHWC with even H, W; got {tuple(x.shape)}")
     _check_width(x.shape[3], "B9 forward")
+    record("B9f", 0, nbytes(x) * 5 // 4 + (x.numel() // 4 if want_idx else 0))
     if not x.is_cuda:
         return pool133_s2_pair_fwd_plain(x, want_idx)
     b, t, h, w, c = x.shape
@@ -215,6 +219,7 @@ def pool133_s2_pair_bwd(idx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
             f"{tuple(idx.shape)} for dy {tuple(dy.shape)}"
         )
     _check_width(2 * dy.shape[3], "B9 backward")
+    record("B9b", 0, nbytes(idx, dy) + 4 * nbytes(dy))
     if not dy.is_cuda:
         return pool133_s2_pair_bwd_plain(idx, dy)
     b, t, ho, wo, c = dy.shape

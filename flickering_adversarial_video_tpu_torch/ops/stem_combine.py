@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
+from .accounting import nbytes, record
 
 
 def catbwd_part(
@@ -71,6 +72,7 @@ def temporal_combine(part: torch.Tensor, cin: int, t_plo: int) -> torch.Tensor:
     """B2: part [B,T,H,W,KT*Cin] -> dx [B,T,H,W,Cin]."""
     if part.dim() != 5 or part.shape[-1] % cin:
         raise ValueError(f"part {tuple(part.shape)} is not [B,T,H,W,KT*{cin}]")
+    record("B2", 0, nbytes(part) * (1 + cin / part.shape[-1]))
     if not part.is_cuda:
         return temporal_combine_plain(part, cin, t_plo)
     part = part.contiguous()

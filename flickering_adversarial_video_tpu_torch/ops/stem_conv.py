@@ -32,10 +32,13 @@ Port of ``stem_tmajor.stem_conv_bn_relu_view`` / ``stem_bn_relu_tmajor``
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 import torch.nn.functional as F
 
 from . import kernels
+from .accounting import record
 from .conv_unit import masked_scale
 from .stem_combine import catbwd_part, temporal_combine
 
@@ -86,6 +89,25 @@ def segmented(xp: torch.Tensor, conv, max_w: int = MAX_W) -> torch.Tensor:
     return torch.cat(parts, dim=3)
 
 
+@lru_cache(maxsize=None)
+def _taps_in_range(n: int) -> int:
+    """Taps of a (1,2)-padded 4-tap axis of n outputs that read the input."""
+    lo, hi = PADS
+    return sum(min(n, i + hi + 1) - max(0, i - lo) for i in range(n))
+
+
+def _account(xp: torch.Tensor, max_w: int) -> None:
+    """B1's work a launch (a column segment): x, the packed kernel, y and
+    the three f32 BN vectors moved; 2*M*N*K FLOPs over the taps in range."""
+    b, t, h, _, _ = xp.shape
+    isz = xp.element_size()
+    for _, _, lo, hi in stem_segments(xp.shape[3], max_w):
+        n = b * t * h * (hi - lo)
+        macs = b * _taps_in_range(t) * _taps_in_range(h) * _taps_in_range(hi - lo) * CIN * COUT
+        record("B1", 2 * macs,
+               n * CIN * isz + TAPS ** 3 * CIN * COUT * isz + n * COUT * isz + 3 * COUT * 4)
+
+
 def stem_conv_bn_relu(xp, pk, mean, var, bias, eps: float = 1e-3,
                       max_w: int = MAX_W) -> torch.Tensor:
     """B1: xp [B,T',H',W',24], pk [4,4,4,24,64], BN vectors [64] -> y
@@ -95,6 +117,7 @@ def stem_conv_bn_relu(xp, pk, mean, var, bias, eps: float = 1e-3,
                          f"got {tuple(xp.shape)} and {tuple(pk.shape)}")
     if not 4 <= max_w <= MAX_W:
         raise ValueError(f"max_w {max_w}: the kernel takes rows of 4 to {MAX_W} columns")
+    _account(xp, max_w)
     if not xp.is_cuda:
         return stem_conv_bn_relu_plain(xp, pk, mean, var, bias, eps)
     xp = xp.contiguous()

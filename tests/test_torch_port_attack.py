@@ -166,7 +166,10 @@ class TestEntryPoints:
             "             'utils.labels', 'models.registry', 'ops.fused_apply',\n"
             "             'runners.single_video', 'runners.class_gen', 'engine.inference',\n"
             "             'data.npy', 'viz.results', 'data.video', 'data.write_tfrecords',\n"
-            "             'data.kinetics_download', 'viz.live'):\n"
+            "             'data.kinetics_download', 'viz.live', 'data.optical_flow',\n"
+            "             'data.grain_pipeline', 'ops.accounting', 'utils.system',\n"
+            "             'utils.profiling', 'viz.stats_plots', 'viz.aggregate',\n"
+            "             'convert.fake_assets'):\n"
             "    assert p.__name__ + '.' + name in sys.modules, name\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "       or m == 'flax' or m.startswith('flickering_adversarial_video_tpu.')\n"

@@ -107,7 +107,9 @@ class TestVideoToFrames:
         np.testing.assert_array_equal(tvideo.crop_center(got, 32), jvideo.crop_center(got, 32))
 
     def test_flow_and_missing_cv2_raise(self, videos, monkeypatch):
-        with pytest.raises(NotImplementedError, match="13d"):
+        # the flow runs on the card unless device="cpu" is given
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
             tvideo.video_to_frames(str(videos / "class_a" / "a1.mp4"), flow=True)
         monkeypatch.setattr(tvideo, "_HAS_CV2", False)
         with pytest.raises(RuntimeError, match="cv2 unavailable"):
