@@ -191,15 +191,21 @@ which fails the run:
    of its clip and seed (the sequential graphed step at B=1): equal step
    counts, verdicts and escalations, delta within 1% of its movement and
    losses within 3e-5; then (17f) B8 with a delta a clip ("B8c") at the
-   slot step's shape [4,90,224,224,3] with deltas [4,90,1,1,3] (a black
-   pixel exactly on -1): forward bit-equal and d(delta) within 1e-5 of its
+   slot step's shape [4,90,224,224,3] with deltas [4,90,1,1,3] (16 black
+   pixels exactly on -1): forward bit-equal and d(delta) within 1e-5 of its
    largest component against its plain version, each clip's forward and
-   d(delta) bit-equal to the shared-delta B8 launched on that clip alone,
-   timed beside its bound, the plain version and B8 at the same shape with
-   the card's name and power limit; and the slot step with USE_PALLAS_FUSED
-   on the same uint8 clips (B8c forward and backward, B1 1, B2 20, B3 9, B4
-   9, B5 3, B6 3, no B7 a slot step), checked as the packed one: counts,
-   graphed against eager, each slot against the sequential fused step;
+   d(delta) bit-equal to the shared-delta B8 launched on that clip alone;
+   its clip rule jnp.clip's (one clip [1,90,224,224,3] is a geometry where
+   the JAX call runs ``_jnp_reference``): on g = 1 each rule bit-equal to
+   its plain version and 0.5 a black pixel between them at the planted
+   (t, c), the same half of the random g there; timed (the backward under
+   each rule) beside its bound, the plain version and B8 at the same shape
+   with the card's name and power limit; and the slot step with
+   USE_PALLAS_FUSED on the same uint8 clips (B8c forward and backward, B1
+   1, B2 20, B3 9, B4 9, B5 3, B6 3, no B7 a slot step), checked as the
+   packed one: counts, graphed against eager, each slot against the
+   sequential fused step; how far its chunk lies from the packed one's,
+   beside the same chunk under the kernel's strict rule;
    clip-steps/s at 1, 2, 4 and 8 slots against the
    sequential B=1 step, with each graph's pool; the single-video runner with
    SLOTS: 4 against SLOTS: 1 on three float32 clips [1,90,224,224,3] and a
@@ -230,11 +236,17 @@ which fails the run:
    over NCCL with graphed steps, else a line saying why not; (c)
    ``torch_per_video --slots 4 --mesh`` over two spawned ranks (gloo, 2
    slots a rank) on phase 16's videos: counts, files, steps, escalations and
-   verdicts those of phase 17e's run in one process.  Spawned ranks run
-   under their own time limit (DP_JOIN_S) and are killed past it;
+   verdicts those of phase 17e's run in one process; (d) the universal
+   runner at BATCH_SIZE 3 over two spawned ranks (gloo), 2 steps on phase
+   7's shards: the mesh shrinks to rank 0 alone, as the JAX runners' does
+   (both ranks print it), rank 1 idle (nothing launched, returns None, no
+   file), rank 0's delta bit-equal to the same run in one process and its
+   files the same.  Spawned ranks run under their own time limit
+   (DP_JOIN_S) and are killed past it;
 19. the float schema: 2 seeded f32 clips [16,224,224,3] written as
    float-schema records (``make_float_example``), read back through
-   ``tfrecord_batches(schema="float")`` into pinned buffers, equal to the
+   ``tfrecord_batches(schema="float")`` on its default flags into pinned
+   buffers, equal to the
    arrays, and one graphed universal-engine step on that batch bit-equal to
    the same step on the arrays (launches a float clip's).  Decoding mp4 and
    the live dashboard need cv2 and matplotlib, which the card's machine
@@ -923,7 +935,8 @@ def slot_chunk_checks(engine, clips, dev, want_counts: dict, want_clip_b7: int, 
     each slot against ``sweep.fit_single_video`` of its clip and seed (the
     sequential graphed train_step at B=1, the same stop rule).  `head` names
     the input head in the lines printed.  Returns (videos, packed, labels as
-    the engine prepared them, the device's launches of the graphed chunk)."""
+    the engine prepared them, the device's launches of the graphed chunk,
+    the graphed chunk's outputs)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1026,22 +1039,39 @@ def slot_chunk_checks(engine, clips, dev, want_counts: dict, want_clip_b7: int, 
     if not ok:
         fail(f"{tag}a slot's trajectory is not the sequential one: step counts, escalations, "
              "verdicts or a bound")
-    return videos, packed, lab, device
+    return videos, packed, lab, device, g_ys
 
 
-def fused_slot_pass(dev, model, clips) -> list:
+def chunks_apart(a: dict, b: dict) -> tuple:
+    """How far two slot chunks' outputs lie apart over the iterations both
+    ran: (delta_post's max |difference|, the total losses' max relative
+    difference)."""
+    both = a["active"] & b["active"]
+    dd = (a["delta_post"].float() - b["delta_post"].float()).abs().flatten(2).amax(-1)
+    dl = (a["total_loss"].float() - b["total_loss"].float()).abs() / b["total_loss"].float().abs()
+    return dd[both].max().item(), dl[both].max().item()
+
+
+def fused_slot_pass(dev, model, clips, packed_ys: dict) -> list:
     """Phase 17f, kernel B8 with a delta a clip (B8c): (a) its forward and
     backward at the slot step's shape [VS_SLOTS, SV_FRAMES, SIZE, SIZE, 3]
-    (a black pixel under delta 0 exactly on -1) against the plain version
+    (16 black pixels under delta 0 exactly on -1) against the plain version
     (forward bit-equal; d(delta) within 1e-5 of its largest component, f32
     sum order), and each clip's forward and d(delta) bit-equal to the
-    shared-delta B8 launched on that clip alone; (b) the slot step with
-    USE_PALLAS_FUSED on phase 17b's uint8 clips, through
-    :func:`slot_chunk_checks` against SLOT_STEP_FUSED_COUNTS, and its time a
-    slot step at VS_SLOTS slots (graphed, host clock); (c) B8c's time
-    with CUDA events beside its bound, its plain version and the shared B8 at
-    the same shape, with the card's name and power limit.  Returns B8c's two
-    rows of the kernel table (launches: the device's in (b)'s graphed chunk)."""
+    shared-delta B8 launched on that clip alone; the clip rule: one clip
+    [1,90,224,224,3] is a geometry where the JAX call runs
+    ``_jnp_reference``, so B8c takes jnp.clip's half by default, and on
+    g = 1 (integer sums, exact) each rule is bit-equal to its plain version
+    and the two lie 0.5 a black pixel apart at the planted (t, c) alone;
+    (b) the slot step with USE_PALLAS_FUSED on phase 17b's uint8 clips,
+    through :func:`slot_chunk_checks` against SLOT_STEP_FUSED_COUNTS, how far
+    its chunk lies from 17b's packed one (`packed_ys`) beside the same chunk
+    under the kernel's strict rule, and its time a slot step at VS_SLOTS
+    slots (graphed, host clock); (c) B8c's time with CUDA events beside its
+    bound, its plain version and the shared B8 at the same shape (the
+    backward under each rule), with the card's name and power limit.
+    Returns B8c's two rows of the kernel table (launches: the device's in
+    (b)'s graphed chunk)."""
     import torch
 
     from flickering_adversarial_video_tpu_torch.attack import FlickerSpec
@@ -1089,15 +1119,65 @@ def fused_slot_pass(dev, model, clips) -> list:
             or not all(a and b for a, b in per_clip)):
         fail("B8c disagrees with its plain version or with B8 on each clip alone, or is not "
              "counted apart")
-    del out, dd, dd2, want_dd
+    # the clip rule: the JAX call on one clip [1,90,224,224,3] runs
+    # _jnp_reference, so the default is jnp.clip's half at an exact bound;
+    # on g = 1 every sum is exact, so each rule is bit-equal to its plain
+    # version, and the two differ by 0.5 a black pixel at (clip 1, t 3, c 0)
+    reference = not fused_apply.strict_rule((1,) + shape[1:])
+    ones = torch.ones_like(g)
+    half, strict = bwd(u8, delta, flag, ones), bwd(u8, delta, flag, ones, strict=True)
+    dd_strict = bwd(u8, delta, flag, g, strict=True)
+    torch.cuda.synchronize()
+    plain_half = fused_apply.fused_apply_bwd_plain(u8, delta, flag, ones)
+    plain_strict = fused_apply.fused_apply_bwd_plain(u8, delta, flag, ones, strict=True)
+    black = int((u8[1, 3, :, :, 0] == 0).sum())
+    gap = half - strict
+    planted = gap[1, 3, 0, 0, 0].item()
+    gap[1, 3, 0, 0, 0] = 0
+    # with the random g: the default lies 0.5 g a black pixel from the strict rule there
+    want_g = 0.5 * g[1, 3, :, :, 0][u8[1, 3, :, :, 0] == 0].sum().item()
+    got_g = (dd - dd_strict)[1, 3, 0, 0, 0].item()
+    g_tol = 1e-5 * want_dd.abs().max().item()
+    same = (torch.equal(half, plain_half), torch.equal(strict, plain_strict))
+    print(f"[check] B8c clip rule at {list(shape)} (one clip [1,{SV_FRAMES},{SIZE},{SIZE},3]: "
+          f"the JAX call's {'_jnp_reference, jnp.clip' if reference else 'Pallas kernel, strict'}"
+          f"): on g = 1 each rule (jnp.clip's, strict) bit-equal to its plain version: {same}; "
+          f"jnp.clip's minus the strict rule {planted} at the planted (clip 1, t 3, c 0) over "
+          f"{black} black pixels (0.5 each: {0.5 * black}), elsewhere max |diff| "
+          f"{gap.abs().max().item():.3e}; with the random g {got_g:.6f} there against 0.5 g over "
+          f"the black pixels {want_g:.6f} (tolerance {g_tol:.3e})", flush=True)
+    if not (reference and all(same) and planted == 0.5 * black and abs(got_g - want_g) <= g_tol):
+        fail("B8c's clip rule: not jnp.clip's at this geometry, not its plain version's, or "
+             "not 0.5 a black pixel")
+    del out, dd, dd2, want_dd, ones, half, strict, dd_strict, plain_half, plain_strict, gap
 
     # ---- (b) the fused slot step on phase 17b's uint8 clips
     engine = AttackEngine(model, FlickerSpec(SV_FRAMES), AttackConfig(use_pallas_fused=True),
                           track_probs=False)
-    videos, packed, lab, device = slot_chunk_checks(engine, clips, dev, SLOT_STEP_FUSED_COUNTS,
-                                                    0, "B8c, a delta a clip")
+    videos, packed, lab, device, fused_ys = slot_chunk_checks(
+        engine, clips, dev, SLOT_STEP_FUSED_COUNTS, 0, "B8c, a delta a clip")
     if packed is not False:
         fail("the fused slot step's clips took the packed head")
+    # against 17b's packed chunk (the same clips, seeds and stop rule; B7c's
+    # mask gives the half at a bound as jnp.clip does), beside the same
+    # chunk under the kernel's strict rule, the fused step's rule before
+    with mock.patch.object(AttackEngine, "_fused_strict", lambda self, video, delta: True):
+        vse = VectorSweepEngine(engine, VS_SLOTS, n_iter=VS_ITERS, init_scale=VS_INIT_SCALE)
+        st = vse.init_slots()
+        for i in range(VS_SLOTS):
+            vse.refill_slot(st, i, i, 0.2)
+        st, strict_ys = vse.run_chunk(st, videos, lab, torch.arange(VS_SLOTS, device=dev),
+                                      RuntimeFlags(), VS_CHUNK, packed=packed)
+        torch.cuda.synchronize()
+    apart, apart_strict = chunks_apart(fused_ys, packed_ys), chunks_apart(strict_ys, packed_ys)
+    print(f"[vector] the fused slot step's chunk against 17b's packed one, over the iterations "
+          f"both ran (delta max |diff|, losses max relative diff): jnp.clip's rule "
+          f"{apart[0]:.3e}, {apart[1]:.3e}; the kernel's strict rule {apart_strict[0]:.3e}, "
+          f"{apart_strict[1]:.3e}; the two fused chunks bit-equal: "
+          f"{all(torch.equal(fused_ys[k], strict_ys[k]) for k in fused_ys)}", flush=True)
+    if not all(math.isfinite(x) for x in apart + apart_strict):
+        fail("the fused slot step's chunk is not finite")
+    del vse, st, strict_ys, fused_ys
     # its time: a chunk of VS_TIME_ITERS graphed slot steps, every slot
     # stepping every iteration (17c times the packed one the same way)
     vse = VectorSweepEngine(engine, VS_SLOTS, n_iter=10 ** 9, init_scale=VS_INIT_SCALE)
@@ -1122,6 +1202,7 @@ def fused_slot_pass(dev, model, clips) -> list:
     smi = card_name_and_limit()
     n = u8.numel()
     rows = []
+    strict_ms = cuda_ms(torch, lambda: bwd(u8, delta, flag, g, strict=True))
     for name, kern, plain, shared, n_bytes, err in (
             ("B8cf fused_apply_fwd, a delta a clip", lambda: fwd(u8, delta, flag),
              lambda: fused_apply.fused_apply_fwd_plain(u8, delta, flag),
@@ -1136,10 +1217,12 @@ def fused_slot_pass(dev, model, clips) -> list:
         t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, 5 * n / PEAK_F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"[time] {name} {list(shape)}: {ms:.3f} ms (bound {bound:.3f} ms, {by}; "
+        key = "B8cf" if "fwd" in name else "B8cb"
+        rule = (f" under jnp.clip's rule, {strict_ms:.3f} ms under the kernel's strict rule "
+                f"({strict_ms / ms - 1:+.1%})" if key == "B8cb" else "")
+        print(f"[time] {name} {list(shape)}: {ms:.3f} ms{rule} (bound {bound:.3f} ms, {by}; "
               f"{bound / ms:.1%} of it), plain {plain_ms:.3f} ms, the shared-delta B8 at the same "
               f"shape {shared_ms:.3f} ms, library none; {smi}", flush=True)
-        key = "B8cf" if "fwd" in name else "B8cb"
         rows.append({"name": name, "route": "cuda",
                      "source": "flickering_adversarial_video_tpu_torch/csrc/fused_apply.cu",
                      "replaces": "flickering_adversarial_video_tpu/ops/fused_apply.py:"
@@ -1244,8 +1327,8 @@ def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
     flags = RuntimeFlags()
     rng = np.random.default_rng(SEED + 17)
     clips = rng.integers(0, 256, (VS_SLOTS, 1, SV_FRAMES, SIZE, SIZE, 3), dtype=np.uint8)
-    videos, packed, lab, device = slot_chunk_checks(engine, clips, dev, SLOT_STEP_COUNTS, 1,
-                                                    "B7c, a dl a clip")
+    videos, packed, lab, device, packed_ys = slot_chunk_checks(
+        engine, clips, dev, SLOT_STEP_COUNTS, 1, "B7c, a dl a clip")
     if packed is not True:
         fail("the slot step's clips did not take the packed head")
     seeds = torch.arange(VS_SLOTS, device=dev)
@@ -1258,7 +1341,8 @@ def vector_sweep_phase(tmp: str, dev, sweep_run: dict) -> dict:
         return vse, state
 
     # ---- 17f. kernel B8 with a delta a clip (B8c): the fused slot step ---------------
-    b8c_rows = fused_slot_pass(dev, model, clips)
+    b8c_rows = fused_slot_pass(dev, model, clips, packed_ys)
+    del packed_ys
     torch.cuda.empty_cache()
 
     # ---- 17c. clip-steps/s at N slots against the B=1 step ----------------------------
@@ -1870,6 +1954,92 @@ def dp_sweep_phase(tmp, dev, sweep_run, plant=None):
         fail("18c: torch_per_video --slots 4 --mesh is not phase 17e's sweep")
 
 
+# 18d: a batch the ranks do not divide shrinks the mesh, as the JAX runners'
+# does: BATCH_SIZE 3 over DP_W = 2 ranks runs on rank 0 alone
+SHRINK_B, SHRINK_STEPS = 3, 2
+
+
+def _shrink_cfg(tmp, shard_dir, out):
+    from flickering_adversarial_video_tpu_torch.utils.config import load_config
+
+    cfg = load_config(os.path.join(HERE, "configs", "run_config.yml"))
+    ac = cfg.UNIVERSAL_ATTACK
+    ac.TF_RECORDS_TRAIN_PATH = ac.TF_RECORDS_VAL_PATH = [shard_dir]
+    ac.NUM_OF_TRAIN_TF_RECORDS = ac.NUM_OF_VAL_TF_RECORDS = SHARDS
+    ac.BATCH_SIZE, ac.MAX_NUM_STEP = SHRINK_B, SHRINK_STEPS
+    ac.PKL_RESULT_PATH = os.path.join(tmp, out)
+    return cfg
+
+
+def _shrink_run(cfg):
+    """The universal runner on `cfg` for SHRINK_STEPS steps: (final delta or
+    None on an idle rank, what it printed, its launches)."""
+    import torch
+
+    from flickering_adversarial_video_tpu_torch import ops
+    from flickering_adversarial_video_tpu_torch.runners import universal
+
+    said = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(said):
+        out = universal.run(cfg, frames=T, max_steps=SHRINK_STEPS)
+    if out is None:  # an idle rank: it never touched the card
+        return None, said.getvalue(), read_counts(ops)
+    torch.cuda.synchronize()
+    return out["state"].delta.cpu().numpy(), said.getvalue(), read_counts(ops)
+
+
+def _dp_shrink_rank(rank, tmp, shard_dir, plant=None):
+    """18d on one rank: the universal runner at BATCH_SIZE SHRINK_B over
+    DP_W ranks (gloo)."""
+    import torch
+
+    from flickering_adversarial_video_tpu_torch.parallel import mesh as mesh_lib
+
+    if plant is not None:
+        plant()
+    mesh_lib.initialize_distributed("gloo", f"file://{os.path.join(tmp, 'dp4.store')}", rank,
+                                    DP_W)
+    delta, log, counts = _shrink_run(_shrink_cfg(tmp, shard_dir, "dp_shrink"))
+    torch.distributed.destroy_process_group()
+    return {"delta": delta, "log": log, "counts": counts}
+
+
+def dp_shrink_phase(tmp, dev, shard_dir, plant=None):
+    """18d: the universal runner at BATCH_SIZE 3 over two spawned ranks
+    (gloo) on phase 7's shards: the mesh shrinks to rank 0 alone (the
+    largest count that divides the batch), rank 1 is idle (no launch, no
+    file), and rank 0's delta is bit-equal to the same run in one process."""
+    import numpy as np
+
+    from flickering_adversarial_video_tpu_torch.runners import universal
+
+    t_phase = time.perf_counter()
+    one_cfg = _shrink_cfg(tmp, shard_dir, "dp_shrink_one")
+    want, _, want_counts = _shrink_run(one_cfg)
+    ranks = spawn_ranks(tmp, "dp4", _dp_shrink_rank, (shard_dir, plant))
+    line = f"BATCH_SIZE {SHRINK_B} splits over 1 of the {DP_W} ranks; idle: 1"
+    zero = {name: 0 for name in NAMES}
+    dirs = [universal.model_dir_name(_shrink_cfg(tmp, shard_dir, out).UNIVERSAL_ATTACK)
+            for out in ("dp_shrink", "dp_shrink_one")]
+    files = [sorted(os.listdir(d)) for d in dirs]
+    r0, r1 = ranks
+    ok = (all(line in r["log"] for r in ranks) and r1["delta"] is None
+          and r1["counts"] == zero and r0["counts"] == want_counts
+          and np.array_equal(r0["delta"], want) and files[0] == files[1])
+    print(f"[parallel] 18d universal runner, BATCH_SIZE {SHRINK_B} over {DP_W} ranks (gloo), "
+          f"{SHRINK_STEPS} steps on phase 7's shards: each rank printed '{line}': "
+          f"{[line in r['log'] for r in ranks]}; rank 0's delta "
+          f"{'bit-equal' if np.array_equal(r0['delta'], want) else 'DIFFERS'} to one process's "
+          f"(max |diff| {float(np.abs(r0['delta'] - want).max()):.3g}); launches rank 0 "
+          f"{r0['counts']} (one process {want_counts}), rank 1 {r1['counts']}; rank 1 returned "
+          f"{r1['delta']}; result files {files[0]} (one process {files[1]}) "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    if not ok:
+        fail("18d: the shrunk mesh is not rank 0 alone running the one-process run, or rank 1 "
+             "was not idle")
+
+
 # phase 19, the float schema: FS_CLIPS seeded f32 clips of FS_FRAMES x SIZE^2
 # through float-schema records and one graphed step of the universal engine
 FS_CLIPS, FS_FRAMES = 2, 16
@@ -1879,7 +2049,8 @@ def float_schema_phase(tmp: str, dev) -> None:
     """Phase 19, the float schema (``data/tfrecord.py``): FS_CLIPS seeded f32
     clips [FS_FRAMES, SIZE, SIZE, 3] in [-1, 1] written as float-schema
     records by the port's ``make_float_example`` and ``TFRecordWriter``, read
-    back through ``tfrecord_batches(schema="float")`` into pinned buffers
+    back through ``tfrecord_batches(schema="float")`` on its default flags
+    (the Python codec, as the JAX package's) into pinned buffers
     (every value and label equal to the arrays), and one graphed train step
     of the universal engine (I3D, bf16; a float clip takes the generic path)
     on that batch, its wrappers' counts those of a float clip's step: delta,
@@ -1905,8 +2076,9 @@ def float_schema_phase(tmp: str, dev) -> None:
     with TFRecordWriter(path) as w:
         for video, label in zip(videos, labels):
             w.write(make_float_example(video, int(label)))
-    batches = list(tfrecord_batches([path], FS_CLIPS, schema="float", use_native=False,
-                                    height=SIZE, width=SIZE, pin_memory=True))
+    # the default flags (use_native=True): the float schema takes the Python codec
+    batches = list(tfrecord_batches([path], FS_CLIPS, schema="float", height=SIZE, width=SIZE,
+                                    pin_memory=True))
     read_ok = (len(batches) == 1 and batches[0]["video"].is_pinned()
                and np.array_equal(batches[0]["video"].numpy(), videos)
                and np.array_equal(batches[0]["labels"], labels))
@@ -2650,9 +2822,11 @@ def main() -> None:
 
     # B8: forward bit-equal; backward to f32 sum order (each of the 192
     # components sums 401,408 products in another order than torch.sum:
-    # 1e-5 of the largest component), 0 where all clips, and deterministic
+    # 1e-5 of the largest component), 0 where all clips, and deterministic.
+    # The clip rule is the JAX call's at each shape: the Pallas kernel's
+    # strict mask at [8,64,224,224,3], jnp.clip's at the single-video clip's
     flag1 = torch.ones((), device=dev)
-    for shape8 in ((B, T, SIZE, SIZE, 3), (1, 90, SIZE, SIZE, 3)):
+    for shape8, rule in (((B, T, SIZE, SIZE, 3), True), ((1, 90, SIZE, SIZE, 3), False)):
         u8v = torch.randint(0, 256, shape8, generator=gen, dtype=torch.uint8).to(dev)
         dlt = ((torch.rand(shape8[1], 1, 1, 3, generator=gen) - 0.5) * 0.8).to(dev)
         gup = torch.randn(shape8, generator=gen).to(dev)
@@ -2665,12 +2839,14 @@ def main() -> None:
         torch.cuda.synchronize()
         berr, brel = compare(dd, fused_apply.fused_apply_bwd_plain(u8v, dlt, flag1, gup))
         sat = fused_apply.fused_apply_bwd(u8v, torch.full_like(dlt, 5.0), flag1, gup)
-        print(f"[check] B8 {list(shape8)} forward max_abs_err {ferr:.3e} (tolerance 0); backward "
-              f"max_abs_err {berr:.3e} max_rel_err {brel:.3e} (max_rel_err tolerance 1e-5); "
-              f"all-clipped max {sat.abs().max().item():.1e} (tolerance 0); second run "
+        print(f"[check] B8 {list(shape8)} ({'strict' if rule else 'jnp.clip'} rule) forward "
+              f"max_abs_err {ferr:.3e} (tolerance 0); backward max_abs_err {berr:.3e} max_rel_err "
+              f"{brel:.3e} (max_rel_err tolerance 1e-5); all-clipped max "
+              f"{sat.abs().max().item():.1e} (tolerance 0); second run "
               f"{'bit-equal' if torch.equal(dd, dd2) else 'DIFFERS'}", flush=True)
-        if ferr != 0 or not brel <= 1e-5 or sat.abs().max().item() != 0 or not torch.equal(dd, dd2):
-            fail(f"B8 disagrees with its plain version at {shape8}")
+        if (ferr != 0 or not brel <= 1e-5 or sat.abs().max().item() != 0
+                or not torch.equal(dd, dd2) or fused_apply.strict_rule(shape8) != rule):
+            fail(f"B8 disagrees with its plain version at {shape8}, or takes another clip rule")
         if shape8[0] == B:
             checks[("B8f", torch.bfloat16)] = (ferr, 0.0)
             checks[("B8b", torch.bfloat16)] = (berr, brel)
@@ -4086,6 +4262,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         dp_gloo_phase(tmp, dev)
         dp_sweep_phase(tmp, dev, sweep_run)
+        dp_shrink_phase(tmp, dev, shard_dir)
 
         # ---- 19. the float schema -----------------------------------------------------
         torch.cuda.empty_cache()

@@ -5,15 +5,20 @@
 // backward `_bwd_kernel` :86 (`_bwd` :172, pallas_call :184).
 //
 //   forward:  out[b,t,h,w,c] = clip(u8/128 - 1 + flag*delta[t,c], -1, 1)   f32
-//   backward: dd[t,c] = flag * sum_{b,h,w} g[b,t,h,w,c] * [-1 < pre < 1]   f32
+//   backward: dd[t,c] = flag * sum_{b,h,w} g[b,t,h,w,c] * m(pre)            f32
+//             m = 1 inside (-1, 1), 0 outside, and on a bound 0 or 1/2 (`strict`)
 //
-// The bounds are the literals -1 and 1, and the backward's mask is STRICT, as
-// the TPU kernel's is: the gradient at an exact bound is 0 (jnp.clip, and the
-// emitter B7, give 0.5 there).  u8 value 0 under delta 0 sits exactly on -1.
+// The bounds are the literals -1 and 1.  The backward's rule at an exact
+// bound is a launch argument, `strict`, since the JAX function's gradient
+// depends on its geometry: where its `_supported` holds (H*W*C % 128 == 0,
+// B*T % 8 == 0, Mosaic's block constraints) the Pallas backward masks
+// strictly, 0 at a bound; elsewhere it runs jnp.clip, whose gradient there is
+// g/2 (as the emitter B7's mask gives).  u8 value 0 under delta 0 sits exactly
+// on -1.  g/2 is exact in f32, so the rule changes no rounding.  This kernel
+// runs at every geometry; the wrapper picks the rule (ops/fused_apply.py).
 //
 // Both are bound by bytes on the H100 (forward: 1 read + 4 written per
-// element; backward: 5 read).  The TPU kernel's geometry limits (H*W*C % 128,
-// B*T % 8) were Mosaic block constraints and do not exist here.
+// element; backward: 5 read).
 //
 // Forward design: as B7 -- 16 consecutive elements per thread (one 16-byte
 // load, four 16-byte stores), the channel and frame from a cursor over the
@@ -32,7 +37,8 @@
 // flag.  The same input therefore gives the same bits on every run.
 //
 // B8c, a delta a clip (the vectorized sweep's slots: clip b of the batch has
-// its own delta [B,T,C]; the JAX sweep vmaps the TPU kernel over the slots):
+// its own delta [B,T,C]; the JAX sweep vmaps fused_normalize_perturb over the
+// slots, so the rule is that of one clip's geometry):
 // the same kernel bodies with a delta clip stride, T*C, where the shared
 // delta's is 0.  The forward's grid.y is the clip, whose block stages only
 // its own flag*delta row (T*C f32 of shared memory whatever B is); its
@@ -115,13 +121,15 @@ fused_apply_clips_fwd_kernel(const uint8_t* __restrict__ u8, const float* __rest
   fwd_body(u8, delta, flag, out, clip_n, int64_t(Tn) * C, row_len, Tn, C, sfd);
 }
 
+// g inside (-1, 1); on a bound exactly 0 (strict) or g/2 (jnp.clip's); 0 outside
 __device__ __forceinline__ void bwd_accumulate(float (&acc)[kMaxC], uint8_t u, float g, int c,
-                                               const float (&fd)[kMaxC]) {
+                                               const float (&fd)[kMaxC], bool strict) {
   float d = fd[0];
 #pragma unroll
   for (int k = 1; k < kMaxC; ++k) d = c == k ? fd[k] : d;
   const float pre = __fadd_rn(float(u) * (1.0f / 128.0f) - 1.0f, d);
-  const float v = (pre < 1.0f && pre > -1.0f) ? g : 0.0f;  // strict: 0 at a bound
+  const float edge = (!strict && (pre == 1.0f || pre == -1.0f)) ? 0.5f * g : 0.0f;
+  const float v = (pre < 1.0f && pre > -1.0f) ? g : edge;
 #pragma unroll
   for (int k = 0; k < kMaxC; ++k) acc[k] += c == k ? v : 0.0f;
 }
@@ -134,7 +142,8 @@ __device__ __forceinline__ void bwd_partial_body(const uint8_t* __restrict__ u8,
                                                  const float* __restrict__ flag,
                                                  const float* __restrict__ g,
                                                  float* __restrict__ partial, int64_t row_len,
-                                                 int slices, int Tn, int C, int64_t d_stride) {
+                                                 int slices, int Tn, int C, int64_t d_stride,
+                                                 bool strict) {
   const int64_t row = blockIdx.x / slices;
   const int s = int(blockIdx.x % slices);
   const int t = int(row % Tn);
@@ -163,12 +172,12 @@ __device__ __forceinline__ void bwd_partial_body(const uint8_t* __restrict__ u8,
     int c = int(i0 % C);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      bwd_accumulate(acc, ub[j], gv[j], c, fd);
+      bwd_accumulate(acc, ub[j], gv[j], c, fd, strict);
       if (++c == C) c = 0;
     }
   }
   for (int64_t i = vec_hi + threadIdx.x; i < hi; i += blockDim.x)
-    bwd_accumulate(acc, urow[i], grow[i], int(i % C), fd);
+    bwd_accumulate(acc, urow[i], grow[i], int(i % C), fd, strict);
   // fixed-order block reduction: shuffle tree within a warp, then warp 0..7
   __shared__ float warp_sum[fav::kThreads / 32][kMaxC];
 #pragma unroll
@@ -190,8 +199,8 @@ __global__ void __launch_bounds__(fav::kThreads)
 fused_apply_bwd_partial_kernel(const uint8_t* __restrict__ u8, const float* __restrict__ delta,
                                const float* __restrict__ flag, const float* __restrict__ g,
                                float* __restrict__ partial, int64_t row_len, int slices, int Tn,
-                               int C) {
-  bwd_partial_body(u8, delta, flag, g, partial, row_len, slices, Tn, C, 0);
+                               int C, int strict) {
+  bwd_partial_body(u8, delta, flag, g, partial, row_len, slices, Tn, C, 0, strict != 0);
 }
 
 // B8c: delta [B,T,C], row (b,t) reads delta row b
@@ -200,8 +209,9 @@ fused_apply_clips_bwd_partial_kernel(const uint8_t* __restrict__ u8,
                                      const float* __restrict__ delta,
                                      const float* __restrict__ flag, const float* __restrict__ g,
                                      float* __restrict__ partial, int64_t row_len, int slices,
-                                     int Tn, int C) {
-  bwd_partial_body(u8, delta, flag, g, partial, row_len, slices, Tn, C, int64_t(Tn) * C);
+                                     int Tn, int C, int strict) {
+  bwd_partial_body(u8, delta, flag, g, partial, row_len, slices, Tn, C, int64_t(Tn) * C,
+                   strict != 0);
 }
 
 // flag * the partials of (t,c) summed over clips [b0, b1), then slices, in order
@@ -264,10 +274,11 @@ int fwd_launch(const void* u8, const void* delta, const void* flag, void* out, i
 
 int bwd_launch(const void* u8, const void* delta, const void* flag, const void* g,
                void* partial, void* dd, int64_t B, int64_t T, int64_t row_len, int64_t C,
-               int64_t slices, bool per_clip, cudaStream_t s) {
+               int64_t slices, int64_t strict, bool per_clip, cudaStream_t s) {
   if (C <= 0 || C > kMaxC || row_len % C || T <= 0 || B <= 0 || row_len <= 0)
     return int(cudaErrorInvalidValue);
-  if (slices != (row_len + kSlice - 1) / kSlice) return int(cudaErrorInvalidValue);
+  if (slices != (row_len + kSlice - 1) / kSlice || (strict != 0 && strict != 1))
+    return int(cudaErrorInvalidValue);
   const int64_t blocks = B * T * slices;
   if (blocks > (int64_t(1) << 31) - 1) return int(cudaErrorInvalidValue);
   if (!fav::aligned16(u8) || !fav::aligned16(g)) return int(cudaErrorMisalignedAddress);
@@ -279,10 +290,10 @@ int bwd_launch(const void* u8, const void* delta, const void* flag, const void* 
   float* o = static_cast<float*>(dd);
   if (per_clip)
     fused_apply_clips_bwd_partial_kernel<<<unsigned(blocks), fav::kThreads, 0, s>>>(
-        u, d, f, gp, p, row_len, int(slices), int(T), int(C));
+        u, d, f, gp, p, row_len, int(slices), int(T), int(C), int(strict));
   else
     fused_apply_bwd_partial_kernel<<<unsigned(blocks), fav::kThreads, 0, s>>>(
-        u, d, f, gp, p, row_len, int(slices), int(T), int(C));
+        u, d, f, gp, p, row_len, int(slices), int(T), int(C), int(strict));
   int code = int(cudaGetLastError());
   if (code) return code;
   const int64_t n_out = (per_clip ? B : 1) * T * C;
@@ -307,11 +318,12 @@ FAV_API int fav_fused_apply_fwd(const void* u8, const void* delta, const void* f
 }
 
 // g f32 like u8; partial [B*T, slices, C] f32 scratch, slices =
-// ceil(row_len / kSlice) (the wrapper's SLICE must equal kSlice); dd [T,C] f32.
+// ceil(row_len / kSlice) (the wrapper's SLICE must equal kSlice); dd [T,C] f32;
+// strict 1: 0 at an exact bound (the Pallas mask), 0: g/2 (jnp.clip's).
 FAV_API int fav_fused_apply_bwd(const void* u8, const void* delta, const void* flag, const void* g,
                                 void* partial, void* dd, int64_t B, int64_t T, int64_t row_len,
-                                int64_t C, int64_t slices, void* stream) {
-  return bwd_launch(u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, false,
+                                int64_t C, int64_t slices, int64_t strict, void* stream) {
+  return bwd_launch(u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, strict, false,
                     static_cast<cudaStream_t>(stream));
 }
 
@@ -326,7 +338,8 @@ FAV_API int fav_fused_apply_clips_fwd(const void* u8, const void* delta, const v
 // B8c: as fav_fused_apply_bwd with delta [B,T,C] and dd [B,T,C].
 FAV_API int fav_fused_apply_clips_bwd(const void* u8, const void* delta, const void* flag,
                                       const void* g, void* partial, void* dd, int64_t B, int64_t T,
-                                      int64_t row_len, int64_t C, int64_t slices, void* stream) {
-  return bwd_launch(u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, true,
+                                      int64_t row_len, int64_t C, int64_t slices, int64_t strict,
+                                      void* stream) {
+  return bwd_launch(u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, strict, true,
                     static_cast<cudaStream_t>(stream));
 }

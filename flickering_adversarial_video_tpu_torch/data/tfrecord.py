@@ -12,13 +12,13 @@ TensorFlow's and with the JAX package's.
 TFRecord framing: {u64 length, u32 masked-crc32c(length), bytes data,
 u32 masked-crc32c(data)}.
 
-``tfrecord_batches`` reads through the native C++ reader
+``tfrecord_batches`` reads the uint8 schema through the native C++ reader
 (``data/native_reader.py``) by default, as the JAX package does; unlike the
 JAX package, a reader that fails to build raises, and ``use_native=False``
-is the only way onto the Python codec below.  The native reader and the
-host prepack take the uint8 schema only: the float schema needs
-``use_native=False`` and raises otherwise (the JAX package quietly takes
-its Python codec there).
+is the only way onto the Python codec below for that schema.  The native
+reader and the host prepack take the uint8 schema only: the float schema
+reads through the Python codec whatever ``use_native`` says, as in the JAX
+package, and raises with ``prepack``.
 
 ``make_tf_dataset`` is the same tf.data pipeline as the JAX package's; it
 imports TensorFlow when called (a host tool: the card's machine has none).
@@ -342,10 +342,11 @@ def tfrecord_batches(
     reader's record copy, or by data.packing.pack_video_np on the Python
     path).  Requires `frames` and even geometry.
 
-    use_native=True (the default) reads through the native C++ reader, and
-    raises if it cannot be built; False is the Python codec.  Both give the
-    same batches.  The float schema takes the Python codec only
-    (use_native=False) and no prepack; asked for either, it raises.
+    use_native=True (the default) reads the uint8 schema through the native
+    C++ reader, and raises if it cannot be built; False is the Python codec.
+    Both give the same batches.  The float schema reads through the Python
+    codec whatever `use_native` says, as the JAX package's does, and takes
+    no prepack (it raises).
 
     pin_memory=True puts each batch's video in page-locked memory, a torch
     tensor filled in place, so that the move to the card needs no staging
@@ -357,9 +358,8 @@ def tfrecord_batches(
         raise ValueError(f"prepack={prepack!r}: only False and True are ported")
     if schema not in ("uint8", "float"):
         raise ValueError(f"schema={schema!r}: 'uint8' or 'float'")
-    if schema == "float" and (prepack or use_native):
-        raise ValueError("the float schema takes neither prepack nor the native reader: pass "
-                         "prepack=False, use_native=False")
+    if schema == "float" and prepack:
+        raise ValueError("the float schema takes no prepack: prepack needs the uint8 schema")
     if prepack:
         if frames is None:
             raise ValueError("prepack needs fixed `frames`")
@@ -368,7 +368,7 @@ def tfrecord_batches(
     key = "video_packed" if prepack else "video"
     shards = list(shards)[host_id::num_hosts]
 
-    if use_native:
+    if use_native and schema == "uint8":
         from .native_reader import NativeTFRecordReader
 
         reader = NativeTFRecordReader(height=height, width=width)

@@ -15,8 +15,11 @@ the flickering delta [T,1,1,C], or with
 * with ``AttackConfig.use_pallas_fused`` the unpacked uint8 ``"video"`` goes
   through ``ops/fused_apply.fused_normalize_perturb`` (kernel B8) to an f32
   clip and the victim's own forward, and B8's backward reduces d(adv) to
-  d(delta); eval and ``forward`` then take the generic path (normalize,
-  ``apply_perturbation``, the victim's forward), as the JAX engine's do.  A
+  d(delta), at an exact bound by the rule of the JAX call on the global
+  batch (``_fused_strict``: the Pallas kernel's strict mask where the JAX
+  call takes it, ``jnp.clip``'s half elsewhere); eval and ``forward`` then
+  take the generic path (normalize, ``apply_perturbation``, the victim's
+  forward), as the JAX engine's do.  A
   victim without a packed stem (no ``stem_params``), a sparse delta, a
   cyclic engine or an odd T, H or W runs the generic path throughout, as the
   JAX engine's ``_packed_supported`` / ``packable`` gates have it;
@@ -50,7 +53,8 @@ per-clip form.  The loss terms and metrics are the un-slotted functions
 ``torch.func.vmap``-ed over the slots.  With ``use_pallas_fused`` the uint8
 clips take B8's per-clip form, B8c (``ops/fused_apply``: delta [N,T,1,1,C],
 d(delta) a clip; the JAX sweep vmaps ``fused_normalize_perturb`` over the
-slots); float clips keep the generic path, as without slots.
+slots, so a slot takes the clip rule of one clip's geometry); float clips
+keep the generic path, as without slots.
 
 The mean/std world (``AttackConfig.norm_world='meanstd'``, the video
 ResNets; ``TorchStyleFlickerSpec``): uint8 clips become (x/255 - mean)/std
@@ -105,7 +109,7 @@ from ..attack import losses as losses_lib
 from ..attack import metrics as metrics_lib
 from ..attack import perturbation as pert_lib
 from ..attack import regularizers as reg_lib
-from ..ops.fused_apply import fused_normalize_perturb
+from ..ops.fused_apply import fused_normalize_perturb, strict_rule
 from ..ops.packed_apply import flicker_stem
 from ..ops.space_to_depth import pack_input
 from ..parallel import mesh as mesh_lib
@@ -421,12 +425,26 @@ class AttackEngine:
         if (train and cfg.use_pallas_fused and not cfg.enable_cyclic
                 and video.dtype == torch.uint8):
             # B8; a slotted delta [N, T,1,1,C] takes its per-clip form B8c
-            adv = fused_normalize_perturb(video, self._applied_delta(delta), adv_flag)
+            adv = fused_normalize_perturb(video, self._applied_delta(delta), adv_flag,
+                                          self._fused_strict(video, delta))
             return self._apply_model(adv)
         x = self._normalize(video)
         if delta is not None:
             x = self._perturb(x, delta, scalars, self._shifts(video, counter, seed), max_norm)
         return self._apply_model(x)
+
+    def _fused_strict(self, video: torch.Tensor, delta: torch.Tensor) -> bool:
+        """B8's clip rule for this batch: the strict mask where the JAX call
+        on the same data takes its Pallas kernel, ``jnp.clip``'s elsewhere
+        (``ops/fused_apply.strict_rule``).  The JAX step sees the global
+        batch (jitted over the mesh's shardings), so a rank's B times the
+        world; the JAX sweep's vmapped call one clip, whatever the slots.
+        Taken from shapes alone, so a graph captures one rule."""
+        if delta.dim() == video.dim():  # a delta a slot
+            b = 1
+        else:
+            b = video.shape[0] * (1 if self.mesh is None else self.mesh.world)
+        return strict_rule((b,) + tuple(video.shape[1:]))
 
     def _loss_terms(self, delta, video, packed, labels, scalars: torch.Tensor,
                     step: torch.Tensor, slots=None):

@@ -15,20 +15,29 @@ What the kernel fixes, as the TPU kernel does:
 
 * the bounds are the literals -1 and 1, not a spec's input range;
 * the output is f32 whatever the model's compute dtype; g arrives as f32;
-* **the tie rule is strict**: the backward passes the gradient only where
-  ``-1 < pre < 1``, so at an exact bound it is 0 -- where ``jnp.clip``, the
-  generic path and the packed input head (B7's mask) give 0.5.  u8 value 0
-  under delta 0 sits exactly on -1, so the two configurations of the runner
-  differ from the first step on any clip with a black pixel.  That is the
-  JAX package's behaviour and is kept;
 * d(adv_flag) is zeros (the flag is a constant gate), None for the video.
 
-Unlike the TPU kernel there is no geometry limit (its ``H*W*C % 128`` and
-``B*T % 8`` were Mosaic block constraints) and so no fallback.  The
-backward is deterministic: per-block partials in a fixed order, then a
+**The clip's gradient follows the JAX call's geometry.**  The JAX
+``fused_normalize_perturb`` takes its Pallas kernel only where its
+``_supported`` holds (``H*W*C % 128 == 0`` and ``B*T % 8 == 0``, Mosaic's
+block constraints; :123) and otherwise runs ``_jnp_reference`` with
+``jax.vjp``'s gradient (:47, :170).  The two differ at an exact bound: the
+Pallas backward masks strictly (0 there), ``jnp.clip`` gives 0.5.  u8 value
+0 under delta 0 sits exactly on -1, so a clip with a black pixel tells them
+apart from the first step.  The port keeps its own copy of the predicate
+(:func:`strict_rule`) and takes the rule as an argument, ``strict``: the
+kernel's mask where the JAX call takes its kernel, ``jnp.clip``'s elsewhere
+(g inside, g/2 on a bound, 0 outside).  The rule is all that follows the
+geometry: the port's kernel runs at every geometry, with no fallback.
+``strict=None`` takes the rule of the JAX call on this video (one clip,
+[1,T,H,W,C], for a delta a clip: the JAX sweep vmaps the call over the
+slots); the engine passes the global batch's under a mesh.
+
+The backward is deterministic: per-block partials in a fixed order, then a
 second kernel that sums them in a fixed order; it agrees with the plain
 version to f32 sum order (about 1e-5 of the largest component at
-[8,64,224,224,3]).  Both kernels are bound by bytes on the H100.
+[8,64,224,224,3]; g/2 is exact in f32, so the rule changes no rounding).
+Both kernels are bound by bytes on the H100.
 
 B8c, a delta a clip (the vectorized sweep's slots): with delta
 [B,T,1,1,C], clip b of the batch takes row b (the JAX sweep's
@@ -38,14 +47,8 @@ reduction over (H, W) alone.  The same kernel bodies with a delta clip
 stride (``csrc/fused_apply.cu``), under launchers and kernel names of
 their own; the wrappers count these launches apart, as ``clip_launches``
 (``launches`` counts the shared delta's).  A clip's forward and d(delta)
-are bit for bit the shared-delta kernels' on that clip alone.
-
-Geometry: the JAX per-slot call has B = 1, so its ``_supported`` takes the
-Pallas kernel only where ``T % 8 == 0`` and ``H*W*C % 128 == 0``; at any
-other geometry (the single-video clip's T = 90) the JAX sweep runs
-``_jnp_reference``, whose gradient is 0.5 at an exact bound.  The port
-runs the kernel's strict rule at every geometry, slotted or not (a
-standing difference, ROADMAP.md queue C).
+are bit for bit the shared-delta kernels' on that clip alone, under
+either rule.
 """
 
 from __future__ import annotations
@@ -57,10 +60,29 @@ from .accounting import record
 
 SLICE = 16 * 256 * 4   # elements of a row per backward block; csrc kSlice
 MAX_CHANNELS = 4       # csrc kMaxC
+LANES, ROW_BLOCK = 128, 8  # the JAX package's _LANES, _ROW_BLOCK
+
+
+def strict_rule(video_shape) -> bool:
+    """Does the JAX package's ``fused_normalize_perturb`` on a uint8 video
+    of `video_shape` [B,T,H,W,C] take its Pallas kernel, and so the strict
+    mask?  (Its ``_supported``, ``ops/fused_apply.py:123``.)  Elsewhere it
+    runs ``_jnp_reference``, whose gradient is ``jnp.clip``'s."""
+    b, t, h, w, c = video_shape
+    return (h * w * c) % LANES == 0 and (b * t) % ROW_BLOCK == 0
 
 
 def _per_clip(delta: torch.Tensor) -> bool:
     return delta.dim() == 5
+
+
+def _strict(video_u8, delta, strict) -> bool:
+    """`strict`, or where None the rule of the JAX call on this video (on
+    one clip of it for a delta a clip: the JAX sweep's vmapped call)."""
+    if strict is not None:
+        return bool(strict)
+    shape = tuple(video_u8.shape)
+    return strict_rule((1,) + shape[1:] if _per_clip(delta) else shape)
 
 
 def _pre(video_u8: torch.Tensor, delta: torch.Tensor, adv_flag: torch.Tensor) -> torch.Tensor:
@@ -73,12 +95,15 @@ def fused_apply_fwd_plain(video_u8, delta, adv_flag) -> torch.Tensor:
     return _pre(video_u8, delta, adv_flag).clamp(-1.0, 1.0)
 
 
-def fused_apply_bwd_plain(video_u8, delta, adv_flag, g) -> torch.Tensor:
+def fused_apply_bwd_plain(video_u8, delta, adv_flag, g, strict=None) -> torch.Tensor:
     pre = _pre(video_u8, delta, adv_flag)
-    mask = (pre < 1.0) & (pre > -1.0)
+    g = g.float()
+    zero = g.new_zeros(())
+    edge = zero if _strict(video_u8, delta, strict) else 0.5 * g
+    v = torch.where((pre < 1.0) & (pre > -1.0), g,
+                    torch.where((pre == 1.0) | (pre == -1.0), edge, zero))
     dims = (2, 3) if _per_clip(delta) else (0, 2, 3)
-    dd = torch.where(mask, g.float(), g.new_zeros((), dtype=torch.float32)).sum(dim=dims)
-    return (adv_flag.float() * dd).reshape(delta.shape)
+    return (adv_flag.float() * v.sum(dim=dims)).reshape(delta.shape)
 
 
 def _check(video_u8, delta, adv_flag):
@@ -132,17 +157,19 @@ fused_apply_fwd.launches = 0
 fused_apply_fwd.clip_launches = 0
 
 
-def fused_apply_bwd(video_u8, delta, adv_flag, g) -> torch.Tensor:
+def fused_apply_bwd(video_u8, delta, adv_flag, g, strict=None) -> torch.Tensor:
     """B8 backward: d(delta) f32 of delta's shape ([T,1,1,C], or B8c's
-    [B,T,1,1,C]) from the upstream gradient g.  `launches` counts the
-    shared delta's launches, `clip_launches` B8c's."""
+    [B,T,1,1,C]) from the upstream gradient g, under the clip rule `strict`
+    (see the module's notes; None: the JAX call's on this video).
+    `launches` counts the shared delta's launches, `clip_launches` B8c's."""
     _check(video_u8, delta, adv_flag)
     if g.shape != video_u8.shape:
         raise ValueError(f"g {tuple(g.shape)} does not match the video {tuple(video_u8.shape)}")
     record("B8cb" if _per_clip(delta) else "B8b", 0,
            video_u8.numel() * (1 + 4) + (2 * delta.numel() + 1) * 4)
+    strict = _strict(video_u8, delta, strict)
     if not video_u8.is_cuda:
-        return fused_apply_bwd_plain(video_u8, delta, adv_flag, g)
+        return fused_apply_bwd_plain(video_u8, delta, adv_flag, g, strict)
     per_clip = _per_clip(delta)
     u8, d, f = _operands(video_u8, delta, adv_flag)
     b, t, h, w, c = u8.shape
@@ -157,7 +184,7 @@ def fused_apply_bwd(video_u8, delta, adv_flag, g) -> torch.Tensor:
     kernels.launch(
         "fav_fused_apply_clips_bwd" if per_clip else "fav_fused_apply_bwd", u8.data_ptr(),
         d.data_ptr(), f.data_ptr(), g.data_ptr(), partial.data_ptr(), dd.data_ptr(), b, t,
-        row_len, c, slices, kernels.stream(),
+        row_len, c, slices, int(strict), kernels.stream(),
     )
     if per_clip:
         fused_apply_bwd.clip_launches += 1
@@ -172,9 +199,9 @@ fused_apply_bwd.clip_launches = 0
 
 class _FusedNormalizePerturb(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, video_u8, delta, adv_flag, plain):
+    def forward(ctx, video_u8, delta, adv_flag, plain, strict):
         ctx.save_for_backward(video_u8, delta, adv_flag)
-        ctx.plain = plain
+        ctx.plain, ctx.strict = plain, strict
         return (fused_apply_fwd_plain if plain else fused_apply_fwd)(video_u8, delta, adv_flag)
 
     @staticmethod
@@ -183,20 +210,21 @@ class _FusedNormalizePerturb(torch.autograd.Function):
         bwd = fused_apply_bwd_plain if ctx.plain else fused_apply_bwd
         d_delta = d_flag = None
         if ctx.needs_input_grad[1]:
-            d_delta = bwd(video_u8, delta, adv_flag, g).to(delta.dtype)
+            d_delta = bwd(video_u8, delta, adv_flag, g, ctx.strict).to(delta.dtype)
         if ctx.needs_input_grad[2]:
             d_flag = torch.zeros_like(adv_flag)
-        return None, d_delta, d_flag, None
+        return None, d_delta, d_flag, None, None
 
 
-def fused_normalize_perturb(video_u8, delta, adv_flag) -> torch.Tensor:
+def fused_normalize_perturb(video_u8, delta, adv_flag, strict=None) -> torch.Tensor:
     """clip(u8/128-1 + adv_flag*delta, -1, 1) over uint8 [B,T,H,W,C] with
     delta [T,1,1,C] (already value-clipped and frame-masked), or [B,T,1,1,C]
     with a delta a clip (B8c), and a 0-d adv_flag tensor; f32 out, gradient
-    to delta only (strict at the bounds, see the module's notes)."""
-    return _FusedNormalizePerturb.apply(video_u8, delta, adv_flag, False)
+    to delta only, at an exact bound 0 where `strict` and g/2 where not
+    (None: the rule of the JAX call on this video; see the module's notes)."""
+    return _FusedNormalizePerturb.apply(video_u8, delta, adv_flag, False, strict)
 
 
-def fused_normalize_perturb_plain(video_u8, delta, adv_flag) -> torch.Tensor:
+def fused_normalize_perturb_plain(video_u8, delta, adv_flag, strict=None) -> torch.Tensor:
     """The same function with the same backward in plain PyTorch, on any device."""
-    return _FusedNormalizePerturb.apply(video_u8, delta, adv_flag, True)
+    return _FusedNormalizePerturb.apply(video_u8, delta, adv_flag, True, strict)

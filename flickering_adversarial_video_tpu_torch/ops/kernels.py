@@ -59,11 +59,11 @@ SIGNATURES = {
     "fav_emit_adv_mask": (_P,) * 4 + (_I,) * 5 + (_F, _F, _D, _P),
     # u8, delta, flag, out, B, T, row_len, C, stream
     "fav_fused_apply_fwd": (_P,) * 4 + (_I,) * 4 + (_P,),
-    # u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, stream
-    "fav_fused_apply_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # u8, delta, flag, g, partial, dd, B, T, row_len, C, slices, strict, stream
+    "fav_fused_apply_bwd": (_P,) * 6 + (_I,) * 6 + (_P,),
     # B8c, delta [B,T,C]: as fav_fused_apply_fwd / _bwd (dd [B,T,C])
     "fav_fused_apply_clips_fwd": (_P,) * 4 + (_I,) * 4 + (_P,),
-    "fav_fused_apply_clips_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "fav_fused_apply_clips_bwd": (_P,) * 6 + (_I,) * 6 + (_P,),
 }
 # the __global__ functions of csrc/ that each launcher starts, as a profiler
 # names them; tests/test_torch_port_kernels.py holds this against csrc/

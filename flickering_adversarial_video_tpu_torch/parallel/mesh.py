@@ -28,11 +28,19 @@ raises, and so does a rank whose card does not exist.
 Host-side agreements (does every rank still have a batch? each rank's
 results) go through a gloo group on the CPU, ``Mesh.control``, so that they
 never wait for the device; it is the data group itself when that is gloo.
+
+A batch that the ranks do not divide shrinks the mesh, as the JAX runners
+shrink theirs (:func:`mesh_size`): ranks [0, d) form it on a subgroup of
+their own (``torch.distributed.new_group``, which every rank calls), d = 1
+leaves rank 0 without a group, and the ranks from d on are idle
+(``Mesh.idle``): they run nothing and wait in :func:`join_world` until the
+others end, so that the launcher sees every rank exit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Any, List, Optional
 
@@ -42,6 +50,9 @@ import torch.distributed as dist
 from ..device import resolve_device
 
 DATA_AXIS = "data"  # the axis the batch is split over (the JAX mesh's name)
+# how long the idle ranks of a shrunk mesh wait for the run's end
+IDLE_WAIT = datetime.timedelta(days=7)
+_world_wait: Optional[Any] = None  # the world's gloo group of a shrunk mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +62,17 @@ class Mesh:
     group: Optional[Any]     # the data group (dist.ProcessGroup); None: one process
     control: Optional[Any]   # a gloo group for the host's agreements
     rank: int
-    world: int
+    world: int               # the mesh's ranks, [0, world)
     device: torch.device     # this rank's device
 
     @property
     def backend(self) -> Optional[str]:
         return None if self.group is None else dist.get_backend(self.group)
+
+    @property
+    def idle(self) -> bool:
+        """Is this rank outside a shrunk mesh?"""
+        return self.rank >= self.world
 
 
 def world_size() -> int:
@@ -104,10 +120,21 @@ def initialize_distributed(backend: Optional[str] = None, init_method: Optional[
     return dist.get_rank()
 
 
-def make_mesh(device=None) -> Mesh:
-    """This process's mesh: the default group (joined from torchrun's
-    environment when there is one) on `device` (``resolve_device``:
-    ``cuda:LOCAL_RANK`` under torchrun), or world 1 with no group."""
+def mesh_size(batch: int, world: int) -> int:
+    """The ranks a batch of `batch` runs on: the largest count, no more
+    than min(`world`, `batch`), that divides it (the JAX runners' device
+    count, ``runners/common.py:249-254``)."""
+    return next(d for d in range(min(world, batch), 0, -1) if batch % d == 0)
+
+
+def make_mesh(device=None, size: Optional[int] = None) -> Mesh:
+    """This process's mesh over the first `size` ranks (default all): the
+    default group (joined from torchrun's environment when there is one) on
+    `device` (``resolve_device``: ``cuda:LOCAL_RANK`` under torchrun), or
+    world 1 with no group.  A smaller `size` is a collective, as
+    ``new_group`` is: every rank calls it; ranks [0, size) get a subgroup
+    (none at size 1), the others an idle mesh."""
+    global _world_wait
     initialize_distributed()
     dev = resolve_device(device)
     if not dist.is_initialized():
@@ -116,8 +143,31 @@ def make_mesh(device=None) -> Mesh:
     backend = dist.get_backend(group)
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError(f"an NCCL group runs on the card, not on {dev}")
-    control = group if backend == "gloo" else dist.new_group(backend="gloo")
-    return Mesh(group, control, dist.get_rank(), dist.get_world_size(), dev)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    size = world if size is None else size
+    if not 0 < size <= world:
+        raise ValueError(f"a mesh of {size} ranks in a world of {world}")
+    if size == world:
+        _world_wait = None
+        control = group if backend == "gloo" else dist.new_group(backend="gloo")
+        return Mesh(group, control, rank, world, dev)
+    _world_wait = dist.new_group(backend="gloo", timeout=IDLE_WAIT)
+    group = control = None
+    if size > 1:
+        ranks = list(range(size))
+        group = dist.new_group(ranks)
+        control = group if backend == "gloo" else dist.new_group(ranks, backend="gloo")
+    if rank >= size:
+        group = control = None
+    return Mesh(group, control, rank, size, dev)
+
+
+def join_world() -> None:
+    """Wait until every rank of the world is here, when a shrunk mesh left
+    ranks idle: they call it at once, the mesh's ranks at their run's end
+    (nothing otherwise)."""
+    if _world_wait is not None:
+        dist.barrier(group=_world_wait)
 
 
 def refuse_world(path: str, hint: str) -> None:

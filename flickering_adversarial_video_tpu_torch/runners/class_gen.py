@@ -5,7 +5,7 @@ video of one Kinetics class: an epoch loop over the class's tfrecord shards
 with the exclude-misclassified fooling eval, a checkpoint at every epoch end
 and a pkl dump, resuming from the latest checkpoint.  Data parallel under
 torchrun as the universal runner (rank 0 writes the checkpoints, the scalars
-and res.pkl).
+and res.pkl; ranks outside the mesh wait for the end and return None).
 
 Usage: python -m flickering_adversarial_video_tpu_torch.runners.class_gen [run_config.yml]
 """
@@ -19,6 +19,7 @@ import sys
 from ..data.tfrecord import list_shards, tfrecord_batches
 from ..engine.checkpoint import AttackCheckpointer
 from ..engine.loops import batched_attack_loop, flags_from_config
+from ..parallel import mesh as mesh_lib
 from ..utils.config import load_config
 from ..viz.tensorboard import ScalarWriter
 from .common import build_engine, make_shard_batches
@@ -31,6 +32,9 @@ def run(cfg, *, frames: int = 90, size=None, max_steps=None, device=None):
     engine, labels = build_engine(
         attack_cfg, cfg.MODEL, frames=frames, size=size, track_probs=False, device=device
     )
+    if engine is None:  # an idle rank: the batch splits over fewer ranks
+        mesh_lib.join_world()
+        return None
     flags = flags_from_config(attack_cfg)
 
     train_shards = list_shards(
@@ -78,6 +82,7 @@ def run(cfg, *, frames: int = 90, size=None, max_steps=None, device=None):
         targeted_label=targeted_label,
         start_step=start_step,
     )
+    mesh_lib.join_world()
     if rank != 0:
         return out
     writer.close()

@@ -12,10 +12,13 @@ variables.  A missing one gives seeded random weights with a loud warning
 (the attack machinery is weight-agnostic).
 
 Under torchrun (W ranks, ``parallel/mesh.py``) ``build_engine`` gives the
-engine the run's mesh, as the JAX package's builds its device mesh: each rank
-takes ``BATCH_SIZE / W`` clips a step from its own shards.  A ``BATCH_SIZE``
-that W does not divide raises (the JAX package shrinks its mesh to a divisor
-instead; a launched group cannot shrink).
+engine the run's mesh, as the JAX package's builds its device mesh: over d
+ranks, the largest count no more than min(W, ``BATCH_SIZE``) that divides
+``BATCH_SIZE`` (``mesh.mesh_size``); each of them takes ``BATCH_SIZE / d``
+clips a step from its own shards (``shards[r::d]``).  At d = 1 rank 0 runs
+unmeshed; the ranks from d on are idle: ``build_engine`` gives them no
+engine, and the runners have them wait in ``mesh.join_world`` for the
+others' end, reading and writing nothing.
 """
 
 from __future__ import annotations
@@ -133,8 +136,9 @@ def build_engine(
     torch weighting of the regularizers, and no frame window (the engine
     refuses ``ATTACK_FRAME_WINDOW``, as the JAX engine).  With `use_mesh`,
     a run of several ranks (torchrun, or a joined group) makes the engine a
-    rank of it; `batch_size` (default ``BATCH_SIZE``), the global batch, must
-    split evenly over them."""
+    rank of its mesh: the ranks that divide `batch_size` (default
+    ``BATCH_SIZE``), the global batch.  A rank outside the mesh gets
+    (None, []): it builds no victim."""
     model_name = attack_cfg.get("MODEL_NAME", "i3d")
     if model_name not in MODEL_REGISTRY:
         raise ValueError(f"MODEL_NAME {model_name!r}: choose from {sorted(MODEL_REGISTRY)}")
@@ -143,6 +147,17 @@ def build_engine(
     size = size or reg.default_size
     compute_dtype = _DTYPES[attack_cfg.get("COMPUTE_DTYPE", "bfloat16")]
     num_classes = model_cfg.get("NUM_CLASSES")
+    mesh = None
+    if use_mesh and mesh_lib.launched():
+        world = mesh_lib.world_size()
+        bs = batch_size or int(attack_cfg.get("BATCH_SIZE", 1))
+        mesh = mesh_lib.make_mesh(device, mesh_lib.mesh_size(bs, world))
+        if mesh.world < world:
+            idle = ", ".join(map(str, range(mesh.world, world)))
+            print(f"data parallel: BATCH_SIZE {bs} splits over {mesh.world} of the {world} "
+                  f"ranks; idle: {idle}")
+        if mesh.idle:
+            return None, []
 
     model = build_victim(
         model_name,
@@ -189,15 +204,8 @@ def build_engine(
         spec = SparseSpec(frames=frames, height=size, width=size)
     else:
         spec = FlickerSpec(frames=frames)
-    mesh = None
-    if use_mesh and mesh_lib.launched():
-        mesh = mesh_lib.make_mesh(device)
-        bs = batch_size or int(attack_cfg.get("BATCH_SIZE", 1))
-        if bs % mesh.world:
-            raise ValueError(f"BATCH_SIZE {bs} does not split over the {mesh.world} ranks: "
-                             f"make it a multiple of {mesh.world}")
     engine = AttackEngine(model, spec, cfg, track_probs=track_probs, mesh=mesh)
-    if mesh is not None:
+    if engine.mesh is not None:
         print(f"data parallel: rank {mesh.rank} of {mesh.world} ({mesh.backend}), "
               f"{bs // mesh.world} clips a step on {engine.device}")
     return engine, labels
@@ -223,8 +231,8 @@ def make_shard_batches(
     shards are read by the native reader (the pipeline's default), into
     pinned buffers when the engine is on CUDA.
 
-    With a mesh each rank reads ``shards[rank::W]`` and takes `batch_size`
-    / W clips a batch.
+    With a mesh of d ranks each reads ``shards[rank::d]`` and takes
+    `batch_size` / d clips a batch.
 
     `tfrecord_batches_fn` is passed in (the runner's module-level symbol) so
     tests can monkeypatch it per runner."""

@@ -9,9 +9,11 @@ val shards.  FLICKERING_ATTACK false selects the L1,2 sparse variant (a full
 [T,H,W,3] delta), whose results go under ``SUP_ATTACK``.
 
 Data parallel under torchrun (``runners/common.build_engine``): each rank
-attacks with ``BATCH_SIZE / W`` clips a step from its own shards, d(delta)
-summed over the ranks in the step; rank 0 writes the checkpoints, the
-scalars and res.pkl.  In one process the runner runs as it always did.
+of the mesh (the d ranks that divide ``BATCH_SIZE``) attacks with
+``BATCH_SIZE / d`` clips a step from its own shards, d(delta) summed over
+the ranks in the step; rank 0 writes the checkpoints, the scalars and
+res.pkl, and the idle ranks wait for the end and return None.  In one
+process the runner runs as it always did.
 
 Usage: python -m flickering_adversarial_video_tpu_torch.runners.universal [run_config.yml]
        torchrun --nproc-per-node N -m flickering_adversarial_video_tpu_torch.runners.universal cfg.yml
@@ -26,6 +28,7 @@ import sys
 from ..data.tfrecord import list_shards, tfrecord_batches
 from ..engine.checkpoint import AttackCheckpointer
 from ..engine.loops import batched_attack_loop, flags_from_config
+from ..parallel import mesh as mesh_lib
 from ..utils.config import load_config
 from ..viz.tensorboard import ScalarWriter
 from .common import build_engine, make_shard_batches
@@ -55,6 +58,9 @@ def run(cfg, *, frames: int = 90, size=None, max_steps=None, device=None):
         attack_cfg, cfg.MODEL, frames=frames, size=size, attack_kind=attack_kind,
         track_probs=False, device=device,
     )
+    if engine is None:  # an idle rank: the batch splits over fewer ranks
+        mesh_lib.join_world()
+        return None
     flags = flags_from_config(attack_cfg)
 
     train_shards = list_shards(
@@ -113,6 +119,7 @@ def run(cfg, *, frames: int = 90, size=None, max_steps=None, device=None):
         targeted_label=targeted_label,
         start_step=start_step,
     )
+    mesh_lib.join_world()
     if rank != 0:
         return out
     writer.close()

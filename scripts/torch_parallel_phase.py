@@ -7,7 +7,8 @@ same runner in one process on the same shards: the script writes
 chip_smoke.SHARDS shards of chip_smoke.PER_SHARD seeded uint8 clips of
 64x224x224 (seeded labels), runs ``runners.universal.run`` on them for
 chip_smoke.RUNNER_STEPS steps without a group (phase 7's run), then 18a
-against it, then 18b.  ``--with-sweep`` also runs phases 16 and 17 for the
+against it, then 18b and 18d (the mesh shrunk to rank 0 by a batch of 3
+over two ranks).  ``--with-sweep`` also runs phases 16 and 17 for the
 per-video sweep that 18c reruns over two ranks (about two minutes more).
 Builds the port's kernels first; needs one CUDA card; exits non-zero on the
 first failed check, as chip_smoke.py does.
@@ -72,6 +73,7 @@ def main(argv=None) -> int:
                                                  "delta": ref["state"].delta.clone()})
         torch.cuda.empty_cache()
         cs.dp_gloo_phase(tmp, dev)
+        cs.dp_shrink_phase(tmp, dev, shard_dir)
         if args.with_sweep:
             sweep_run = cs.torch_world_phase(tmp, dev)
             cs.vector_sweep_phase(tmp, dev, sweep_run)

@@ -381,6 +381,11 @@ class TestKernelsOnCard:
         assert torch.equal(got, again)  # deterministic
         want = fused_apply.fused_apply_bwd_plain(u8, delta, flag, g)
         _close(got.cpu().numpy(), want.numpy(), 1e-5)
+        ones = torch.ones_like(g)
+        for strict in (True, False):  # each clip rule; on g = 1 the sums are exact
+            assert torch.equal(
+                fused_apply.fused_apply_bwd(*cu, ones.cuda(), strict=strict).cpu(),
+                fused_apply.fused_apply_bwd_plain(u8, delta, flag, ones, strict=strict))
         big = torch.full_like(delta, 5.0).cuda()
         assert fused_apply.fused_apply_bwd(cu[0], big, cu[2], g.cuda()).abs().max().item() == 0.0
         d = delta.cuda().requires_grad_(True)

@@ -167,6 +167,32 @@ class TestFloatSchema:
             np.testing.assert_array_equal(g["video"], w_["video"])
             np.testing.assert_array_equal(g["labels"], w_["labels"])
 
+    def test_default_flags_read_as_jax(self, tmp_path, monkeypatch):
+        """tfrecord_batches(shards, bs, schema="float") on its default flags
+        (use_native=True) reads through the Python codec, as the JAX
+        package's does: its batches are the JAX package's, and the native
+        reader is never built."""
+        rng = np.random.default_rng(45)
+        paths = [str(tmp_path / f"f{k}.tfrecords") for k in range(2)]
+        for k, path in enumerate(paths):
+            with ttfr.TFRecordWriter(path) as w:
+                for i in range(3):
+                    w.write(ttfr.make_float_example(
+                        rng.uniform(-1, 1, (2, 8, 8, 3)).astype(np.float32), 3 * k + i))
+        from flickering_adversarial_video_tpu_torch.data import native_reader
+
+        def refuse(*a, **kw):
+            raise AssertionError("the native reader was built for the float schema")
+
+        monkeypatch.setattr(native_reader, "NativeTFRecordReader", refuse)
+        got = list(ttfr.tfrecord_batches(paths, 2, schema="float", height=8, width=8))
+        want = list(jtfr.tfrecord_batches(paths, 2, schema="float", height=8, width=8))
+        assert len(got) == len(want) == 3
+        for g, w_ in zip(got, want):
+            assert g["video"].dtype == np.float32
+            np.testing.assert_array_equal(g["video"], w_["video"])
+            np.testing.assert_array_equal(g["labels"], w_["labels"])
+
     def test_pinned_float_batches_and_refusals(self, tmp_path, monkeypatch):
         path = str(tmp_path / "f.tfrecords")
         clip = np.ones((2, 4, 4, 3), np.float32) * 0.25
@@ -184,7 +210,7 @@ class TestFloatSchema:
                                      width=4, pin_memory=True)
         assert pinned == [True] and b["video"].dtype == torch.float32
         np.testing.assert_array_equal(b["video"].numpy(), clip[None])
-        for kw in (dict(), dict(use_native=False, prepack=True, frames=2)):
+        for kw in (dict(prepack=True, frames=2), dict(use_native=False, prepack=True, frames=2)):
             with pytest.raises(ValueError, match="float schema"):
                 next(ttfr.tfrecord_batches([path], 1, schema="float", **kw))
         with pytest.raises(ValueError, match="schema"):

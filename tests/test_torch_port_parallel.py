@@ -27,9 +27,11 @@ the split).  Tolerances, the JAX package's own mesh tests'
 within 1e-5 relative; delta bit-equal across the ranks.  Also: the eval
 counts summed over the ranks; the universal runner on three shards that
 split unevenly over the ranks, against one process fed the ranks' batches
-in rank order; ``--slots 4 --mesh`` of the per-video and single-video
-runners against one process; the per-host shard split against the JAX
-reader's; the refusals.
+in rank order, and the same run over three ranks, whose batch of 4 splits
+over two (the mesh shrinks as the JAX runners' does: rank 2 idle);
+``--slots 4 --mesh`` of the per-video and single-video runners against one
+process; the per-host shard split against the JAX reader's; the shrink to
+one rank; the refusals.
 """
 
 from __future__ import annotations
@@ -230,9 +232,10 @@ def _rank_cases(rank, tmp):
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
 
 
-def _rank_runner(rank, tmp):
-    """The universal runner on the uneven shards: its output, and how many
-    files this rank saved through the checkpointer."""
+def _rank_runner(rank, tmp, out_dir="universal"):
+    """The universal runner on the uneven shards: its output (None on an
+    idle rank), how many files this rank saved through the checkpointer,
+    and what it printed."""
     saved = []
     real_save = torch.save
 
@@ -240,22 +243,38 @@ def _rank_runner(rank, tmp):
         saved.append(os.path.basename(str(path)))
         return real_save(obj, path, *a, **kw)
 
+    log = io.StringIO()
     with mock.patch.object(tcommon, "build_victim", lambda *a, device=None, **kw: LinearVictim()), \
-            mock.patch.object(tckpt.torch, "save", spy), \
-            contextlib.redirect_stdout(io.StringIO()):
-        out = tuniversal.run(_runner_cfg(tmp), frames=T, size=S, device="cpu")
+            mock.patch.object(tckpt.torch, "save", spy), contextlib.redirect_stdout(log):
+        out = tuniversal.run(_runner_cfg(tmp, out_dir), frames=T, size=S, device="cpu")
+    if out is None:
+        return {"out": None, "saved": saved, "log": log.getvalue()}
     return {"history": out["history"], "final_eval": out["final_eval"], "steps": out["steps"],
-            "delta": out["state"].delta.numpy().copy(), "saved": saved}
+            "delta": out["state"].delta.numpy().copy(), "saved": saved, "log": log.getvalue()}
 
 
-def _runner_cfg(tmp):
+def _shrunk_main(rank, tmp):
+    """One rank of a gloo group of W + 1 = 3: the universal runner, whose
+    batch of RUNNER_B = 4 splits over ranks 0 and 1 (shrunk<r>.pt)."""
+    try:
+        torch.set_num_threads(1)
+        mesh_lib.initialize_distributed("gloo", f"file://{tmp}/store3", rank, W + 1)
+        torch.save(_rank_runner(rank, tmp, "universal3"), os.path.join(tmp, f"shrunk{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"shrunk{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _runner_cfg(tmp, out_dir="universal"):
     cfg = tconfig.default_config()
     ac = cfg.UNIVERSAL_ATTACK
     shards = os.path.join(tmp, "shards")
     ac.TF_RECORDS_TRAIN_PATH = ac.TF_RECORDS_VAL_PATH = [shards]
     ac.NUM_OF_TRAIN_TF_RECORDS = ac.NUM_OF_VAL_TF_RECORDS = len(SHARD_SIZES)
     ac.BATCH_SIZE, ac.MAX_NUM_STEP, ac.COMPUTE_DTYPE = RUNNER_B, RUNNER_STEPS, "float32"
-    ac.PKL_RESULT_PATH = os.path.join(tmp, "universal")
+    ac.PKL_RESULT_PATH = os.path.join(tmp, out_dir)
     return cfg
 
 
@@ -326,13 +345,14 @@ def _write_assets(tmp, inputs):
 
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
-    """Spawn the W=2 group once; every rank's saved results, the inputs and
-    the temporary directory."""
+    """Spawn the W=2 group, and beside it the shrunk group of 3, once;
+    every rank's saved results, the inputs and the temporary directory."""
     tmp = str(tmp_path_factory.mktemp("w2"))
     inputs = make_inputs()
     _write_assets(tmp, inputs)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, tmp)) for r in range(W)]
+    runs = [("rank", _rank_main, W), ("shrunk", _shrunk_main, W + 1)]
+    procs = [ctx.Process(target=main, args=(r, tmp)) for _, main, n in runs for r in range(n)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + JOIN_S
@@ -343,14 +363,17 @@ def group(tmp_path_factory):
         p.kill()
         p.join(10)
     errors = ""
-    for r in range(W):
-        err = os.path.join(tmp, f"rank{r}.err")
-        if os.path.exists(err):
-            errors += open(err).read()
-    assert not hung, f"the group did not finish within {JOIN_S} s\n{errors}"
+    for tag, _, n in runs:
+        for r in range(n):
+            err = os.path.join(tmp, f"{tag}{r}.err")
+            if os.path.exists(err):
+                errors += open(err).read()
+    assert not hung, f"the groups did not finish within {JOIN_S} s\n{errors}"
     assert all(p.exitcode == 0 for p in procs), errors
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(W)]
-    return {"tmp": tmp, "inputs": inputs, "ranks": ranks}
+    shrunk = [torch.load(os.path.join(tmp, f"shrunk{r}.pt"), weights_only=False)
+              for r in range(W + 1)]
+    return {"tmp": tmp, "inputs": inputs, "ranks": ranks, "shrunk": shrunk}
 
 
 @pytest.fixture(scope="module")
@@ -501,6 +524,35 @@ def test_universal_runner_on_uneven_shards(group):
     assert r0["history"]["total_loss"][0] == pytest.approx(losses[0], rel=LOSS_REL)
 
 
+def test_universal_runner_shrinks_to_the_ranks_that_divide_the_batch(group):
+    """Three ranks, BATCH_SIZE 4: the mesh is ranks 0 and 1 (the JAX
+    runners' largest divisor), each prints the shrink, rank 2 is idle and
+    saves nothing, and ranks 0-1 run the W=2 run bit for bit: delta, the
+    history, the final eval and the files written."""
+    tmp = group["tmp"]
+    r0, r1, r2 = group["shrunk"]
+    two = group["ranks"][0]["runner"]
+    for r in (r0, r1, r2):
+        assert "BATCH_SIZE 4 splits over 2 of the 3 ranks; idle: 2" in r["log"]
+    assert r2 == {"out": None, "saved": [], "log": r2["log"]}
+    assert "train shards" not in r2["log"] and "data parallel: rank" not in r2["log"]
+    assert "data parallel: rank 0 of 2 (gloo)" in r0["log"]
+    assert len(r0["saved"]) == len(two["saved"]) > 0 and not r1["saved"]
+    for r in (r0, r1):
+        np.testing.assert_array_equal(r["delta"], two["delta"])
+        assert r["steps"] == two["steps"] and r["final_eval"] == two["final_eval"]
+        assert {k: v for k, v in r["history"].items() if k != "perturbation"} == {
+            k: v for k, v in two["history"].items() if k != "perturbation"}
+        assert all(np.array_equal(a, b) for a, b in zip(r["history"]["perturbation"],
+                                                          two["history"]["perturbation"]))
+    dirs = [tuniversal.model_dir_name(_runner_cfg(tmp, out).UNIVERSAL_ATTACK)
+            for out in ("universal3", "universal")]
+    assert [sorted(os.listdir(d)) for d in dirs] == [["ckpt", "res.pkl", "train"]] * 2
+    assert [sorted(os.listdir(os.path.join(d, "ckpt"))) for d in dirs][0] == sorted(
+        os.listdir(os.path.join(dirs[1], "ckpt")))
+    assert [len(os.listdir(os.path.join(d, "train"))) for d in dirs] == [1, 1]
+
+
 def test_per_video_slots_over_ranks_equal_one_process(group, tmp_path):
     """torch_per_video --slots 4 --mesh at W=2: the counts, files, verdicts
     and histories of one process's --slots 4, and a rerun skips what any
@@ -616,16 +668,64 @@ def test_device_follows_local_rank(monkeypatch):
 
 @pytest.mark.parametrize("bs", [3, 5])
 def test_batch_that_does_not_split_raises(monkeypatch, bs):
-    """BATCH_SIZE that the ranks do not divide raises with both numbers."""
-    mesh = mesh_lib.Mesh(None, None, 0, 2, torch.device("cpu"))
+    """A BATCH_SIZE that the 2 ranks do not divide still raises where it is
+    split over them (``shard_batch``), but ``build_engine`` no longer
+    splits it so: the mesh shrinks to 1 rank, as the JAX runners' does
+    (batch 1 or no divisor: unmeshed).  Rank 0 runs without a mesh, rank 1
+    is idle (no engine, no victim built), and both print the shrink."""
+    asked = []
+
+    def make_mesh(device=None, size=None):
+        asked.append(size)
+        return mesh_lib.Mesh(None, None, rank, size, torch.device("cpu"))
+
+    built = []
     monkeypatch.setattr(mesh_lib, "launched", lambda: True)
-    monkeypatch.setattr(mesh_lib, "make_mesh", lambda device=None: mesh)
-    monkeypatch.setattr(tcommon, "build_victim", lambda *a, device=None, **kw: LinearVictim())
+    monkeypatch.setattr(mesh_lib, "world_size", lambda: 2)
+    monkeypatch.setattr(mesh_lib, "make_mesh", make_mesh)
+    monkeypatch.setattr(tcommon, "build_victim",
+                        lambda *a, device=None, **kw: built.append(1) or LinearVictim())
     ac = tconfig.default_config().UNIVERSAL_ATTACK
     ac.BATCH_SIZE, ac.COMPUTE_DTYPE = bs, "float32"
-    with pytest.raises(ValueError, match=f"BATCH_SIZE {bs} .* 2 ranks"), \
-            contextlib.redirect_stdout(io.StringIO()):
-        tcommon.build_engine(ac, tconfig.default_config().MODEL, frames=T, size=S, device="cpu")
+    with pytest.raises(ValueError, match=f"a batch of {bs} does not split over 2 ranks"):
+        mesh_lib.shard_batch(mesh_lib.Mesh(None, None, 0, 2, torch.device("cpu")),
+                             {"labels": np.arange(bs)})
+    for rank in (0, 1):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            engine, labels = tcommon.build_engine(ac, tconfig.default_config().MODEL, frames=T,
+                                                  size=S, device="cpu")
+        assert f"BATCH_SIZE {bs} splits over 1 of the 2 ranks; idle: 1" in log.getvalue()
+        if rank == 0:
+            assert engine.mesh is None and len(labels) == 400 and built == [1]
+            batch = {"labels": np.arange(bs)}
+            assert engine.shard(batch) is batch
+        else:
+            assert (engine, labels) == (None, []) and built == [1]
+    assert asked == [1, 1]
+
+
+@pytest.mark.parametrize("bs,world,want", [(8, 2, 2), (3, 2, 1), (5, 2, 1), (4, 3, 2),
+                                           (6, 4, 3), (1, 4, 1), (12, 8, 6), (7, 8, 7)])
+def test_mesh_size_is_the_jax_runners_count(bs, world, want):
+    """The largest count, no more than min(world, batch), that divides the
+    batch (JAX ``runners/common.py:249-254``)."""
+    assert mesh_lib.mesh_size(bs, world) == want
+
+
+def test_fused_rule_takes_the_global_batch():
+    """B8's clip rule is the JAX call's on the GLOBAL batch (the JAX step is
+    jitted over the mesh's shardings): a rank's [2,2,16,16,3] of a world of
+    2 is a global B*T of 8, the kernel's strict rule; alone it is 4,
+    jnp.clip's.  A delta a slot takes one clip's, whatever the mesh."""
+    video = torch.zeros(2, 2, 16, 16, 3, dtype=torch.uint8)
+    config = AttackConfig(use_pallas_fused=True)
+    alone = AttackEngine(LinearVictim(), FlickerSpec(2), config)
+    meshed = AttackEngine(LinearVictim(), FlickerSpec(2), config,
+                          mesh=mesh_lib.Mesh(object(), None, 0, W, torch.device("cpu")))
+    flat, slotted = torch.zeros(2, 1, 1, 3), torch.zeros(2, 2, 1, 1, 3)
+    assert meshed._fused_strict(video, flat) and not alone._fused_strict(video, flat)
+    assert not meshed._fused_strict(video, slotted) and not alone._fused_strict(video, slotted)
 
 
 def test_paths_without_a_split_refuse_several_ranks(monkeypatch, tmp_path):

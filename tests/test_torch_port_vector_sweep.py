@@ -26,6 +26,7 @@ import contextlib
 import dataclasses
 import io
 import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +54,7 @@ from flickering_adversarial_video_tpu_torch.convert import init_i3d_state
 from flickering_adversarial_video_tpu_torch.data import video_dataset as tvd
 from flickering_adversarial_video_tpu_torch.engine import (
     AttackConfig, AttackEngine, AttackState, RuntimeFlags)
+from flickering_adversarial_video_tpu_torch.engine import attack_step as tattack_step
 from flickering_adversarial_video_tpu_torch.engine import loops as tloops
 from flickering_adversarial_video_tpu_torch.engine import sweep as tsweep
 from flickering_adversarial_video_tpu_torch.engine import vector_sweep as tvs
@@ -359,7 +361,9 @@ class TestFusedB8PerClip:
     """B8c: kernel B8 with a delta a clip ([S,T,1,1,C]), the JAX sweep's
     ``jax.vmap`` of ``fused_normalize_perturb`` over the slots (a clip a
     call, the flag shared), held where the JAX call takes its Pallas kernel
-    (B = 1: T % 8 == 0, H*W*C % 128 == 0), in interpret mode off the TPU."""
+    (B = 1: T % 8 == 0, H*W*C % 128 == 0), in interpret mode off the TPU,
+    and where it runs ``_jnp_reference`` (T = 6), whose gradient is
+    jnp.clip's half at an exact bound."""
 
     S, T, H, W, C = 3, 8, 16, 16, 3
 
@@ -397,6 +401,84 @@ class TestFusedB8PerClip:
         if flag:
             assert np.abs(want_dd).max() > 1.0
         np.testing.assert_allclose(d.grad.numpy(), want_dd, atol=1e-5, rtol=1e-6)
+
+    def test_plain_form_against_the_vmapped_reference(self):
+        """At S=2, T=6, 16x16x3 the JAX per-clip call runs _jnp_reference:
+        B8c's d(delta) is jnp.clip's, black pixels under delta 0 counting
+        half (exact on the integer sum; within 1e-5 of the largest component
+        with a wavy g); strict=True takes the halves away."""
+        s, t, h, w, c = 2, 6, 16, 16, 3
+        rng = np.random.default_rng(35)
+        video = rng.integers(0, 256, (s, t, h, w, c), dtype=np.uint8)
+        delta = (rng.normal(size=(s, t, 1, 1, c)) * 0.5).astype(np.float32)
+        video[1, 2, 3, 4, 0] = video[1, 2, 5, 6, 0] = 0
+        delta[1, 2, 0, 0, 0] = 0.0
+        black = int((video[1, 2, :, :, 0] == 0).sum())
+        assert black >= 2
+        assert not jfused_supported((1, t, h, w, c)) and not fused_apply.strict_rule((1, t, h, w, c))
+        fn = self._jax(1.0)
+        jv, jd, u8 = jnp.asarray(video), jnp.asarray(delta), torch.from_numpy(video)
+        out = fused_apply.fused_normalize_perturb(u8, torch.from_numpy(delta), torch.tensor(1.0))
+        np.testing.assert_allclose(out.numpy(), np.asarray(fn(jv, jd)), atol=1e-6, rtol=0)
+
+        def port(loss, **kw):
+            d = torch.from_numpy(delta).requires_grad_(True)
+            loss(fused_apply.fused_normalize_perturb(u8, d, torch.tensor(1.0), **kw)).backward()
+            return d.grad.numpy()
+
+        summed = np.asarray(jax.grad(lambda d: jnp.sum(fn(jv, d)))(jd))
+        np.testing.assert_array_equal(port(torch.sum), summed)
+        strict = port(torch.sum, strict=True)
+        assert strict[1, 2, 0, 0, 0] == summed[1, 2, 0, 0, 0] - 0.5 * black
+        wavy = np.asarray(jax.grad(lambda d: jnp.sum(jnp.sin(3 * fn(jv, d))))(jd))
+        np.testing.assert_allclose(port(lambda o: torch.sin(3 * o).sum()), wavy,
+                                   atol=1e-5 * np.abs(wavy).max(), rtol=0)
+
+    def test_fused_slot_step_against_the_jax_sweep(self):
+        """The slot step with use_pallas_fused at T=6, 16x16 (the JAX per-clip
+        call runs _jnp_reference) from delta 0, the reference stop rule's
+        start, with 9 black pixels a clip exactly on -1: Adam's first moment
+        (0.1 d(delta)), second moment and the new delta against the JAX
+        sweep's vmapped per-clip step (1e-4 relative, the file's loss
+        tolerance: the two packages' f32 losses round apart by ~1e-5; 2e-4
+        for the square); the kernel's strict rule in its place misses the
+        half by 1.8%."""
+        t, size = 6, 16
+        je = JEngine(lambda v, x: jnp.mean(x, axis=(1, 2, 3)) @ v["w"], {"w": jnp.asarray(W)},
+                     JFlickerSpec(frames=t), JConfig(use_pallas_fused=True), track_probs=True)
+        jvse = jvs.VectorSweepEngine(je, 2, stop="reference")
+        slots = jvse.init_slots([0, 1])
+        rng = np.random.default_rng(36)
+        videos = rng.integers(1, 256, (2, t, size, size, 3), dtype=np.uint8)
+        videos[:, 1, :3, :3, 2] = 0
+        labels = LinearVictim()(torch.from_numpy(videos).float() / 128.0 - 1.0).argmax(-1)
+        step = jax.vmap(jvse._per_clip_step, in_axes=(0, 0, 0, 0, 0, 0, 0, None))
+        jd, jopt, _ = step(slots.delta, slots.opt_state, jnp.asarray(videos),
+                           jnp.asarray(labels.numpy()), jax.random.split(jax.random.key(0), 2),
+                           jnp.ones(2), jnp.ones(2, bool), JFlags())
+        adam = jopt.inner_state[0]
+
+        te = AttackEngine(LinearVictim(), FlickerSpec(t), AttackConfig(use_pallas_fused=True),
+                          track_probs=True)
+
+        def port_step():
+            zeros = torch.zeros((2,) + tuple(te.spec.shape))
+            video, packed, lab = te.prepare_batch({"video": torch.from_numpy(videos),
+                                                   "labels": labels})
+            return te._slot_step(zeros, zeros, zeros, torch.zeros(2, dtype=torch.int32), video,
+                                 packed, lab, te._step_scalars(RuntimeFlags(), 0).clone(),
+                                 torch.ones(2), torch.arange(2), torch.ones(2, dtype=torch.bool))[0]
+
+        nd, nmu, nnu, _ = port_step()
+        mu = np.asarray(adam.mu)
+        assert np.abs(mu[:, 1, 0, 0, 2]).min() > 1e-3 * np.abs(mu).max()
+        np.testing.assert_allclose(nmu.numpy(), mu, rtol=1e-4, atol=0)
+        np.testing.assert_allclose(nnu.numpy(), np.asarray(adam.nu), rtol=2e-4, atol=0)
+        np.testing.assert_allclose(nd.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-9)
+        with mock.patch.object(tattack_step, "strict_rule", lambda shape: True):
+            strict_mu = port_step()[1].numpy()
+        off = np.abs(strict_mu - mu)[:, 1, 0, 0, 2] / np.abs(mu[:, 1, 0, 0, 2])
+        assert off.min() > 1e-2  # 4.5 of 256 pixels
 
     def test_each_clip_is_the_shared_form_on_that_clip(self):
         """A clip's forward and d(delta) are the shared-delta B8's on that
@@ -518,9 +600,8 @@ class TestSlotStep:
     def test_fused_kernel_with_slots_raises(self):
         """use_pallas_fused on uint8 clips: the slot step takes B8's per-clip
         form (it refused before B8c existed); a chunk gives what the generic
-        path gives (no clip sits on a bound here, where B8's strict rule
-        differs), and a float clip takes the generic path, as without
-        slots."""
+        path gives (no clip sits on a bound here), and a float clip takes
+        the generic path, as without slots."""
         fused = AttackEngine(LinearVictim(), FlickerSpec(FRAMES),
                              AttackConfig(use_pallas_fused=True))
         plain = AttackEngine(LinearVictim(), FlickerSpec(FRAMES), AttackConfig())
