@@ -42,6 +42,8 @@ from the host.  Here each step shape is captured once with
 * **No fallback.**  A capture or a replay that fails raises.  The CPU runs the
   eager step (``AttackEngine._train_step``) because it is the CPU; on the
   card that eager step is only the reference the graph is held to.
+* **Span.**  Each graph's warm-up and capture is one ``step_graph/capture``
+  span in a torch.profiler trace (``SPANS``).
 
 :class:`SlotGraph` is the vectorized sweep's counterpart of the JAX sweep's
 ``jax.jit(lax.scan(body), donate)`` (``engine/vector_sweep.py:105,
@@ -64,10 +66,13 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from .. import ops
 
 WARMUP_STEPS = 2  # eager steps on a side stream before a capture
+CAPTURE_SPAN = "step_graph/capture"
+SPANS = (CAPTURE_SPAN,)
 
 
 @dataclasses.dataclass
@@ -176,38 +181,39 @@ def _capture(warm_up: Callable, capture: Callable, static, device: torch.device,
     `capture` returned, the kernel launches a replay makes by wrapper name,
     the pool bytes the capture reserved).  The wrappers' counts are left as
     they were."""
-    saved = [t.clone() for t in static]
-    counts = ops.launch_counts()
-    try:
-        # warm-up on a side stream: cuDNN's plans, the kernels' first-launch
-        # set-up (shared-memory limits, occupancy), autograd's threads
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_STEPS):
-                warm_up()
-        torch.cuda.current_stream().wait_stream(side)
-        for dst, src in zip(static, saved):
-            dst.copy_(src)
-        ops.set_launch_counts(counts)
-        if prepare is not None:
-            prepare()
+    with record_function(CAPTURE_SPAN):
+        saved = [t.clone() for t in static]
+        counts = ops.launch_counts()
+        try:
+            # warm-up on a side stream: cuDNN's plans, the kernels' first-launch
+            # set-up (shared-memory limits, occupancy), autograd's threads
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_STEPS):
+                    warm_up()
+            torch.cuda.current_stream().wait_stream(side)
+            for dst, src in zip(static, saved):
+                dst.copy_(src)
+            ops.set_launch_counts(counts)
+            if prepare is not None:
+                prepare()
 
-        graph = torch.cuda.CUDAGraph()
-        # torch.cuda.graph empties the allocator's cache as it enters: empty
-        # it first, so that the growth of the reserved memory is the graph's
-        # pool
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        # thread_local: a runner's producer thread pins and copies the next
-        # batch meanwhile, on the default stream
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            out = capture()
-        pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        launches = {name: n - counts[name] for name, n in ops.launch_counts().items()}
-    finally:
-        ops.set_launch_counts(counts)
+            graph = torch.cuda.CUDAGraph()
+            # torch.cuda.graph empties the allocator's cache as it enters: empty
+            # it first, so that the growth of the reserved memory is the graph's
+            # pool
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            # thread_local: a runner's producer thread pins and copies the next
+            # batch meanwhile, on the default stream
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                out = capture()
+            pool_bytes = torch.cuda.memory_reserved(device) - reserved
+            launches = {name: n - counts[name] for name, n in ops.launch_counts().items()}
+        finally:
+            ops.set_launch_counts(counts)
     return graph, out, launches, pool_bytes
 
 

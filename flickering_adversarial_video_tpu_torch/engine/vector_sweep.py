@@ -41,11 +41,21 @@ runs slots / W of them over its own share of the videos, with no collective
 rank r gets videos r, r + W, r + 2W, ... of the whole list, and video j of
 its share keeps the seed of its place in the whole list (r + W j), so its
 initial draw and result do not depend on W.
+
+A torch.profiler trace of a call shows the host's side of it in spans
+(``SPANS``): the call, and inside it, one after another, each clean check
+(``candidate``), each slot filled or parked (``refill``), each chunk's
+replays and its capture (``chunk``), the chunk's read of its outputs
+(``read``), the per-slot history of its rows (``history``) and each
+finished slot's result (``result``).  No span is opened inside the captured
+iteration or a per-slot loop, and none reads the device.  Host counts of the
+same work (``sweep_counts``, ``COUNTS``) add up over the process.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from collections import deque
@@ -54,6 +64,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..attack import perturbation as pert_lib
 from . import sweep as sweep_lib
@@ -68,6 +79,26 @@ HISTORY_BYTES = 8 << 30
 _METRICS = ("total_loss", "adv_loss", "reg_loss", "norm_reg", "diff_norm_reg",
             "laplacian_norm_reg", "prob_to_min", "prob_to_max", "thickness", "roughness",
             "is_adversarial", "probs")
+# spans a torch.profiler trace of a sweep call shows (the host's side; a
+# span's device work is what it enqueues)
+SPANS = ("vector_sweep/call", "vector_sweep/candidate", "vector_sweep/refill",
+         "vector_sweep/chunk", "vector_sweep/read", "vector_sweep/history", "vector_sweep/result")
+(CALL_SPAN, CANDIDATE_SPAN, REFILL_SPAN, CHUNK_SPAN, READ_SPAN, HISTORY_SPAN,
+ RESULT_SPAN) = SPANS
+# the sweep's host counts: calls; chunks; iterations (graph replays or eager
+# iterations); slot_iterations (iterations x this rank's slots) and the live
+# slots' share of them; slots refilled and parked; results
+COUNTS = ("calls", "chunks", "iterations", "slot_iterations", "live_slot_iterations", "refills",
+          "parks", "results")
+_counts = dict.fromkeys(COUNTS, 0)
+
+
+def sweep_counts() -> Dict[str, int]:
+    return dict(_counts)
+
+
+def reset_sweep_counts() -> None:
+    _counts.update(dict.fromkeys(COUNTS, 0))
 
 
 @dataclasses.dataclass
@@ -155,11 +186,13 @@ class VectorSweepEngine:
                   state.done):
             t[i] = 0
         state.max_norm[i] = max_norm
+        _counts["refills"] += 1
         return state
 
     def park_slot(self, state: SlotState, i: int) -> SlotState:
         """Slot i marked done (the queue is empty): it keeps its state."""
         state.done[i] = True
+        _counts["parks"] += 1
         return state
 
     def chunk_that_fits(self, chunk: int) -> int:
@@ -225,20 +258,24 @@ class VectorSweepEngine:
         tensors) and the outputs are views of the graph's buffers, which the
         next chunk overwrites.  `eager` runs the iterations eagerly in place
         (the CPU's way; on the card the reference the graph is held to)."""
-        scalars = self.engine._step_scalars(flags, None)
-        given = state.tensors() + (videos, labels, seeds)
-        iterate = partial(self._iterate, packed, scalars)
-        if eager or not self.engine.graphed:
-            outs = [iterate(*given) for _ in range(chunk)]
-            return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
-        if self._graph is None:
-            self._graph = SlotGraph(iterate, given, chunk)
-        for static, t in zip(self._graph.static, given):
-            if (t.shape, t.dtype) != (static.shape, static.dtype):
-                raise ValueError(f"slot tensor {tuple(t.shape)} {t.dtype} does not match the "
-                                 f"graph's {tuple(static.shape)} {static.dtype}")
-        ys = self._graph.run(given, chunk)
-        return SlotState(*self._graph.static[:len(given) - 3]), ys
+        _counts["chunks"] += 1
+        _counts["iterations"] += chunk
+        _counts["slot_iterations"] += chunk * self.slots
+        with record_function(CHUNK_SPAN):
+            scalars = self.engine._step_scalars(flags, None)
+            given = state.tensors() + (videos, labels, seeds)
+            iterate = partial(self._iterate, packed, scalars)
+            if eager or not self.engine.graphed:
+                outs = [iterate(*given) for _ in range(chunk)]
+                return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+            if self._graph is None:
+                self._graph = SlotGraph(iterate, given, chunk)
+            for static, t in zip(self._graph.static, given):
+                if (t.shape, t.dtype) != (static.shape, static.dtype):
+                    raise ValueError(f"slot tensor {tuple(t.shape)} {t.dtype} does not match "
+                                     f"the graph's {tuple(static.shape)} {static.dtype}")
+            ys = self._graph.run(given, chunk)
+            return SlotState(*self._graph.static[:len(given) - 3]), ys
 
     def graph_stats(self) -> Dict[str, float]:
         """The slot graph's pool bytes and capture seconds; empty without one."""
@@ -275,10 +312,26 @@ def _global_index(mesh, j: int) -> int:
     return j if mesh is None else mesh.rank + mesh.world * j
 
 
-def _host(ys: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.cpu().numpy() for k, v in ys.items()}
+def _read_chunk(state: SlotState, ys: Dict[str, torch.Tensor]):
+    """A chunk's outputs and the slots' done and fooled flags, on the host."""
+    with record_function(READ_SPAN):
+        host = {k: v.cpu().numpy() for k, v in ys.items()}
+        done, fooled = state.done.cpu().numpy(), state.fooled.cpu().numpy()
+    _counts["live_slot_iterations"] += int(host["active"].sum())
+    return host, done, fooled
 
 
+def _call(fn):
+    """`fn`, a sweep, as one counted CALL_SPAN."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        _counts["calls"] += 1
+        with record_function(CALL_SPAN):
+            return fn(*args, **kwargs)
+    return call
+
+
+@_call
 def vector_single_video_attacks(
     engine: AttackEngine,
     clips: List[np.ndarray],
@@ -312,6 +365,7 @@ def vector_single_video_attacks(
     out: List[Optional[Dict[str, Any]]] = [None] * len(clips)
     queue = deque(range(len(clips)))
 
+    @record_function(CANDIDATE_SPAN)
     def next_candidate():
         while queue:
             k = queue.popleft()
@@ -333,6 +387,7 @@ def vector_single_video_attacks(
     inputs = _slot_inputs(engine, vse.slots, first[2])
     slot_meta: List[Optional[Dict[str, Any]]] = [None] * vse.slots
 
+    @record_function(REFILL_SPAN)
     def fill(i, cand):
         if cand is None:
             vse.park_slot(state, i)
@@ -353,61 +408,66 @@ def vector_single_video_attacks(
 
     while any(m is not None for m in slot_meta):
         state, ys = vse.run_chunk(state, *inputs[:3], flags, chunk, packed=inputs[3])
-        ys = _host(ys)
-        done, fooled = state.done.cpu().numpy(), state.fooled.cpu().numpy()
+        ys, done, fooled = _read_chunk(state, ys)
+        with record_function(HISTORY_SPAN):
+            for i, meta in enumerate(slot_meta):
+                if meta is None:
+                    continue
+                ran = np.nonzero(ys["active"][:, i])[0]
+                if track_history:
+                    h = meta["hist"]
+                    for t in ran:
+                        for key in ("total_loss", "adv_loss", "reg_loss", "norm_reg",
+                                    "diff_norm_reg"):
+                            h[key].append(float(ys[key][t, i]))
+                        # in percent of the [-1, 1] range
+                        h["thickness"].append(float(ys["thickness"][t, i]) / 2.0 * 100)
+                        h["roughness"].append(float(ys["roughness"][t, i]) / 2.0 * 100)
+                        h["perturbation"].append(ys["delta_post"][t, i])
+                        if "probs" in ys:
+                            # [1, K], as a batch of one
+                            h["softmax"].append(ys["probs"][t, i][None])
+                meta["steps_run"] += len(ran)
         for i, meta in enumerate(slot_meta):
-            if meta is None:
+            if meta is None or not done[i]:
                 continue
-            ran = np.nonzero(ys["active"][:, i])[0]
-            if track_history:
-                h = meta["hist"]
-                for t in ran:
-                    for key in ("total_loss", "adv_loss", "reg_loss", "norm_reg",
-                                "diff_norm_reg"):
-                        h[key].append(float(ys[key][t, i]))
-                    # in percent of the [-1, 1] range
-                    h["thickness"].append(float(ys["thickness"][t, i]) / 2.0 * 100)
-                    h["roughness"].append(float(ys["roughness"][t, i]) / 2.0 * 100)
-                    h["perturbation"].append(ys["delta_post"][t, i])
-                    if "probs" in ys:
-                        h["softmax"].append(ys["probs"][t, i][None])  # [1, K], as a batch of one
-            meta["steps_run"] += len(ran)
-            if not done[i]:
-                continue
-            k, h = meta["k"], meta["hist"]
-            delta = state.delta[i].cpu().numpy().copy()  # the state lives on: a copy
-            dt = time.perf_counter() - meta["t0"]
-            out[k] = {
-                "correct_cls_id": labels_true[k],
-                "correct_cls_prob": float(meta["clean"].max()),
-                "softmax_init": meta["clean"],
-                "rgb_sample": meta["video"],
-                "total_loss_l": h["total_loss"],
-                "adv_loss_l": h["adv_loss"],
-                "reg_loss_l": h["reg_loss"],
-                "norm_reg_loss_l": h["norm_reg"],
-                "diff_norm_reg_loss_l": h["diff_norm_reg"],
-                "perturbation": h["perturbation"],
-                "adv_video": engine.adversarial_video(
-                    torch.as_tensor(delta), meta["batch"], flags).cpu().numpy(),
-                "softmax": h["softmax"],
-                # the sequential loop's `step` at its break: executed - 1
-                "total_steps": meta["steps_run"] - 1,
-                "beta_0": float(flags.beta0),
-                "beta_1": float(flags.beta1),
-                "beta_2": float(flags.beta2),
-                "beta_3": float(flags.beta3),
-                "fatness": h["thickness"],
-                "smoothness": h["roughness"],
-                "is_adversarial": bool(fooled[i]),
-                "final_delta": delta,
-                "steps_per_sec": meta["steps_run"] / dt if dt > 0 else 0.0,
-            }
+            with record_function(RESULT_SPAN):
+                k, h = meta["k"], meta["hist"]
+                delta = state.delta[i].cpu().numpy().copy()  # the state lives on: a copy
+                dt = time.perf_counter() - meta["t0"]
+                out[k] = {
+                    "correct_cls_id": labels_true[k],
+                    "correct_cls_prob": float(meta["clean"].max()),
+                    "softmax_init": meta["clean"],
+                    "rgb_sample": meta["video"],
+                    "total_loss_l": h["total_loss"],
+                    "adv_loss_l": h["adv_loss"],
+                    "reg_loss_l": h["reg_loss"],
+                    "norm_reg_loss_l": h["norm_reg"],
+                    "diff_norm_reg_loss_l": h["diff_norm_reg"],
+                    "perturbation": h["perturbation"],
+                    "adv_video": engine.adversarial_video(
+                        torch.as_tensor(delta), meta["batch"], flags).cpu().numpy(),
+                    "softmax": h["softmax"],
+                    # the sequential loop's `step` at its break: executed - 1
+                    "total_steps": meta["steps_run"] - 1,
+                    "beta_0": float(flags.beta0),
+                    "beta_1": float(flags.beta1),
+                    "beta_2": float(flags.beta2),
+                    "beta_3": float(flags.beta3),
+                    "fatness": h["thickness"],
+                    "smoothness": h["roughness"],
+                    "is_adversarial": bool(fooled[i]),
+                    "final_delta": delta,
+                    "steps_per_sec": meta["steps_run"] / dt if dt > 0 else 0.0,
+                }
+            _counts["results"] += 1
             slot_meta[i] = None
             fill(i, next_candidate())
     return out
 
 
+@_call
 def vector_fit_many_videos(
     engine: AttackEngine,
     batches: Iterable[Dict[str, np.ndarray]],
@@ -443,6 +503,7 @@ def vector_fit_many_videos(
     batch_iter = iter(batches)
     vid_counter = -1
 
+    @record_function(CANDIDATE_SPAN)
     def next_candidate():
         """The next (seed, device batch, true labels, dest, clean probs) past
         the ledger and the clean check."""
@@ -484,6 +545,7 @@ def vector_fit_many_videos(
     inputs = _slot_inputs(engine, vse.slots, first[1])
     slot_meta: List[Optional[Dict[str, Any]]] = [None] * vse.slots
 
+    @record_function(REFILL_SPAN)
     def fill(i, cand):
         if cand is None:
             vse.park_slot(state, i)
@@ -504,44 +566,47 @@ def vector_fit_many_videos(
                                         "roughness")))
     while any(m is not None for m in slot_meta):
         state, ys = vse.run_chunk(state, *inputs[:3], flags, chunk, packed=inputs[3])
-        ys = _host(ys)
-        done, fooled = state.done.cpu().numpy(), state.fooled.cpu().numpy()
+        ys, done, fooled = _read_chunk(state, ys)
+        with record_function(HISTORY_SPAN):
+            for i, meta in enumerate(slot_meta):
+                if meta is None:
+                    continue
+                ran = np.nonzero(ys["active"][:, i])[0]
+                if track_history:
+                    h = meta["hist"]
+                    for t in ran:
+                        for key, src in read.items():
+                            h[key].append(float(ys[src][t, i]))
+                        mn = float(ys["max_norm"][t, i])
+                        h["perturbation"].append(np.clip(ys["delta_post"][t, i], -mn, mn))
+                        h["is_adversarial"].append(bool(ys["is_adversarial"][t, i]))
+                meta["steps_run"] += len(ran)
         for i, meta in enumerate(slot_meta):
-            if meta is None:
+            if meta is None or not done[i]:
                 continue
-            ran = np.nonzero(ys["active"][:, i])[0]
-            if track_history:
-                h = meta["hist"]
-                for t in ran:
-                    for key, src in read.items():
-                        h[key].append(float(ys[src][t, i]))
-                    mn = float(ys["max_norm"][t, i])
-                    h["perturbation"].append(np.clip(ys["delta_post"][t, i], -mn, mn))
-                    h["is_adversarial"].append(bool(ys["is_adversarial"][t, i]))
-            meta["steps_run"] += len(ran)
-            if not done[i]:
-                continue
-            mn = float(state.max_norm[i])
-            final_pert = np.clip(state.delta[i].cpu().numpy(), -mn, mn)
-            dt = time.perf_counter() - meta["t0"]
-            result = {
-                **meta["hist"],
-                "perturbation/inf_norm": float(np.abs(final_pert).max()),
-                "prob_clean_input": meta["clean"],
-                "label": meta["label"],
-                "final_max_norm": mn,
-                "escalations": int(state.chances[i]),
-                "steps_per_sec": meta["steps_run"] / dt if dt > 0 else 0.0,
-            }
-            if not track_history:
-                result["is_adversarial"] = [bool(fooled[i])]
-                result["perturbation"] = [final_pert]
-            if save:
-                np.save(meta["dest"], result)
-            # the ledger's verdict, as the sequential sweep's: any() over the
-            # history (a clip fooled on the way counts)
-            results.append((meta["dest"], bool(np.asarray(result["is_adversarial"]).any())))
+            with record_function(RESULT_SPAN):
+                mn = float(state.max_norm[i])
+                final_pert = np.clip(state.delta[i].cpu().numpy(), -mn, mn)
+                dt = time.perf_counter() - meta["t0"]
+                result = {
+                    **meta["hist"],
+                    "perturbation/inf_norm": float(np.abs(final_pert).max()),
+                    "prob_clean_input": meta["clean"],
+                    "label": meta["label"],
+                    "final_max_norm": mn,
+                    "escalations": int(state.chances[i]),
+                    "steps_per_sec": meta["steps_run"] / dt if dt > 0 else 0.0,
+                }
+                if not track_history:
+                    result["is_adversarial"] = [bool(fooled[i])]
+                    result["perturbation"] = [final_pert]
+                if save:
+                    np.save(meta["dest"], result)
+                # the ledger's verdict, as the sequential sweep's: any() over
+                # the history (a clip fooled on the way counts)
+                results.append((meta["dest"], bool(np.asarray(result["is_adversarial"]).any())))
             stats["attacked"] += 1
+            _counts["results"] += 1
             slot_meta[i] = None
             fill(i, next_candidate())
     return {**stats, "results": results}

@@ -1,8 +1,11 @@
 """Profiling hooks (SURVEY.md section 5.1: the reference's only profiler is a
 commented-out ProfilerHook; here tracing is first-class).
 
-The port's own copy of the JAX package's ``utils/profiling.py``, on
-``torch.profiler``.  Usage:
+The port's own copy of the JAX package's ``utils/profiling.py`` trace, on
+``torch.profiler``; the port names its sections with ``record_function``
+spans (``engine/loops.py``, ``engine/vector_sweep.py``,
+``engine/step_graph.py``), which the trace shows, and has no section timer.
+Usage:
 
     with trace_steps("/tmp/trace"):
         for _ in range(20):
@@ -15,7 +18,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 from typing import Iterator
 
 
@@ -39,18 +41,3 @@ def trace_steps(log_dir: str, device=None) -> Iterator[None]:
         if ProfilerActivity.CUDA in activities:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class Timer:
-    """Lightweight wall-clock section timer."""
-
-    def __init__(self):
-        self.sections = {}
-
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.sections[name] = self.sections.get(name, 0.0) + time.perf_counter() - t0

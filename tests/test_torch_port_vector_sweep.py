@@ -4,7 +4,9 @@ the port's own sequential sweeps (``engine/sweep.fit_many_videos``,
 ``engine/loops.single_video_attack``), with its pieces: the per-slot
 regularizers, metrics, losses and perturbations, kernel B7's and kernel B8's
 per-clip plain forms, the slotted packed head, the slot step (also through
-B8's per-clip form), and the two runners' slots.
+B8's per-clip form), the two runners' slots, and the sweep's spans and counts
+with the benchmark's readers of them (``port_bench/spans.py``,
+``port_bench/metrics/slot_useful_pct.py``).
 
 The sweeps run on linear victims (the clip's mean colour times a fixed [3,
 40] matrix), as the JAX package's tests/test_vector_sweep.py builds them, in
@@ -26,6 +28,7 @@ import contextlib
 import dataclasses
 import io
 import os
+from collections import Counter
 from unittest import mock
 
 import jax
@@ -67,6 +70,9 @@ from flickering_adversarial_video_tpu_torch.runners import torch_per_video as tp
 from flickering_adversarial_video_tpu_torch.utils import config as tconfig
 from flickering_adversarial_video_tpu_torch.utils.labels import kinetics400_labels
 from flickering_adversarial_video_tpu_torch.viz.results import load_result
+from port_bench import spans as bench_spans
+from port_bench import trace as bench_trace
+from port_bench.metrics import slot_useful_pct
 
 FRAMES, SIZE, K = 4, 8, 40
 N_ITER = 6
@@ -804,6 +810,132 @@ class TestAgainstSequentialPort:
         assert set(v) == set(s) and v["loss/total"] == []
         assert v["is_adversarial"] == [s["is_adversarial"][-1]]
         np.testing.assert_allclose(v["perturbation"][0], s["perturbation"][-1], atol=1e-4)
+
+
+# ---------------- spans and counts ----------------
+
+def _sweep_call(world, tmp_path, window=contextlib.nullcontext):
+    """One call of the world's sweep on the linear victim (3 clips, 2 slots,
+    chunks of 3) inside `window()`: (each clip's result, the (slots, chunk)
+    of each chunk run, the counts the call added)."""
+    chunks = []
+    run_chunk = tvs.VectorSweepEngine.run_chunk
+
+    def spy(self, state, videos, labels, seeds, flags, chunk, **kw):
+        chunks.append((self.slots, chunk))
+        return run_chunk(self, state, videos, labels, seeds, flags, chunk, **kw)
+
+    if world == "tanh":
+        _, te = tanh_engines()
+        clips, labels = tanh_clips(3)
+    else:
+        _, te = meanstd_engines()
+        batches = self_labelled(3)
+    before = tvs.sweep_counts()
+    with mock.patch.object(tvs.VectorSweepEngine, "run_chunk", spy), window():
+        if world == "tanh":
+            res = tvs.vector_single_video_attacks(te, clips, labels, RuntimeFlags(), slots=2,
+                                                  chunk=3, max_step=5)
+        else:
+            tvs.vector_fit_many_videos(te, batches, RuntimeFlags(max_norm=0.2),
+                                       model_dir=str(tmp_path), label_names=LABEL_NAMES,
+                                       slots=2, chunk=3, n_iter=N_ITER)
+    if world != "tanh":
+        res = [_load(str(tmp_path), b) for b in batches]
+    after = tvs.sweep_counts()
+    return res, chunks, {k: after[k] - before[k] for k in after}
+
+
+def _profiled():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+WORLDS = ("tanh", "meanstd")
+
+
+class TestSpansAndCounts:
+    @pytest.mark.parametrize("world", WORLDS)
+    def test_a_call_shows_its_spans_one_after_another(self, world, tmp_path):
+        prof = _profiled()
+        res, chunks, counts = _sweep_call(world, tmp_path, lambda: prof)
+        spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                       if e.name in tvs.SPANS)
+        n = Counter(name for _, _, name in spans)
+        assert n[tvs.CALL_SPAN] == 1
+        assert n[tvs.CHUNK_SPAN] == n[tvs.READ_SPAN] == n[tvs.HISTORY_SPAN] == len(chunks) > 1
+        assert n[tvs.RESULT_SPAN] == sum(r is not None for r in res) == 3
+        # each slot filled at the start and again after each result: the
+        # clips' refills and then a park a slot
+        assert n[tvs.REFILL_SPAN] == n[tvs.CANDIDATE_SPAN] == 2 + 3
+        assert n[tvs.REFILL_SPAN] == counts["refills"] + counts["parks"]
+        (c0, c1, _), = [s for s in spans if s[2] == tvs.CALL_SPAN]
+        children = [s for s in spans if s[2] != tvs.CALL_SPAN]
+        assert c0 <= children[0][0] and children[-1][1] <= c1
+        for (_, end, a), (start, _, b) in zip(children, children[1:]):
+            assert end <= start, (a, b)
+
+    @pytest.mark.parametrize("world", WORLDS)
+    def test_a_call_counts_its_work(self, world, tmp_path):
+        res, chunks, counts = _sweep_call(world, tmp_path)
+        if world == "tanh":
+            steps = [r["total_steps"] + 1 for r in res]
+        else:
+            steps = [len(r["loss/total"]) for r in res]
+        assert counts == {
+            "calls": 1, "chunks": len(chunks), "iterations": sum(c for _, c in chunks),
+            "slot_iterations": sum(s * c for s, c in chunks), "live_slot_iterations": sum(steps),
+            "refills": 3, "parks": 2, "results": 3}
+        assert 0 < counts["live_slot_iterations"] < counts["slot_iterations"]
+
+    @pytest.mark.parametrize("world", WORLDS)
+    def test_results_are_the_same_under_the_profiler(self, world, tmp_path):
+        plain, _, _ = _sweep_call(world, tmp_path / "plain")
+        traced, _, _ = _sweep_call(world, tmp_path / "traced", _profiled)
+        for p, t in zip(plain, traced):
+            # steps_per_sec is the host clock's
+            assert set(p) == set(t)
+            for key in set(p) - {"steps_per_sec"}:
+                np.testing.assert_equal(t[key], p[key], err_msg=key)
+
+    def test_span_reader_on_a_cpu_profile(self, tmp_path):
+        """With no device event in the window, the idle time inside a span
+        is its time inside the window."""
+        prof = _profiled()
+
+        @contextlib.contextmanager
+        def window():
+            with prof, torch.profiler.record_function(bench_trace.WINDOW_SPAN):
+                yield
+
+        _sweep_call("tanh", tmp_path, window)
+        got = bench_spans.read(prof)
+        events = list(prof.events())
+        [w] = [e for e in events if e.name == bench_trace.WINDOW_SPAN]
+        want = {}
+        for e in events:
+            if e.name in tvs.SPANS:
+                s = want.setdefault(e.name, {"n": 0, "host_s": 0.0})
+                s["n"] += 1
+                s["host_s"] += (min(e.time_range.end, w.time_range.end)
+                                - max(e.time_range.start, w.time_range.start)) / 1e6
+        assert set(got) == set(want) == set(tvs.SPANS)
+        for name, s in got.items():
+            assert s["n"] == want[name]["n"]
+            np.testing.assert_allclose(s["host_s"], want[name]["host_s"], rtol=1e-12)
+            np.testing.assert_allclose(s["idle_s"], s["host_s"], rtol=1e-12)
+            assert s["bubble_s"] == 0.0  # one gap, the whole window
+        assert bench_spans.program_spans() == tvs.SPANS + ("step_graph/capture",)
+
+    def test_slot_useful_pct_reads_the_counts(self, tmp_path, monkeypatch):
+        tvs.reset_sweep_counts()
+        assert tvs.sweep_counts() == dict.fromkeys(tvs.COUNTS, 0)
+        assert slot_useful_pct.read({"mix": "sweep"}) is None  # no sweep ran
+        _, _, counts = _sweep_call("meanstd", tmp_path)
+        assert slot_useful_pct.read({"mix": "sweep"}) == pytest.approx(
+            100.0 * counts["live_slot_iterations"] / counts["slot_iterations"], rel=1e-12)
+        assert slot_useful_pct.read({"mix": "universal"}) is None
+        monkeypatch.delattr(tvs, "sweep_counts")  # a program without the counts
+        assert slot_useful_pct.read({"mix": "sweep"}) is None
 
 
 # ---------------- against the JAX package's vector sweep ----------------
