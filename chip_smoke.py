@@ -158,17 +158,24 @@ which fails the run:
    against B1's plain version; then through the single-video runner, which
    refuses the Logits' unsqueezable 3x3 map after B1 ran (the JAX package's
    model raises there too);
-16. the torch world (no kernel of the port on its path: every wrapper's
-   count stays 0): each video ResNet at the reference's cell (r3d_18 B=16,
+16. the torch world (no kernel of the port on its path but B12, the
+   batch-norm epilogue: every other wrapper's count stays 0): each video ResNet at the reference's cell (r3d_18 B=16,
    mc3_18 B=20, r2plus1d_18 B=16, each 16x112x112 uint8; r2plus1d_34 B=16,
    32x112x112), bf16, seeded torchvision-layout weights written to a .pth and
    loaded through ``build_victim``: 3 graphed ``train_step`` calls (max_norm
    escalated x1.3 before the third: no new graph) and a graphed
-   ``train_eval_step`` against the eager steps, bit for bit; graphed and
-   eager ms a step, the graphs' pools and the eager peak; for r2plus1d_18,
-   under torch.profiler, kernel ms a step by group, the busy share, the
-   stem's forward and input-gradient ms, the convolutions by shape, and no
-   kernel of ``ops.kernels.KERNEL_SYMBOLS`` in the trace; then
+   ``train_eval_step`` against the eager steps, bit for bit; one eager
+   train step launching B12 once each way for each batch-norm (20, 20, 37,
+   69) and nothing else of the port; graphed and eager ms a step, the
+   graphs' pools and the eager peak; for r2plus1d_18, under torch.profiler,
+   kernel ms a step by group, the busy share, the stem's forward and
+   input-gradient ms, the convolutions by shape, 37 B12 launches each way a
+   graphed step on the device and no other kernel of
+   ``ops.kernels.KERNEL_SYMBOLS`` in the trace; (16c) B12 forward and
+   backward bit-equal to their plain versions at layer1's [16,16,56,56,144]
+   and at the stem's 45 channels, in bf16 and f32, each epilogue, on grids
+   holding NaN, +-inf and -0, and timed at layer1's shape beside the bound
+   and the plain version (B12's rows of the kernel table); then
    ``runners.torch_universal`` on r2plus1d_18 (2 epochs of 4 train and 2
    valid batches, a resume to epoch 3, the .npy schema), with
    ``VideoDataset._decode`` replaced by seeded uint8 frames (the card has no
@@ -283,7 +290,8 @@ Before phase 1 it prints ``utils.system.system_info()`` and
 
 Prints the kernel table as one JSON line (a kernel's launches: those that ran
 on the device in phase 3's traced run of its path; B7c's, B7's kernel at the
-slot step's shape, and B8c's in phase 17's), then as the last line
+slot step's shape, and B8c's in phase 17's; B12's a graphed r2plus1d_18
+step's, counted in phase 16), then as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero, printing no result, without CUDA or outside the repository.
 """
@@ -478,6 +486,12 @@ def graph_stats(engine) -> str:
                      for key, st in engine.graph_stats().items())
 
 
+def read_b12(ops) -> dict:
+    """The launch counts of B12, the video ResNets' batch-norm epilogue."""
+    return {name.split()[0]: n for name, n in ops.launch_counts().items()
+            if name.split()[0] in ("B12f", "B12b")}
+
+
 def read_counts(ops) -> dict:
     """The wrappers' launch counts by kernel, B1..B9 and B8c (B7's launches
     with a delta a clip, which B7's count includes and which it also counts
@@ -511,6 +525,12 @@ def scaled(counts: dict, k: int, plus: dict = None) -> dict:
 RESNET_CELLS = (("r3d_18", 16, 16), ("mc3_18", 20, 16), ("r2plus1d_18", 16, 16),
                 ("r2plus1d_34", 16, 32))
 RESNET_SIZE, RESNET_SEED = 112, 1
+# each variant's batch-norms: a train step runs B12 once each way for each
+RESNET_BNS = {"r3d_18": 20, "mc3_18": 20, "r2plus1d_18": 37, "r2plus1d_34": 69}
+# B12's kernel-table shapes: layer1 of r2plus1d_18 at B=16, 16x112x112 (the
+# (1,3,3) convs' 144 channels, the row's timed shape), and the stem's 45
+# channels, which do not divide a vector
+BN_SHAPES = ((16, 16, 56, 56, 144), (16, 16, 56, 56, 45))
 # the escalating bound of the graphed-vs-eager steps: the third step's is
 # 1.3 times the first two's (lr 1e-3: delta reaches it by the third step)
 RESNET_MAX_NORMS = (0.0015, 0.0015, 0.00195)
@@ -530,8 +550,9 @@ SWEEP_KEYS = {"loss/total", "loss/adv_loss", "loss/reg_loss", "perturbation/thic
 def torch_world_phase(tmp: str, dev) -> dict:
     """Phase 16: the torch world (the video ResNets, the mean/std attack,
     the epoch fit, the per-video sweep and the YAML runner) at full width.
-    No kernel of the port lies on this path: each wrapper's count must stay 0
-    and no kernel of ``ops.kernels.KERNEL_SYMBOLS`` may run in a traced step.
+    No kernel of the port lies on this path but the batch-norm epilogue B12:
+    each B1-B9 wrapper's count must stay 0 and no other kernel of
+    ``ops.kernels.KERNEL_SYMBOLS`` may run in a traced step.
     Returns the per-video sweep's set-up and results (phase 17 runs it again
     with slots)."""
     import numpy as np
@@ -554,7 +575,8 @@ def torch_world_phase(tmp: str, dev) -> dict:
     from flickering_adversarial_video_tpu_torch.utils.config import load_config
 
     t_phase = time.perf_counter()
-    symbols = [s for names in kernels.KERNEL_SYMBOLS.values() for s in names]
+    symbols = [s for launcher, names in kernels.KERNEL_SYMBOLS.items()
+               if launcher not in ("fav_bn_epilogue_fwd", "fav_bn_epilogue_bwd") for s in names]
     meanstd = AttackConfig(norm_world="meanstd", reg_weighting="torch")
     zero = {name: 0 for name in NAMES}
 
@@ -632,6 +654,17 @@ def torch_world_phase(tmp: str, dev) -> dict:
         if counts != zero:
             fail(f"{variant}: a kernel of the port was launched on the torch-world path")
         del results, tr, te
+        ops.reset_launch_counts()
+        e = AttackEngine(model, spec, meanstd, track_probs=True)
+        e._train_step(e.init_state(), *e.prepare_batch(batch), flags[0])
+        torch.cuda.synchronize()
+        b12, counts = read_b12(ops), read_counts(ops)
+        n_bn = RESNET_BNS[variant]
+        print(f"[torch world] {variant}: one eager train step launched B12 {b12} (one each way "
+              f"for each of its {n_bn} batch-norms) and B1-B9 {counts}", flush=True)
+        if b12 != {"B12f": n_bn, "B12b": n_bn} or counts != zero:
+            fail(f"{variant}: a train step's launches are not one B12 each way a batch-norm")
+        del e
 
         engine = AttackEngine(model, spec, meanstd, track_probs=True)
         state = engine.init_state()
@@ -661,6 +694,10 @@ def torch_world_phase(tmp: str, dev) -> dict:
             busy = sum(r[0] for r in rows)
             conv = sum(r[0] for r in rows if any(m in r[2].lower() for m in CONV_MARKS))
             clean = no_port_kernels(prof)
+            b12_rows = {k: [r for r in rows if sym in r[2]] for k, sym in (
+                ("B12f", "bn_epilogue_fwd_kernel"), ("B12b", "bn_epilogue_bwd_kernel"))}
+            b12 = {k: sum(r[1] for r in v) for k, v in b12_rows.items()}
+            b12_ms = sum(r[0] for v in b12_rows.values() for r in v)
             x = engine._normalize(video).to(torch.bfloat16)
             w = model.stem[0].weight
             g = torch.randn(stem_conv_packed(x, w).shape, device=dev).bfloat16()
@@ -690,10 +727,13 @@ def torch_world_phase(tmp: str, dev) -> dict:
             print(f"[profile] torch world {variant}: the stem's first conv (space-to-depth "
                   f"packed, {list(x.shape)} -> {list(g.shape)}) forward {fwd_ms:.3f} ms, input "
                   f"gradient {both_ms - fwd_ms:.3f} ms ({both_ms / min(graph_ms):.1%} of the "
-                  f"graphed step); no kernel of the port ran in the traced steps: {clean}",
+                  f"graphed step); no kernel of the port but B12 ran in the traced steps: "
+                  f"{clean}; B12 on the device, launches a step {b12}, {b12_ms:.3f} ms a step",
                   flush=True)
             if not clean:
-                fail("a kernel of the port ran in a video-ResNet step")
+                fail("a kernel of the port other than B12 ran in a video-ResNet step")
+            if b12 != {"B12f": RESNET_BNS[variant], "B12b": RESNET_BNS[variant]}:
+                fail(f"{variant}: the graphed step did not run B12 once each way a batch-norm")
             # the convolutions of one eager step by op and input shape
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                          record_shapes=True) as prof:
@@ -899,6 +939,90 @@ def torch_world_phase(tmp: str, dev) -> dict:
         fail("the YAML universal runner on r2plus1d_18: steps, prepack, losses, eval or counts")
     print(f"[time] phase 16 (the torch world) {time.perf_counter() - t_phase:.1f} s", flush=True)
     return sweep_run
+
+
+def bn_epilogue_phase(dev) -> list:
+    """Phase 16c: B12 (``ops/bn_epilogue``) forward and backward against
+    their plain versions, bit for bit, at BN_SHAPES in bf16 and f32, each
+    epilogue (batch-norm + ReLU, batch-norm alone, + residual + ReLU), on
+    grids holding NaN, +-inf and -0; each timed at the first shape in bf16
+    beside its bound.  Returns B12's two rows of the kernel table (the
+    batch-norm + ReLU forward and its backward; launches: a graphed
+    r2plus1d_18 train step's on the device, as phase 16a counted them)."""
+    import torch
+
+    from flickering_adversarial_video_tpu_torch.models.video_resnet import BN_EPS
+    from flickering_adversarial_video_tpu_torch.ops import bn_epilogue as be
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(RESNET_SEED)
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def drawn(shape, dtype):
+        t = torch.randn(shape, device=dev, generator=gen) * 3
+        idx = torch.randint(0, t.numel(), (4, 4096), device=dev, generator=gen)
+        for k, v in enumerate((float("nan"), float("inf"), float("-inf"), -0.0)):
+            t.view(-1)[idx[k]] = v
+        return t.to(dtype)
+
+    smi = card_name_and_limit()
+    rows, timed = [], {}
+    for shape in BN_SHAPES:
+        c = shape[-1]
+        mean, bias = (torch.randn(c, device=dev, generator=gen) * 0.1 for _ in range(2))
+        weight = torch.rand(c, device=dev, generator=gen) + 0.5
+        var = torch.rand(c, device=dev, generator=gen) + 0.5
+        mul = torch.rsqrt(var + BN_EPS) * weight
+        for dtype in (torch.bfloat16, torch.float32):
+            x, res, g = (drawn(shape, dtype) for _ in range(3))
+            n, isz = x.numel(), x.element_size()
+            for name, residual, relu in (("bn+relu", False, True), ("bn", False, False),
+                                         ("bn+residual+relu", True, True)):
+                r = res if residual else None
+                y = be.bn_epilogue_fwd(x, mean, mul, bias, r, relu)
+                saved = y if relu else None
+                dx, dres = be.bn_epilogue_bwd(g, mul, saved, residual)
+                want_dx, want_dres = be.bn_epilogue_bwd_plain(g, mul, saved, residual)
+                ok = (torch.equal(bits(y), bits(be.bn_epilogue_fwd_plain(x, mean, mul, bias, r,
+                                                                           relu)))
+                      and torch.equal(bits(dx), bits(want_dx))
+                      and (not residual or torch.equal(bits(dres), bits(want_dres))))
+                line = f"[bn] B12 {name} {str(dtype)[6:]} {list(shape)}: " + (
+                    "forward and backward bit-equal to their plain versions" if ok else "DIFFERS")
+                if shape == BN_SHAPES[0] and dtype == torch.bfloat16:
+                    # bytes: each input read once, each output written once; the
+                    # forward ~4 f32 operations an element, the backward ~2
+                    fb = ((2 + residual) * n * isz + 3 * c * 4, 4 * n)
+                    bb = ((2 + relu + residual) * n * isz + c * 4, 2 * n)
+                    for key, kern, plain, (nbytes, nops) in (
+                            ("B12f", lambda: be.bn_epilogue_fwd(x, mean, mul, bias, r, relu),
+                             lambda: be.bn_epilogue_fwd_plain(x, mean, mul, bias, r, relu), fb),
+                            ("B12b", lambda: be.bn_epilogue_bwd(g, mul, saved, residual),
+                             lambda: be.bn_epilogue_bwd_plain(g, mul, saved, residual), bb)):
+                        ms = cuda_ms(torch, kern)
+                        plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+                        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, nops / PEAK_F32_FLOPS * 1e3
+                        bound = max(t_bytes, t_ops)
+                        by = "bytes" if t_bytes >= t_ops else "operations"
+                        line += (f"; {key} {ms:.3f} ms (bound {bound:.3f} ms, {by}; "
+                                 f"{bound / ms:.1%} of it), plain {plain_ms:.3f} ms")
+                        timed[(key, name)] = (ms, plain_ms, bound, by)
+                print(line, flush=True)
+                if not ok:
+                    fail(f"B12 {name} {dtype} {list(shape)}: the kernel is not its plain version")
+            del x, res, g, y, dx, dres, want_dx, want_dres, saved
+            torch.cuda.empty_cache()
+    for key, kernel in (("B12f", "bn_epilogue_fwd"), ("B12b", "bn_epilogue_bwd")):
+        ms, plain_ms, bound, by = timed[(key, "bn+relu")]
+        rows.append({"name": f"{key} {kernel}", "route": "cuda",
+                     "source": "flickering_adversarial_video_tpu_torch/csrc/bn_epilogue.cu",
+                     "replaces": None, "launches": RESNET_BNS["r2plus1d_18"], "max_abs_err": 0.0,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None})
+    print(f"[time] phase 16c (B12) {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return rows
 
 
 # phase 17, the vectorized per-video sweep: VS_SLOTS uint8 I3D clips of
@@ -4251,6 +4375,8 @@ def main() -> None:
         del model
         torch.cuda.empty_cache()
         sweep_run = torch_world_phase(tmp, dev)
+        torch.cuda.empty_cache()
+        table.extend(bn_epilogue_phase(dev))
 
         # ---- 17. the vectorized per-video sweep -------------------------------------------
         torch.cuda.empty_cache()

@@ -26,7 +26,10 @@ at use, as ``models/i3d.py``); batch-norm is flax's ``BatchNorm`` with
 running averages: ``(x - mean) * (rsqrt(var + 1e-5) * scale) + bias`` in f32
 (the bf16 input promoted by the f32 statistics), then one cast to the
 compute dtype; the head averages in f32 and rounds once, runs ``fc`` in the
-compute dtype and returns f32 logits.
+compute dtype and returns f32 logits.  Each batch-norm, with the ReLU after
+it and a block's residual add where there is one, is one epilogue: kernel B12
+forward and backward on the card (``ops/bn_epilogue.py``), bit-equal to the
+plain chain.
 
 The stem's first conv (C_in = 3, spatial stride 2) runs as the JAX package's
 default does on an even H and W: space-to-depth packed (C_in 12, a (kt,4,4)
@@ -46,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops.bn_epilogue import bn_epilogue
 from ..ops.space_to_depth import pack_input, pack_kernel_axis
 
 VARIANTS = ("r3d_18", "mc3_18", "r2plus1d_18", "r2plus1d_34")
@@ -133,21 +137,18 @@ class StemConv(Conv3d):
         return stem_conv_plain(x, self.weight)
 
 
-def batch_norm(x: torch.Tensor, weight, bias, mean, var, eps: float = BN_EPS) -> torch.Tensor:
-    """flax ``BatchNorm(use_running_average=True)`` over the last (channel)
-    dim: ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32 (x is
-    promoted by the f32 statistics), then one cast to x's dtype."""
-    mul = torch.rsqrt(var + eps) * weight
-    return ((x - mean) * mul + bias).to(x.dtype)
-
-
 class BatchNorm3d(nn.Module):
     """torchvision ``nn.BatchNorm3d``'s state (``weight``, ``bias``,
     ``running_mean``, ``running_var``, ``num_batches_tracked``), applied as
-    flax's inference batch-norm (:func:`batch_norm`, eps 1e-5)."""
+    flax's inference batch-norm over the last (channel) dim (eps 1e-5), then
+    ReLU where `relu`: one kernel each way on the card (``ops/bn_epilogue``,
+    B12, which also gives the arithmetic), so the ``nn.ReLU`` that
+    torchvision puts after it is an ``nn.Identity`` here (the module
+    indices, hence the state-dict names, stay torchvision's)."""
 
-    def __init__(self, channels, device=None):
+    def __init__(self, channels, device=None, relu: bool = False):
         super().__init__()
+        self.relu = relu
         self.weight = _frozen(torch.ones(channels, device=device))
         self.bias = _frozen(torch.zeros(channels, device=device))
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
@@ -155,7 +156,13 @@ class BatchNorm3d(nn.Module):
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var)
+        return self.epilogue(x, None, self.relu)
+
+    def epilogue(self, x: torch.Tensor, residual, relu: bool) -> torch.Tensor:
+        """relu(bn(x) [+ residual]) where `relu`, else bn(x); a residual
+        only with `relu`."""
+        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
+        return bn_epilogue(x, self.running_mean, mul, self.bias, residual, relu)
 
 
 class Linear(nn.Module):
@@ -175,21 +182,22 @@ def _conv_builder(kind: str, cin: int, cout: int, mid: int, stride: int, device)
         return Conv3d(cin, cout, (1, 3, 3), (1, s, s), (0, 1, 1), device)
     return nn.Sequential(  # 2plus1: torchvision's Conv2Plus1D
         Conv3d(cin, mid, (1, 3, 3), (1, s, s), (0, 1, 1), device),
-        BatchNorm3d(mid, device),
-        nn.ReLU(),
+        BatchNorm3d(mid, device, relu=True),
+        nn.Identity(),
         Conv3d(mid, cout, (3, 1, 1), (s, 1, 1), (1, 0, 0), device),
     )
 
 
 class BasicBlock(nn.Module):
     """torchvision's ``BasicBlock`` (expansion 1); ``_midplanes`` once per
-    block, shared by its two convs."""
+    block, shared by its two convs.  ``conv2``'s batch-norm also adds the
+    residual and applies the block's ReLU, in one epilogue."""
 
     def __init__(self, cin: int, planes: int, kind: str, stride: int = 1, device=None):
         super().__init__()
         mid = _midplanes(cin, planes)
         self.conv1 = nn.Sequential(_conv_builder(kind, cin, planes, mid, stride, device),
-                                   BatchNorm3d(planes, device), nn.ReLU())
+                                   BatchNorm3d(planes, device, relu=True), nn.Identity())
         self.conv2 = nn.Sequential(_conv_builder(kind, planes, planes, mid, 1, device),
                                    BatchNorm3d(planes, device))
         self.downsample = None
@@ -201,7 +209,8 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(self.conv2(self.conv1(x)) + residual)
+        conv, bn = self.conv2
+        return bn.epilogue(conv(self.conv1(x)), residual, True)
 
 
 class VideoResNet(nn.Module):
@@ -218,12 +227,14 @@ class VideoResNet(nn.Module):
         self.variant, self.num_classes, self.compute_dtype = variant, num_classes, compute_dtype
         if variant.startswith("r2plus1d"):
             self.stem = nn.Sequential(
-                StemConv(3, 45, (1, 7, 7), device=device), BatchNorm3d(45, device), nn.ReLU(),
+                StemConv(3, 45, (1, 7, 7), device=device),
+                BatchNorm3d(45, device, relu=True), nn.Identity(),
                 Conv3d(45, 64, (3, 1, 1), padding=(1, 0, 0), device=device),
-                BatchNorm3d(64, device), nn.ReLU())
+                BatchNorm3d(64, device, relu=True), nn.Identity())
         else:
             self.stem = nn.Sequential(
-                StemConv(3, 64, (3, 7, 7), device=device), BatchNorm3d(64, device), nn.ReLU())
+                StemConv(3, 64, (3, 7, 7), device=device),
+                BatchNorm3d(64, device, relu=True), nn.Identity())
         cin = 64
         counts = _LAYER_COUNTS[variant.rsplit("_", 1)[1]]
         for i, (planes, kind, n) in enumerate(zip(_PLANES, convs, counts), start=1):

@@ -2,8 +2,8 @@
 
 
 def kernel_wrappers():
-    """(name, wrapper) of every CUDA kernel of the attack's paths, in order
-    B1..B9; each wrapper carries a `launches` count."""
+    """(name, wrapper) of every CUDA kernel that ports a Pallas kernel of the
+    JAX package, in order B1..B9; each wrapper carries a `launches` count."""
     from .fused_apply import fused_apply_bwd, fused_apply_fwd
     from .packed_apply import emit_adv_mask
     from .pool_s1 import pool333_bwd, pool333_fwd
@@ -30,9 +30,12 @@ def kernel_wrappers():
 def launch_counters():
     """(name, wrapper, attribute) of every launch count: each wrapper's
     `launches`, then the launches with a delta a clip (the vectorized
-    sweep's) of B7 and B8 (their `clip_launches`).  B7's `launches` counts
-    B7c's too (one kernel); B8's counts only the shared delta's, since B8c
-    has kernels of its own."""
+    sweep's) of B7 and B8 (their `clip_launches`), then B12's, the video
+    ResNets' batch-norm epilogue, which ports no Pallas kernel.  B7's
+    `launches` counts B7c's too (one kernel); B8's counts only the shared
+    delta's, since B8c has kernels of its own."""
+    from .bn_epilogue import bn_epilogue_bwd, bn_epilogue_fwd
+
     wrappers = kernel_wrappers()
     by_name = dict(wrappers)
     return tuple((name, fn, "launches") for name, fn in wrappers) + (
@@ -41,6 +44,8 @@ def launch_counters():
          "clip_launches"),
         ("B8cb fused_apply_bwd, a delta a clip", by_name["B8b fused_apply_bwd"],
          "clip_launches"),
+        ("B12f bn_epilogue_fwd", bn_epilogue_fwd, "launches"),
+        ("B12b bn_epilogue_bwd", bn_epilogue_bwd, "launches"),
     )
 
 

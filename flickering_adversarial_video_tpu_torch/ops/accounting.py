@@ -7,7 +7,8 @@ launch it makes on a CUDA tensor, and once for each launch it stands in for
 when it runs its plain version on a CPU tensor, so a tally reads the same
 work whatever computes it.  The tags are the kernel table's names: "B1",
 "B2", "B3", "B4", "B5", "B6", "B7", "B7c" (B7 with a dl a clip), "B8f",
-"B8b", "B8cf", "B8cb" (B8 with a delta a clip), "B9f", "B9b".
+"B8b", "B8cf", "B8cb" (B8 with a delta a clip), "B9f", "B9b", "B12f",
+"B12b" (the video ResNets' batch-norm epilogue).
 
 * Bytes are the port's own definition, the one PERF.md's bound column uses:
   each input read once, each output written once.  The JAX tally counts the

@@ -64,6 +64,11 @@ SIGNATURES = {
     # B8c, delta [B,T,C]: as fav_fused_apply_fwd / _bwd (dd [B,T,C])
     "fav_fused_apply_clips_fwd": (_P,) * 4 + (_I,) * 4 + (_P,),
     "fav_fused_apply_clips_bwd": (_P,) * 6 + (_I,) * 6 + (_P,),
+    # x, residual (or null; then relu is 1), mean, mul, bias, y, n, C, relu, dtype, stream
+    "fav_bn_epilogue_fwd": (_P,) * 6 + (_I,) * 2 + (_D, _D, _P),
+    # g, y (or null: no ReLU), mul, dx, dres (or null: no residual; else y too), n, C, dtype,
+    # stream
+    "fav_bn_epilogue_bwd": (_P,) * 5 + (_I,) * 2 + (_D, _P),
 }
 # the __global__ functions of csrc/ that each launcher starts, as a profiler
 # names them; tests/test_torch_port_kernels.py holds this against csrc/
@@ -82,6 +87,8 @@ KERNEL_SYMBOLS = {
     "fav_fused_apply_clips_fwd": ("fused_apply_clips_fwd_kernel",),
     "fav_fused_apply_clips_bwd": ("fused_apply_clips_bwd_partial_kernel",
                                   "fused_apply_clips_bwd_final_kernel"),
+    "fav_bn_epilogue_fwd": ("bn_epilogue_fwd_kernel",),
+    "fav_bn_epilogue_bwd": ("bn_epilogue_bwd_kernel",),
 }
 
 

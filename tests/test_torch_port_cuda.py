@@ -677,3 +677,161 @@ def _bn_t(gen, c):
         torch.rand(c, generator=gen) * 1.5 + 0.5,
         torch.randn(c, generator=gen),
     )
+
+
+# every channel count of the four video ResNets' batch-norms
+BN_CHANNELS = (45, 64, 128, 144, 230, 256, 288, 460, 512, 576, 921, 1152)
+# (residual added, ReLU); a residual is added only before a ReLU
+BN_EPILOGUES = ((False, True), (False, False), (True, True))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+class TestBNEpilogueOnCard:
+    """B12 (``ops/bn_epilogue``) against its plain path on the card, bit for
+    bit, forward and backward, each epilogue, on grids holding NaN, +-inf and
+    -0; the plain backward against autograd through the plain forward; and
+    the graphed r2plus1d_18 step, which runs B12, against the eager one."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU and nvcc")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    @staticmethod
+    def _inputs(shape, dtype, seed=0, offset=0):
+        """x, residual, g of `shape` (starting `offset` elements into their
+        buffers: offset 1 leaves them unaligned), mean, mul, bias [C]."""
+        from flickering_adversarial_video_tpu_torch.models.video_resnet import BN_EPS
+
+        gen = torch.Generator().manual_seed(seed)
+        c, n = shape[-1], int(np.prod(shape))
+
+        def special(t):
+            idx = torch.randperm(n, generator=gen)[:max(4, n // 50)]
+            for k, v in enumerate((float("nan"), float("inf"), float("-inf"), -0.0)):
+                t[idx[k::4]] = v
+            return t
+
+        def field():
+            buf = special(torch.randn(n, generator=gen) * 3).to(dtype).cuda()
+            return torch.cat([buf.new_zeros(offset), buf])[offset:].view(shape)
+
+        x, res, g = field(), field(), field()
+        x[..., 0].view(-1)[:5] = -0.0  # channel 0: mean 0, bias -0, so -0 reaches the ReLU
+        weight = torch.rand(c, generator=gen) * 1.5 + 0.5
+        weight[min(1, c - 1)] = 0.0
+        bias, mean = torch.randn(c, generator=gen) * 0.1, torch.randn(c, generator=gen) * 0.1
+        bias[0], mean[0] = -0.0, 0.0
+        var = torch.rand(c, generator=gen) + 0.5
+        weight, bias, mean, var = (t.cuda() for t in (weight, bias, mean, var))
+        mul = torch.rsqrt(var + BN_EPS) * weight
+        return x, res, g, mean, mul, bias
+
+    def _check(self, x, res, g, mean, mul, bias):
+        from flickering_adversarial_video_tpu_torch.ops import bn_epilogue as be
+
+        for residual, relu in BN_EPILOGUES:
+            r = res if residual else None
+            before = (be.bn_epilogue_fwd.launches, be.bn_epilogue_bwd.launches)
+            y = be.bn_epilogue_fwd(x, mean, mul, bias, r, relu)
+            assert torch.equal(_bits(y), _bits(be.bn_epilogue_fwd_plain(x, mean, mul, bias, r,
+                                                                         relu)))
+            saved = y if relu else None
+            dx, dres = be.bn_epilogue_bwd(g, mul, saved, residual)
+            want_dx, want_dres = be.bn_epilogue_bwd_plain(g, mul, saved, residual)
+            assert (be.bn_epilogue_fwd.launches, be.bn_epilogue_bwd.launches) == (
+                before[0] + 1, before[1] + 1)
+            assert torch.equal(_bits(dx), _bits(want_dx))
+            assert (dres is None) == (not residual)
+            if residual:
+                assert torch.equal(_bits(dres), _bits(want_dres))
+            # the plain backward is autograd's through the plain forward
+            xa = x.detach().clone().requires_grad_(True)
+            ra = res.detach().clone().requires_grad_(True) if residual else None
+            be.bn_epilogue_fwd_plain(xa, mean, mul, bias, ra, relu).backward(g)
+            assert torch.equal(_bits(xa.grad), _bits(want_dx))
+            if residual:
+                assert torch.equal(_bits(ra.grad), _bits(want_dres))
+        torch.cuda.synchronize()
+
+    @pytest.mark.parametrize("c", BN_CHANNELS)
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_bit_equal_at_every_channel_count(self, dtype, c):
+        """105 positions: for every C that is not a multiple of 8 the
+        element count is not either, so the tail runs."""
+        self._check(*self._inputs((1, 3, 5, 7, c), dtype, seed=c))
+
+    @pytest.mark.parametrize("shape", [(2, 16, 56, 56, 45), (4, 16, 56, 56, 144),
+                                       (1, 1, 1, 1, 921), (1, 1, 7), (3, 5, 45)])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("offset", [0, 1])
+    def test_bit_equal_at_step_shapes_tiny_and_unaligned(self, dtype, shape, offset):
+        """Layer shapes of many vectors a thread (the unrolled loop), counts
+        below one vector, and tensors one element off 16-byte alignment
+        (the element-wise loads and stores)."""
+        x, res, g, mean, mul, bias = self._inputs(shape, dtype, seed=len(shape), offset=offset)
+        assert (x.data_ptr() % 16 == 0) == (offset == 0)
+        self._check(x, res, g, mean, mul, bias)
+
+    def test_launchers_refuse_a_residual_without_relu(self):
+        """The launchers refuse what the wrappers refuse: a residual without
+        ReLU forward, d residual without the saved y backward."""
+        from flickering_adversarial_video_tpu_torch.ops import kernels
+
+        x, res, g, mean, mul, bias = self._inputs((2, 3, 5, 45), torch.bfloat16)
+        y = torch.empty_like(x)
+        code, n, c = kernels.DTYPE_CODE[x.dtype], x.numel(), x.shape[-1]
+        with pytest.raises(RuntimeError, match="fav_bn_epilogue_fwd"):
+            kernels.launch("fav_bn_epilogue_fwd", x.data_ptr(), res.data_ptr(), mean.data_ptr(),
+                           mul.data_ptr(), bias.data_ptr(), y.data_ptr(), n, c, 0, code,
+                           kernels.stream())
+        with pytest.raises(RuntimeError, match="fav_bn_epilogue_bwd"):
+            kernels.launch("fav_bn_epilogue_bwd", g.data_ptr(), 0, mul.data_ptr(), y.data_ptr(),
+                           res.data_ptr(), n, c, code, kernels.stream())
+        torch.cuda.synchronize()
+
+    def test_graphed_resnet_step_equals_eager_and_the_library_loads_first(self, monkeypatch):
+        """Three graphed r2plus1d_18 steps against three eager ones, bit for
+        bit; 37 epilogues each way a step; the kernel library is loaded by
+        the capture's eager warm-up, never inside a capture."""
+        from flickering_adversarial_video_tpu_torch.attack import TorchStyleFlickerSpec
+        from flickering_adversarial_video_tpu_torch.convert import video_resnet_state_dict
+        from flickering_adversarial_video_tpu_torch.models.video_resnet import VideoResNet
+        from flickering_adversarial_video_tpu_torch.ops import kernels
+
+        real, loads = kernels.library, []
+        real.cache_clear()
+
+        def spy():
+            if not real.cache_info().currsize:
+                loads.append(torch.cuda.is_current_stream_capturing())
+            return real()
+
+        monkeypatch.setattr(kernels, "library", spy)
+        model = VideoResNet("r2plus1d_18", G_CLASSES, torch.bfloat16, device="cuda")
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               video_resnet_state_dict("r2plus1d_18", G_CLASSES, 3).items()})
+        engine = AttackEngine(model, TorchStyleFlickerSpec(G_FRAMES),
+                              AttackConfig(norm_world="meanstd", reg_weighting="torch"),
+                              track_probs=True)
+        rng = np.random.default_rng(5)
+        batch = {"video": torch.from_numpy(rng.integers(0, 256, (2, G_FRAMES, 32, 32, 3),
+                                                        dtype=np.uint8)).cuda(),
+                 "labels": torch.from_numpy(rng.integers(0, G_CLASSES, (2,))).cuda()}
+        ops.reset_launch_counts()
+        gs, es = engine.init_state(), engine.init_state()
+        for _ in range(3):
+            gs, gm = engine.train_step(gs, batch)
+            es, em = TestGraphedStep._eager(engine, es, batch)
+            TestGraphedStep._same_state(gs, es)
+            TestGraphedStep._same_metrics(gm, em)
+        assert float(es.delta.abs().max()) > 0 and len(engine.graph_stats()) == 1
+        assert loads == [False]
+        counts = ops.launch_counts()
+        assert counts["B12f bn_epilogue_fwd"] == counts["B12b bn_epilogue_bwd"] == 6 * 37

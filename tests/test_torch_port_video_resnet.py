@@ -31,8 +31,12 @@ from flickering_adversarial_video_tpu_torch.convert import (
     video_resnet_state_dict, write_torchvision_pth)
 from flickering_adversarial_video_tpu_torch.convert.flax_video_resnet import (
     from_flax_variables, to_flax_variables)
+from flickering_adversarial_video_tpu_torch import ops
+from flickering_adversarial_video_tpu_torch.attack import TorchStyleFlickerSpec
+from flickering_adversarial_video_tpu_torch.engine import AttackConfig, AttackEngine, RuntimeFlags
 from flickering_adversarial_video_tpu_torch.models import video_resnet as tvr
 from flickering_adversarial_video_tpu_torch.models.registry import MODEL_REGISTRY, create_model
+from flickering_adversarial_video_tpu_torch.ops import accounting, bn_epilogue
 
 VARIANTS = ("r3d_18", "mc3_18", "r2plus1d_18", "r2plus1d_34")
 K, B, FRAMES, SIZE = 7, 2, 4, 16
@@ -139,7 +143,18 @@ def _power_of_4_var(rng, c, eps=np.float32(1e-5)):
     return var
 
 
+def _batch_norm3d(weight, bias, mean, var, relu=False):
+    """The port's ``BatchNorm3d`` holding these statistics, on the CPU."""
+    bn = tvr.BatchNorm3d(weight.numel(), "cpu", relu=relu)
+    bn.load_state_dict({"weight": weight, "bias": bias, "running_mean": mean,
+                        "running_var": var, "num_batches_tracked": torch.tensor(0)})
+    return bn
+
+
 class TestBatchNorm:
+    """``BatchNorm3d`` as the model runs it on the CPU (the plain path of
+    ``ops/bn_epilogue``) against flax's ``BatchNorm``."""
+
     C = 45
 
     def _case(self, exact_rsqrt):
@@ -160,8 +175,8 @@ class TestBatchNorm:
         f = jax.jit(f) if jit else f
         want = np.asarray(f({"params": p, "batch_stats": s}, jnp.asarray(x).astype(jdt))
                           .astype(jnp.float32))
-        got = tvr.batch_norm(torch.from_numpy(x).to(tdt), *(torch.from_numpy(a) for a in (
-            p["scale"], p["bias"], s["mean"], s["var"])))
+        got = _batch_norm3d(*(torch.from_numpy(a) for a in (
+            p["scale"], p["bias"], s["mean"], s["var"])))(torch.from_numpy(x).to(tdt))
         assert got.dtype == tdt
         return got.float().numpy(), want
 
@@ -177,6 +192,115 @@ class TestBatchNorm:
     def test_any_statistics_within_the_rsqrt_ulp(self):
         got, want = self._both(*self._case(False), jnp.float32, torch.float32)
         np.testing.assert_allclose(got, want, rtol=4 * 2.0 ** -23, atol=1e-6)
+
+
+# epilogue: (residual added, ReLU)
+EPILOGUES = {"bn_relu": (False, True), "bn": (False, False), "bn_residual_relu": (True, True)}
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _epilogue_inputs(c, dtype, seed=5):
+    """x, residual and g [2,3,4,5,c] holding NaN, +-inf and -0 (x's -0 in
+    channel 0, whose mean is 0 and bias -0, so a -0 reaches the ReLU), and
+    f32 statistics with one channel of weight 0 (inf * 0 there)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def special(t):
+        flat = t.view(-1)
+        idx = torch.randperm(flat.numel(), generator=gen)[:40]
+        for k, v in enumerate((float("nan"), float("inf"), float("-inf"), -0.0)):
+            flat[idx[k::4]] = v
+        return t
+
+    shape = (2, 3, 4, 5, c)
+    x = special(torch.randn(*shape, generator=gen) * 3)
+    x[..., 0].view(-1)[:5] = -0.0
+    res, g = (special(torch.randn(*shape, generator=gen)) for _ in range(2))
+    weight = torch.rand(c, generator=gen) * 1.5 + 0.5
+    weight[1] = 0.0
+    bias = torch.randn(c, generator=gen) * 0.1
+    mean = torch.randn(c, generator=gen) * 0.1
+    bias[0], mean[0] = -0.0, 0.0
+    var = torch.rand(c, generator=gen) + 0.5
+    return x.to(dtype), res.to(dtype), g.to(dtype), weight, bias, mean, var
+
+
+def _chain_batch_norm(x, weight, bias, mean, var):
+    """The batch-norm of the module chain that B12 replaced: f32 broadcast
+    passes over x, then one cast to x's dtype."""
+    return ((x - mean) * (torch.rsqrt(var + tvr.BN_EPS) * weight) + bias).to(x.dtype)
+
+
+class TestBNEpilogue:
+    """``ops/bn_epilogue`` (B12) through ``BatchNorm3d``: its plain path,
+    what the wrapper computes on a CPU tensor, against the module chain it
+    replaces (the batch-norm, then ``nn.ReLU``, or the BasicBlock's
+    ``torch.relu(bn + residual)``), bit for bit: the output and the gradient
+    of x and of the residual."""
+
+    @pytest.mark.parametrize("c", [45, 64, 230])
+    @pytest.mark.parametrize("epilogue", list(EPILOGUES))
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_plain_path_is_the_module_chain(self, dtype, epilogue, c):
+        residual, relu = EPILOGUES[epilogue]
+        x, res, g, weight, bias, mean, var = _epilogue_inputs(c, dtype)
+        xa, ra = x.clone().requires_grad_(True), res.clone().requires_grad_(True)
+        want = _chain_batch_norm(xa, weight, bias, mean, var)
+        if residual:
+            want = torch.relu(want + ra)
+        elif relu:
+            want = torch.nn.ReLU()(want)
+        want.backward(g)
+
+        bn = _batch_norm3d(weight, bias, mean, var, relu=relu)
+        xb, rb = x.clone().requires_grad_(True), res.clone().requires_grad_(True)
+        got = bn.epilogue(xb, rb, True) if residual else bn(xb)
+        got.backward(g)
+        assert got.dtype == dtype and got.isnan().any()
+        assert torch.equal(_bits(got), _bits(want))
+        assert torch.equal(_bits(xb.grad), _bits(xa.grad))
+        if residual:
+            assert torch.equal(_bits(rb.grad), _bits(ra.grad))
+        else:
+            assert rb.grad is None
+
+    @pytest.mark.parametrize("variant,n", [("r3d_18", 20), ("mc3_18", 20), ("r2plus1d_18", 37),
+                                           ("r2plus1d_34", 69)])
+    def test_a_train_step_records_one_epilogue_a_batch_norm_each_way(self, variant, n):
+        """A CPU train step records one B12f and one B12b for each of the
+        model's batch-norms (r2plus1d_18: 2 in the stem, 4 a block, 3 on the
+        shortcuts), and launches nothing."""
+        engine = AttackEngine(_model(variant, _state(variant)), TorchStyleFlickerSpec(FRAMES),
+                              AttackConfig(norm_world="meanstd", reg_weighting="torch"))
+        rng = np.random.default_rng(0)
+        batch = {"video": rng.integers(0, 256, (1, FRAMES, SIZE, SIZE, 3), dtype=np.uint8),
+                 "labels": np.zeros(1, np.int64)}
+        before = ops.launch_counts()
+        with accounting.recording() as step:
+            engine._train_step(engine.init_state(), *engine.prepare_batch(batch), RuntimeFlags())
+        assert ops.launch_counts() == before
+        assert step.counts() == {"B12f": n, "B12b": n}
+
+    def test_operand_checks(self):
+        x = torch.zeros(2, 3, 8)
+        ok = torch.zeros(8)
+        with pytest.raises(ValueError):
+            bn_epilogue.bn_epilogue_fwd(x, ok, torch.zeros(7), ok)
+        with pytest.raises(TypeError):
+            bn_epilogue.bn_epilogue_fwd(x, ok, ok.double(), ok)
+        with pytest.raises(ValueError):
+            bn_epilogue.bn_epilogue_fwd(x, ok, ok, ok, residual=torch.zeros(2, 8))
+        with pytest.raises(ValueError):
+            bn_epilogue.bn_epilogue_bwd(x, ok, y=torch.zeros(3, 8))
+        with pytest.raises(ValueError, match="only before a ReLU"):
+            bn_epilogue.bn_epilogue_fwd(x, ok, ok, ok, residual=x)
+        with pytest.raises(ValueError, match="only before a ReLU"):
+            bn_epilogue.bn_epilogue_bwd(x, ok, residual=True)
+        with pytest.raises(ValueError, match="table on meta"):
+            bn_epilogue.bn_epilogue_fwd(x, ok, ok.to("meta"), ok)
 
 
 class TestWeightFiles:
